@@ -1,0 +1,653 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch/CUDA port (``patrol_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero; nothing is caught and skipped):
+
+1. Build every CUDA kernel from ``patrol_tpu_torch/csrc`` (nvcc, sm_90a)
+   and print the card's name and power limit.
+2. Hold each kernel against its plain PyTorch version on the card, at the
+   shapes of the main path (state 1,000,000 buckets × 64 lanes): the pair
+   join (8192 pairs with duplicates, FOLD_PAD_ROW sentinels and values past
+   2^32, plus a commit ring of 8 blocks), the row join (512 dense rows) and
+   take-n (4096 rows, with padding rows aliasing a live row 0, negative
+   balances, zero rates, count <= 0 and an fp64 refill corpus). int64 must
+   be equal bit for bit (tolerance 0). Each kernel is timed beside its
+   plain version, its bound and, where one exists, the PyTorch library call
+   that computes the same function.
+3. The main path: the port's ``Command`` serving on the asyncio front
+   (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
+   lane trailers from lanes 1..63 through ``TPURepo.apply_delta``, 50k takes
+   (uniform keys plus a Zipf(1.25) hot-key crowd) through ``submit_take``,
+   and a few dozen real HTTP requests. The launch counters are zeroed just
+   before and read just after; every kernel must have launched. The same
+   trace replays through a second engine on the CPU (the plain versions):
+   per-ticket outcomes and the final planes must be identical.
+4. Print the ``kernels`` JSON line, the nvidia-smi line, and as the last
+   line ``{"ok": true, "device": {...}}``.
+
+Exits nonzero without printing a result when no CUDA device is available,
+or when run from a directory that holds this script without the package.
+Details (build log, all numbers) go to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import http.client
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BUCKETS, LANES = 1_000_000, 64
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+SCALAR_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
+NANO = 1_000_000_000
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
+
+
+def bound(nbytes: float, nops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(torch, fn, reps: int = 5, n: int = 20) -> float:
+    """Median over ``reps`` batches of the mean device time of ``n``
+    back-to-back calls. A spin kernel queued first lets the host enqueue
+    the whole batch before the device reaches it, so the events bracket
+    device work, not host launch overhead (for calls that do not
+    synchronise; those that do are measured as they run)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(reps):
+        torch.cuda._sleep(50_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        means.append(start.elapsed_time(end) / n)
+    return statistics.median(means)
+
+
+def check(cond, msg: str) -> None:
+    """A smoke check that stays on under ``python -O``."""
+    if not cond:
+        raise AssertionError(msg)
+
+
+def check_equal(torch, name: str, a, b) -> int:
+    """Hold a kernel's output to its plain version's: → max |a - b| as
+    measured (every value compared here is below 2^62, so the int64
+    difference does not wrap); raises unless it is 0."""
+    err = int((a - b).abs().max()) if a.numel() else 0
+    if err != 0 or not torch.equal(a, b):
+        diff = int((a != b).sum())
+        raise AssertionError(f"{name}: kernel and plain version differ in {diff} elements")
+    return err
+
+
+# -- phase 2: each kernel against its plain version ------------------------
+
+
+def join_checks(torch, jk, dev, rng):
+    from patrol_tpu_torch.ops.merge import FOLD_PAD_ROW
+
+    big = 1 << 40
+    base_pn = torch.from_numpy(
+        rng.integers(0, big, size=(BUCKETS, LANES, 2), dtype=np.int64)
+    ).to(dev)
+    base_el = torch.from_numpy(rng.integers(0, big, size=BUCKETS, dtype=np.int64)).to(dev)
+
+    # Pair join: 8192 pairs, duplicates (a quarter on 64 hot rows), 256
+    # sentinel pairs, values past 2^32.
+    k = 8192
+    rows = rng.integers(0, BUCKETS, k)
+    rows[: k // 4] = rng.integers(0, 64, k // 4)
+    rows[-256:] = FOLD_PAD_ROW + np.arange(256)
+    slots = rng.integers(0, LANES, k)
+    vals = rng.integers(0, 2 * big, size=(3, k))
+    args = [torch.from_numpy(np.ascontiguousarray(x, np.int64)).to(dev)
+            for x in (rows, slots, vals[0], vals[1], rows, vals[2])]
+    pk, ek = base_pn.clone(), base_el.clone()
+    pp, ep = base_pn.clone(), base_el.clone()
+    jk.pair_join(pk, ek, *args)
+    jk.pair_join_plain(pp, ep, *args)
+    torch.cuda.synchronize()
+    pair_err = max(check_equal(torch, "pair_join pn", pk, pp),
+                   check_equal(torch, "pair_join elapsed", ek, ep))
+
+    # Commit ring: 8 blocks of 8192 unique sorted pairs, flattened.
+    from patrol_tpu_torch.ops import commit as commit_mod
+    from patrol_tpu_torch.runtime.engine import DeltaArrays, fold_core
+
+    n = 8 * 8192 - 1000
+    d = DeltaArrays(
+        rng.integers(0, BUCKETS, n), rng.integers(0, LANES, n),
+        rng.integers(0, 2 * big, n), rng.integers(0, 2 * big, n),
+        rng.integers(0, 2 * big, n), np.zeros(n, bool),
+    )
+    ring = commit_mod.pack_commit_blocks(*fold_core(d), 8192)
+    check(ring.shape[1] == 8, f"commit ring has {ring.shape[1]} blocks, want 8")
+    ring_t = torch.from_numpy(ring).to(dev)
+    flat = [ring_t[i].reshape(-1).contiguous() for i in range(6)]
+    jk.pair_join(pk, ek, *flat)
+    jk.pair_join_plain(pp, ep, *flat)
+    torch.cuda.synchronize()
+    pair_err = max(pair_err, check_equal(torch, "commit ring pn", pk, pp),
+                   check_equal(torch, "commit ring elapsed", ek, ep))
+
+    # Row join: 512 dense rows (the fold's ceiling), 8 of them sentinels.
+    r = 512
+    drows = rng.choice(BUCKETS, r, replace=False)
+    drows[-8:] = FOLD_PAD_ROW + np.arange(8)
+    upd = rng.integers(0, 2 * big, size=(r, LANES, 2))
+    upd[:, ::3] = 0  # untouched lanes carry zeros
+    dargs = [torch.from_numpy(np.ascontiguousarray(x, np.int64)).to(dev)
+             for x in (drows, upd, rng.integers(0, 2 * big, r))]
+    jk.row_join(pk, ek, *dargs)
+    jk.row_join_plain(pp, ep, *dargs)
+    torch.cuda.synchronize()
+    row_err = max(check_equal(torch, "row_join pn", pk, pp),
+                  check_equal(torch, "row_join elapsed", ek, ep))
+
+    # Timing at the checked shapes.
+    live = rows < BUCKETS
+    uniq_pairs = len(np.unique(rows[live] * LANES + slots[live]))
+    uniq_rows = len(np.unique(rows[live]))
+    ok_t = args[0] < BUCKETS
+    lib_idx = (args[0][ok_t] * LANES + args[1][ok_t]).unsqueeze(1).expand(-1, 2).contiguous()
+    lib_src = torch.stack([args[2][ok_t], args[3][ok_t]], 1).contiguous()
+    lib_er, lib_ev = args[4][ok_t].contiguous(), args[5][ok_t].contiguous()
+    pn2 = pk.view(-1, 2)
+
+    def lib_pair():
+        pn2.scatter_reduce_(0, lib_idx, lib_src, reduce="amax", include_self=True)
+        ek.scatter_reduce_(0, lib_er, lib_ev, reduce="amax", include_self=True)
+
+    pair_bytes = 8 * (6 * k) + 2 * 16 * uniq_pairs + 2 * 8 * uniq_rows
+    pair = {
+        "ms": device_ms(torch, lambda: jk.pair_join(pk, ek, *args)),
+        "plain_ms": device_ms(torch, lambda: jk.pair_join_plain(pp, ep, *args)),
+        "library_ms": device_ms(torch, lib_pair),
+        "bytes": pair_bytes,
+        "ops": 3 * k,
+        "max_abs_err": pair_err,
+    }
+    live_r = drows < BUCKETS
+    rlib_idx = dargs[0][torch.from_numpy(live_r).to(dev)].view(-1, 1, 1).expand(-1, LANES, 2).contiguous()
+    rlib_src = dargs[1][torch.from_numpy(live_r).to(dev)].contiguous()
+
+    def lib_row():
+        pk.scatter_reduce_(0, rlib_idx, rlib_src, reduce="amax", include_self=True)
+
+    nr = int(live_r.sum())
+    row_bytes = 8 * (r + r * LANES * 2 + r) + 2 * (nr * LANES * 16 + nr * 8)
+    row = {
+        "ms": device_ms(torch, lambda: jk.row_join(pk, ek, *dargs)),
+        "plain_ms": device_ms(torch, lambda: jk.row_join_plain(pp, ep, *dargs)),
+        "library_ms": device_ms(torch, lib_row),
+        "bytes": row_bytes,
+        "ops": r * (2 * LANES + 1),
+        "max_abs_err": row_err,
+    }
+    del base_pn, base_el, pk, ek, pp, ep, pn2
+    return pair, row
+
+
+def take_inputs(rng):
+    """State and a packed [8, 4096] take tick with every hazard case."""
+    k = 4096
+    pn = np.zeros((BUCKETS, LANES, 2), np.int64)
+    el = np.zeros(BUCKETS, np.int64)
+    live = 3584
+    rows = rng.choice(np.arange(1, BUCKETS), live, replace=False)
+    rows[7] = 0  # row 0 is live; the padding tail aliases it
+    pn[rows] = rng.integers(0, 4 * NANO, size=(live, LANES, 2))
+    neg = rows[: live // 4]
+    pn[neg, :, 1] += rng.integers(0, 8 * NANO, size=(len(neg), LANES))  # TAKEN > ADDED
+    el[rows] = rng.integers(0, 50 * NANO, live)
+    p = np.zeros((8, k), np.int64)
+    p[0, :live] = rows
+    p[1, :live] = 1000 * NANO + rng.integers(0, 100 * NANO, live)
+    p[2, :live] = rng.choice([0, 1, 3, 10, 1000], live)
+    p[3, :live] = rng.choice([0, 1, NANO, 3 * NANO + 1, 60 * NANO], live)
+    p[4, :live] = rng.choice([-NANO, 0, NANO, 2 * NANO, 3 * NANO + 1], live)
+    p[5, :live] = rng.integers(1, 6, live)
+    p[6, :live] = rng.choice([0, NANO, 10 * NANO, 3 * NANO + 5], live)
+    p[7, :live] = rng.integers(0, 1000 * NANO, live)
+    # fp64 refill corpus on 256 rows: near-integer quotients, interval 1,
+    # huge deltas; a deep debit keeps the raw grant visible in `have`.
+    fp = slice(live - 256, live)
+    intervals = rng.choice([1, 3, 7, 999_999_937, 10**12 + 39, (1 << 40) + 1], 256)
+    mult = rng.choice([1, 3, 10**6 + 1, 10**9 + 7], 256)
+    delta = np.clip(intervals * mult + rng.integers(-1, 2, 256), 0, (1 << 62) - 1)
+    frows = p[0, fp]
+    pn[frows] = 0
+    pn[frows, 0, 1] = 1 << 61
+    el[frows] = 0
+    p[1, fp] = delta
+    p[2, fp] = 1
+    p[3, fp] = intervals
+    p[4, fp] = NANO
+    p[5, fp] = 1
+    p[6, fp] = 0
+    p[7, fp] = 0
+    # Columns live..k stay zero: padding rows (row 0, nreq 0).
+    return pn, el, p
+
+
+def take_checks(torch, tk, dev, rng):
+    pn, el, p = take_inputs(rng)
+    base_pn, base_el = torch.from_numpy(pn).to(dev), torch.from_numpy(el).to(dev)
+    packed = torch.from_numpy(p).to(dev)
+    pk, ek = base_pn.clone(), base_el.clone()
+    pp, ep = base_pn.clone(), base_el.clone()
+    out_k = tk.take_n(pk, ek, packed, 0)
+    out_p = tk.take_n_plain(pp, ep, packed, 0)
+    torch.cuda.synchronize()
+    err = max(check_equal(torch, "take_n results", out_k, out_p),
+              check_equal(torch, "take_n pn", pk, pp),
+              check_equal(torch, "take_n elapsed", ek, ep))
+    adm = out_k[1].cpu().numpy()
+    check((adm > 1).sum() > 100 and (adm == 0).sum() > 100, "take_n corpus is vacuous")
+    pad = p[5] <= 0
+    check(pad.sum() > 0 and not out_k[:, torch.from_numpy(pad).to(dev)].any(),
+          "take_n padding columns are not zero")
+    k = p.shape[1]
+    live = int((~pad).sum())
+    committing = int((adm >= 1).sum())
+    # Bytes: the packed input and the result once each, each distinct live
+    # row's lane plane and elapsed read once (padding columns read no
+    # state), and the own lane and elapsed of committing rows written.
+    gathered = len(np.unique(p[0][~pad])) * (LANES * 16 + 8)
+    take_bytes = 8 * (8 * k) + gathered + 8 * (7 * k) + committing * 24
+    # The same launch on a tick of padding columns only: no gather, no
+    # commit — the kernel's fixed cost at this K.
+    idle = torch.zeros_like(packed)
+    res = {
+        "ms": device_ms(torch, lambda: tk.take_n(pk, ek, packed, 0)),
+        "plain_ms": device_ms(torch, lambda: tk.take_n_plain(pp, ep, packed, 0)),
+        "padding_only_ms": device_ms(torch, lambda: tk.take_n(pk, ek, idle, 0)),
+        "library_ms": None,
+        "bytes": take_bytes,
+        "ops": live * (2 * LANES + 40),
+        "max_abs_err": err,
+    }
+    del base_pn, base_el, pk, ek, pp, ep
+    return res
+
+
+# -- phase 3: the main path -------------------------------------------------
+
+
+class Clock:
+    def __init__(self, now: int):
+        self.now = now
+
+    def __call__(self) -> int:
+        return self.now
+
+
+class Node:
+    """Runs a Command on its own asyncio loop thread until closed."""
+
+    def __init__(self, cmd):
+        self.cmd = cmd
+        self.loop = asyncio.new_event_loop()
+        self.stop_ev = None
+        self.error = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        deadline = time.monotonic() + 300
+        while not cmd.started.is_set():
+            if self.error is not None:
+                raise self.error
+            if time.monotonic() > deadline:
+                raise TimeoutError("the port's Command did not start serving")
+            time.sleep(0.01)
+
+    def _run(self):
+        asyncio.set_event_loop(self.loop)
+
+        async def main():
+            self.stop_ev = asyncio.Event()
+            await self.cmd.run(self.stop_ev)
+
+        try:
+            self.loop.run_until_complete(main())
+        except BaseException as exc:
+            self.error = exc
+        finally:
+            self.loop.close()
+
+    def close(self):
+        self.loop.call_soon_threadsafe(self.stop_ev.set)
+        self.thread.join(60)
+        if self.thread.is_alive():
+            raise RuntimeError("the port's Command did not shut down")
+        if self.error is not None:
+            raise self.error
+
+
+def make_trace(rng):
+    """Deltas and takes of the main path, made from the seed. One
+    (rate, count) key per name, so the outcome of the trace does not
+    depend on how its tickets fall into ticks."""
+    n_names = 200_000
+    uni = rng.integers(0, n_names, 98_000)
+    lanes = rng.integers(1, LANES, 98_000)
+    hot_delta_names = [f"k{i}" for i in range(4)]
+    deltas = []
+    for i, lane in zip(uni.tolist(), lanes.tolist()):
+        deltas.append((f"k{i}", lane))
+    hot_burst = [(n, lane) for _ in range(8) for n in hot_delta_names for lane in range(1, LANES)]
+    vals = rng.integers(0, 6 * NANO, size=(len(deltas) + len(hot_burst), 3))
+    caps = np.array([10 * NANO, 100 * NANO, 5 * NANO])
+    # Takes: half uniform over the name space, half a Zipf(1.25) crowd over
+    # 1000 hot names, interleaved.
+    ranks = np.arange(1, 1001)
+    pz = ranks ** -1.25
+    pz /= pz.sum()
+    zipf = rng.choice(1000, 25_000, p=pz)
+    uni_t = rng.integers(0, n_names, 25_000)
+    takes = []
+    for a, b in zip(uni_t.tolist(), zipf.tolist()):
+        takes.append(f"k{a}")
+        takes.append(f"k{b}")
+    return deltas, hot_burst, vals, caps, takes
+
+
+def rate_of(name: str):
+    from patrol_tpu_torch.ops.rate import Rate
+
+    i = int(name[1:])
+    freq, per = [(10, NANO), (100, 60 * NANO), (5, NANO)][i % 3]
+    return Rate(freq=freq, per_ns=per), 1 + (i % 7 == 0)
+
+
+def delta_state(name: str, lane: int, v, caps):
+    from patrol_tpu_torch.ops import wire
+
+    i = int(name[1:])
+    cap = int(caps[i % 3])
+    a, t, e = (int(x) for x in v)
+    return wire.from_nanotokens(
+        name, cap + a, t, e, origin_slot=lane, cap_nt=cap,
+        lane_added_nt=a, lane_taken_nt=t,
+    )
+
+
+HTTP_SCRIPT = [
+    ("POST", "/take/http-demo?rate=5:1m&count=1"),
+    ("POST", "/take/http-demo?rate=5:1m&count=1"),
+    ("POST", "/take/http-demo?rate=5:1m&count=2"),
+    ("POST", "/take/http-demo?rate=5:1m&count=1"),
+    ("POST", "/take/http-demo?rate=5:1m&count=1"),
+    ("POST", "/take/http-demo?rate=5:1m&count=1"),
+    ("GET", "/tokens/http-demo"),
+    ("GET", "/tokens/nobody-here"),
+    ("POST", "/take_batch?" + "&".join(["t=http-hot,3:1m,1"] * 8) + "&t=k3,10:1s,1"),
+    ("POST", "/take/" + "x" * 232 + "?rate=1:1s"),
+    ("GET", "/take/http-demo"),
+    ("GET", "/take_batch"),
+    ("POST", "/take/k1?rate=100:1m&count=1"),
+    *[("POST", f"/take/http-{i}?rate=2:1s") for i in range(20)],
+    ("GET", "/metrics"),
+]
+# Answers known in advance (a fresh 5-token bucket drained at a frozen
+# clock, and the reference's error routes); every take route is also held
+# to the CPU replay's ticket.
+HTTP_EXPECT = {
+    0: (200, b"4"), 1: (200, b"3"), 2: (200, b"1"), 3: (200, b"0"),
+    4: (429, b"0"), 5: (429, b"0"), 6: (200, b"0"), 7: (404, b"unknown bucket\n"),
+    9: (400, b"bucket name larger than 231"), 10: (405, b"method not allowed\n"),
+    11: (405, b"method not allowed\n"),
+}
+
+
+def drive_http(port):
+    out = []
+    for method, target in HTTP_SCRIPT:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request(method, target)
+        resp = conn.getresponse()
+        out.append((resp.status, resp.read()))
+        conn.close()
+    return out
+
+
+def run_trace(engine, repo, trace, hold=False):
+    """Drive deltas then takes through the repo facade; → (outcomes,
+    seconds for deltas, seconds for takes). With ``hold`` the engine's
+    state lock is held while a burst queues (the feeder parks at its next
+    dispatch), so the first uniform burst drains as one multi-block commit
+    ring and the hot-row burst as one fold with dense rows — what a flood
+    does to a busy node."""
+    deltas, hot_burst, vals, caps, takes = trace
+    cut = 30_000
+    phases = (
+        (deltas[:cut], 0, hold),
+        (deltas[cut:], cut, False),
+        (hot_burst, len(deltas), hold),
+    )
+    t0 = time.perf_counter()
+    for items, offset, held in phases:
+        if held:
+            engine._state_mu.acquire()
+        try:
+            for j, (name, lane) in enumerate(items):
+                repo.apply_delta(delta_state(name, lane, vals[offset + j], caps), lane)
+        finally:
+            if held:
+                engine._state_mu.release()
+    check(engine.flush(600), "delta flush timed out")
+    t_deltas = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tickets = []
+    for name in takes:
+        rate, count = rate_of(name)
+        tickets.append(repo.submit_take(name, rate, count))
+    check(engine.flush(600), "take flush timed out")
+    t_takes = time.perf_counter() - t0
+    for t in tickets:
+        check(t.wait(60), "a take ticket never completed")
+    return [(t.ok, t.remaining) for t in tickets], t_deltas, t_takes
+
+
+def replay_http(repo):
+    """The HTTP script's takes as direct repo calls, in order; → the
+    (status, body) each take route must have answered."""
+    from patrol_tpu_torch.ops.rate import parse_rate
+
+    want = {}
+    for i, (method, target) in enumerate(HTTP_SCRIPT):
+        path, _, query = target.partition("?")
+        if method != "POST":
+            continue
+        if path.startswith("/take/") and len(path) - len("/take/") <= 231:
+            q = dict(kv.split("=") for kv in query.split("&"))
+            t = repo.submit_take(path[len("/take/"):], parse_rate(q["rate"]), int(q.get("count", "1")))
+            check(t.wait(60), "a take ticket never completed")
+            want[i] = (200 if t.ok else 429, str(t.remaining).encode())
+        elif path == "/take_batch" and query:
+            entries = [part[2:].split(",") for part in query.split("&")]
+            res = repo.submit_takes_batch(
+                [e[0] for e in entries], [parse_rate(e[1]) for e in entries],
+                [int(e[2]) for e in entries],
+            )
+            lines = []
+            for t, _ in res:
+                check(t.wait(60), "a take ticket never completed")
+                lines.append(b"%d %d" % (200 if t.ok else 429, t.remaining))
+            want[i] = (200, b"\n".join(lines) + b"\n")
+    return want
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import patrol_tpu_torch  # noqa: F401  (fails when run without the repo)
+    from patrol_tpu_torch.command import Command
+    from patrol_tpu_torch.models.limiter import LimiterConfig
+    from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.ops import join_kernel as jk
+    from patrol_tpu_torch.ops import take_kernel as tk
+    from patrol_tpu_torch.runtime.engine import DeviceEngine
+    from patrol_tpu_torch.runtime.repo import TPURepo
+    from patrol_tpu_torch.utils import histogram as hist_mod
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    report: dict = {}
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    report["nvidia_smi"] = smi
+    report["torch"] = [torch.__version__, torch.version.cuda]
+    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # 1. Build.
+    t0 = time.perf_counter()
+    so = _build.build()
+    _build.lib()
+    report["build_s"] = time.perf_counter() - t0
+    report["build_log"] = (so.parent / "build.log").read_text() if (so.parent / "build.log").exists() else ""
+    log(f"kernels built in {report['build_s']:.1f}s: {so}")
+
+    # 2. Kernels against their plain versions.
+    rng = np.random.default_rng(20261016)
+    pair, row = join_checks(torch, jk, dev, rng)
+    torch.cuda.empty_cache()
+    take = take_checks(torch, tk, dev, rng)
+    torch.cuda.empty_cache()
+    log(f"pair_join {pair['ms']:.4f} ms, row_join {row['ms']:.4f} ms, take_n {take['ms']:.4f} ms "
+        f"(padding columns only {take['padding_only_ms']:.4f} ms)")
+    report["kernel_detail"] = {"pair_join": pair, "row_join": row, "take_n": take}
+
+    # 3. The main path.
+    trace = make_trace(np.random.default_rng(7))
+    clock_now = 1_700_000_000 * NANO
+    cfg = LimiterConfig(buckets=BUCKETS, nodes=LANES)
+    cmd = Command(
+        api_addr="127.0.0.1:0", clock=Clock(clock_now), config=cfg,
+        handle_signals=False, warmup=True, device="cuda",
+    )
+    node = Node(cmd)
+    try:
+        engine, repo = cmd.engine, cmd.repo
+        _build.reset_launches()
+        outcomes, t_deltas, t_takes = run_trace(engine, repo, trace, hold=True)
+        http_out = drive_http(cmd.api_port)
+        check(engine.flush(120), "flush after HTTP timed out")
+        launches = dict(_build.LAUNCHES)
+        # The engine's stage histograms over the main path (count, sum,
+        # p50, p99 in their unit): where the host and device time went.
+        stages = {
+            name: h for name, h in hist_mod.HISTOGRAMS.snapshot().items()
+            if isinstance(h, dict) and h.get("count")
+        }
+        gpu_pn, gpu_el = engine.snapshot_planes()
+        ticks = engine.ticks
+    finally:
+        node.close()
+    log(f"main path: launches {launches}, ticks {ticks}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+
+    # The same trace, then the HTTP script's takes, through a CPU engine
+    # (the kernels' plain versions).
+    ceng = DeviceEngine(cfg, node_slot=0, clock=Clock(clock_now), device="cpu")
+    try:
+        crepo = TPURepo(ceng)
+        c_outcomes, _, _ = run_trace(ceng, crepo, trace)
+        http_want = replay_http(crepo)
+        check(ceng.flush(600), "CPU replay flush timed out")
+        cpu_pn, cpu_el = ceng.snapshot_planes()
+    finally:
+        ceng.stop()
+    if outcomes != c_outcomes:
+        bad = sum(a != b for a, b in zip(outcomes, c_outcomes))
+        raise AssertionError(f"{bad} take outcomes differ from the CPU replay")
+    http_want.update(HTTP_EXPECT)
+    for i, want in sorted(http_want.items()):
+        if http_out[i] != want:
+            raise AssertionError(f"HTTP {HTTP_SCRIPT[i]}: got {http_out[i]}, want {want}")
+    check(http_out[-1][0] == 200 and b"engine_ticks" in http_out[-1][1], "/metrics did not answer")
+    if not (np.array_equal(gpu_pn, cpu_pn) and np.array_equal(gpu_el, cpu_el)):
+        raise AssertionError("final planes differ from the CPU replay")
+    admitted = sum(ok for ok, _ in outcomes)
+    check(1000 < admitted < len(outcomes), f"{admitted} of {len(outcomes)} takes admitted")
+    del gpu_pn, gpu_el, cpu_pn, cpu_el
+
+    n_deltas = len(trace[0]) + len(trace[1])
+    main = {
+        "deltas": n_deltas,
+        "takes": len(outcomes),
+        "admitted": admitted,
+        "deltas_per_s": n_deltas / t_deltas,
+        "takes_per_s": len(outcomes) / t_takes,
+        "ticks": ticks,
+        "launches": launches,
+        "launches_per_tick": {name: n / ticks for name, n in launches.items()},
+        "stages": stages,
+    }
+    report["main_path"] = main
+    log(f"deltas/s {main['deltas_per_s']:.0f}  takes/s {main['takes_per_s']:.0f}")
+    print(f"takes_per_s {main['takes_per_s']:.1f} deltas_per_s {main['deltas_per_s']:.1f}")
+
+    # 4. The kernels line, the card, the contract line.
+    kernels = []
+    for name, src, replaces, m in (
+        ("pair_join", "patrol_tpu_torch/csrc/join.cu", "patrol_tpu/ops/pallas_merge.py:86", pair),
+        ("row_join", "patrol_tpu_torch/csrc/join.cu", "patrol_tpu/ops/pallas_merge.py:86", row),
+        ("take_n", "patrol_tpu_torch/csrc/take.cu", "patrol_tpu/ops/take.py:171", take),
+    ):
+        b_ms, b_by = bound(m["bytes"], m["ops"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": m["library_ms"],
+        })
+    report["kernels"] = kernels
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=2, default=str)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,82 @@
+"""The port stands alone: importing every module of ``patrol_tpu_torch``
+pulls in neither ``jax`` nor ``patrol_tpu``, and no port file imports
+either (an AST walk, so a lazy import inside a function is caught too).
+
+The import check runs in a subprocess, because this test process has
+already imported jax (``tests/conftest.py``)."""
+
+import ast
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import patrol_tpu_torch
+
+PKG_DIR = Path(patrol_tpu_torch.__file__).resolve().parent
+REPO = PKG_DIR.parent
+FORBIDDEN = ("jax", "jaxlib", "patrol_tpu")
+
+
+def _modules():
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages([str(PKG_DIR)], prefix="patrol_tpu_torch.")
+    )
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "patrol_tpu_torch.runtime.engine" in mods and len(mods) >= 25
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {mods!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'patrol_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    files = sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = {}
+    for path in files:
+        roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
+        bad = roots & set(FORBIDDEN)
+        if bad:
+            offenders[str(path.relative_to(REPO))] = sorted(bad)
+    assert len(files) > 25
+    assert offenders == {}
+
+
+def test_package_import_leaves_cuda_uninitialised():
+    # Importing the port must not build kernels or touch a card: the
+    # tests import every module on hosts without nvcc or a GPU.
+    code = (
+        "import torch, patrol_tpu_torch.runtime.engine, patrol_tpu_torch.ops._build as b\n"
+        "print(torch.cuda.is_initialized(), b._lib is None)\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["False", "True"]

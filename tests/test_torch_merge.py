@@ -1,0 +1,258 @@
+"""The scatter-max join of the PyTorch port against the JAX package.
+
+Every entry point of the port's join family — ``merge_batch``,
+``merge_batch_folded``, ``merge_rows_dense`` and ``commit_blocks``, all
+routed through the join kernel's wrappers (their plain version on a CPU
+state) — is held bit for bit to the JAX function of the same name, and
+``merge_batch`` also to the Pallas kernel ``merge_batch_pallas`` run in
+interpret mode as ``tests/test_pallas_merge.py`` runs it. Inputs come from
+a numpy seed; int64 equality is exact. The plain ops (``merge_scalar_batch``,
+``merge_dense``, ``zero_rows``, ``read_rows``) are held to theirs too.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from patrol_tpu.models.limiter import LimiterState as JState
+from patrol_tpu.ops import commit as jcommit
+from patrol_tpu.ops import merge as jmerge
+from patrol_tpu.ops import pallas_merge
+from patrol_tpu.runtime.engine import DeviceEngine as JEngine
+from patrol_tpu.runtime.engine import DeltaArrays as JDeltas
+from patrol_tpu.runtime.engine import fold_hybrid as j_fold_hybrid
+from patrol_tpu_torch.models.limiter import state_from_numpy, state_to_numpy
+from patrol_tpu_torch.ops import commit as tcommit
+from patrol_tpu_torch.ops import join_kernel
+from patrol_tpu_torch.ops import merge as tmerge
+from patrol_tpu_torch.runtime import engine as tengine
+
+R = pallas_merge.ROWS_PER_BLOCK
+B, N = 4 * R, 8
+BIG = 1 << 40  # values past 2^32 exercise the full int64 width
+
+
+def base_state(rng, zero=False):
+    if zero:
+        return np.zeros((B, N, 2), np.int64), np.zeros(B, np.int64)
+    return (
+        rng.integers(0, BIG, size=(B, N, 2), dtype=np.int64),
+        rng.integers(0, BIG, size=(B,), dtype=np.int64),
+    )
+
+
+def rand_deltas(rng, k, dup_rows=None):
+    rows = rng.integers(0, B, k) if dup_rows is None else rng.choice(dup_rows, k)
+    return (
+        rows.astype(np.int64),
+        rng.integers(0, N, k).astype(np.int64),
+        rng.integers(0, 2 * BIG, k).astype(np.int64),
+        rng.integers(0, 2 * BIG, k).astype(np.int64),
+        rng.integers(0, 2 * BIG, k).astype(np.int64),
+    )
+
+
+def jstate(pn, el):
+    return JState(pn=jnp.asarray(pn), elapsed=jnp.asarray(el))
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.int64))
+
+
+def assert_planes(tstate, jst):
+    tpn, tel = state_to_numpy(tstate)
+    np.testing.assert_array_equal(tpn, np.asarray(jst.pn))
+    np.testing.assert_array_equal(tel, np.asarray(jst.elapsed))
+
+
+CASES = {
+    "random": dict(k=300),
+    "duplicates": dict(k=400, dup_rows=[3, 3, 17, R + 1]),
+    "single": dict(k=1),
+    "wide": dict(k=2000),
+}
+
+
+@pytest.mark.parametrize("zero_base", [True, False])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_merge_batch(case, zero_base):
+    rng = np.random.default_rng(2 * sorted(CASES).index(case) + zero_base)
+    pn, el = base_state(rng, zero_base)
+    rows, slots, a, tk, e = rand_deltas(rng, CASES[case]["k"], CASES[case].get("dup_rows"))
+    want = jmerge.merge_batch(
+        jstate(pn, el),
+        jmerge.MergeBatch(
+            jnp.asarray(rows, jnp.int32), jnp.asarray(slots, jnp.int32),
+            jnp.asarray(a), jnp.asarray(tk), jnp.asarray(e),
+        ),
+    )
+    got = tmerge.merge_batch(
+        state_from_numpy(pn, el, "cpu"), tmerge.MergeBatch(t(rows), t(slots), t(a), t(tk), t(e))
+    )
+    assert_planes(got, want)
+
+
+@pytest.mark.skipif(not pallas_merge.available(), reason="pallas unavailable")
+@pytest.mark.parametrize("seed", [1, 2])
+def test_merge_batch_matches_pallas_interpret(seed):
+    rng = np.random.default_rng(seed)
+    pn, el = base_state(rng, zero=seed == 1)
+    rows, slots, a, tk, e = rand_deltas(rng, 300, dup_rows=[0, 5, R, 3 * R + 2] if seed == 2 else None)
+    want = pallas_merge.merge_batch_pallas(
+        jstate(pn, el), rows, slots, a, tk, e, interpret=True
+    )
+    got = tmerge.merge_batch(
+        state_from_numpy(pn, el, "cpu"), tmerge.MergeBatch(t(rows), t(slots), t(a), t(tk), t(e))
+    )
+    assert_planes(got, want)
+
+
+def _folded(rng, k):
+    rows, slots, a, tk, e = rand_deltas(rng, k, dup_rows=rng.integers(0, B, k // 4))
+    deltas = tengine.DeltaArrays(rows, slots, a, tk, e, np.zeros(k, bool))
+    return tengine.pack_folded(*tengine.fold_core(deltas)), deltas
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5])
+def test_merge_batch_folded_with_sentinels(seed):
+    rng = np.random.default_rng(seed)
+    pn, el = base_state(rng, zero=seed == 3)
+    packed, deltas = _folded(rng, 500)
+    # The port's fold packs exactly the reference engine's matrix...
+    np.testing.assert_array_equal(
+        packed, JEngine._fold_lane_merges(JDeltas(*deltas))
+    )
+    # ...whose FOLD_PAD_ROW sentinel tail the join drops.
+    assert (packed[0] >= tmerge.FOLD_PAD_ROW).any()
+    want = jmerge.merge_batch_folded(
+        jstate(pn, el),
+        jmerge.FoldedMergeBatch(
+            jnp.asarray(packed[0], jnp.int32), jnp.asarray(packed[1], jnp.int32),
+            jnp.asarray(packed[2]), jnp.asarray(packed[3]),
+            jnp.asarray(packed[4], jnp.int32), jnp.asarray(packed[5]),
+        ),
+    )
+    got = tmerge.merge_batch_folded(
+        state_from_numpy(pn, el, "cpu"), tmerge.FoldedMergeBatch(*t(packed).unbind(0))
+    )
+    assert_planes(got, want)
+
+
+@pytest.mark.parametrize("seed", [6, 7])
+def test_merge_rows_dense_via_fold_hybrid(seed):
+    rng = np.random.default_rng(seed)
+    pn, el = base_state(rng, zero=seed == 6)
+    # A hot-row storm: few rows, every lane touched, so fold_hybrid
+    # splits off a dense batch (and pads it with sentinel rows).
+    rows, slots, a, tk, e = rand_deltas(rng, 600, dup_rows=[1, 9, R + 4, B - 1])
+    rows[:300] = rng.integers(0, B, 300)
+    deltas = tengine.DeltaArrays(rows, slots, a, tk, e, np.zeros(600, bool))
+    packed, dense = tengine.fold_hybrid(deltas, N, 4)
+    j_packed, j_dense = j_fold_hybrid(JDeltas(*deltas), N, 4)
+    assert dense is not None
+    np.testing.assert_array_equal(packed, j_packed)
+    for x, y in zip(dense, j_dense):
+        np.testing.assert_array_equal(x, y)
+    d_rows, d_upd, d_el = dense
+    want = jmerge.merge_rows_dense(
+        jstate(pn, el),
+        jmerge.RowDenseBatch(
+            jnp.asarray(d_rows, jnp.int32), jnp.asarray(d_upd), jnp.asarray(d_el)
+        ),
+    )
+    got = tmerge.merge_rows_dense(
+        state_from_numpy(pn, el, "cpu"), tmerge.RowDenseBatch(t(d_rows), t(d_upd), t(d_el))
+    )
+    assert_planes(got, want)
+
+
+@pytest.mark.parametrize("j", [2, 4])
+def test_commit_blocks_ring(j):
+    rng = np.random.default_rng(20 + j)
+    pn, el = base_state(rng)
+    block = 64
+    rows, slots, a, tk, e = rand_deltas(rng, j * block * 2)
+    deltas = tengine.DeltaArrays(rows, slots, a, tk, e, np.zeros(len(rows), bool))
+    ur, us, ua, ut, er, ee = tengine.fold_core(deltas)
+    ring = tcommit.pack_commit_blocks(ur, us, ua, ut, er, ee, block)
+    np.testing.assert_array_equal(
+        ring, jcommit.pack_commit_blocks(ur, us, ua, ut, er, ee, block)
+    )
+    assert tcommit.commit_shape(len(ur), block) == jcommit.commit_shape(len(ur), block)
+    want = jcommit.commit_blocks(
+        jstate(pn, el),
+        jcommit.CommitBlocks(
+            jnp.asarray(ring[0], jnp.int32), jnp.asarray(ring[1], jnp.int32),
+            jnp.asarray(ring[2]), jnp.asarray(ring[3]),
+            jnp.asarray(ring[4], jnp.int32), jnp.asarray(ring[5]),
+        ),
+    )
+    got = tcommit.commit_packed(state_from_numpy(pn, el, "cpu"), t(ring))
+    assert_planes(got, want)
+
+
+def test_merge_scalar_batch_deficit_attribution():
+    rng = np.random.default_rng(30)
+    pn, el = base_state(rng)
+    rows, slots, a, tk, e = rand_deltas(rng, 200, dup_rows=[2, 2, 40])
+    a = a * 4  # big aggregates so attribution is often positive
+    want = jmerge.merge_scalar_batch(
+        jstate(pn, el),
+        jmerge.MergeBatch(
+            jnp.asarray(rows, jnp.int32), jnp.asarray(slots, jnp.int32),
+            jnp.asarray(a), jnp.asarray(tk), jnp.asarray(e),
+        ),
+    )
+    got = tmerge.merge_scalar_batch(
+        state_from_numpy(pn, el, "cpu"), tmerge.MergeBatch(t(rows), t(slots), t(a), t(tk), t(e))
+    )
+    assert_planes(got, want)
+
+
+def test_merge_dense_zero_and_read_rows():
+    rng = np.random.default_rng(31)
+    pn, el = base_state(rng)
+    pn2, el2 = base_state(rng)
+    want = jmerge.merge_dense(jstate(pn, el), jstate(pn2, el2))
+    got = tmerge.merge_dense(
+        state_from_numpy(pn, el, "cpu"), state_from_numpy(pn2, el2, "cpu")
+    )
+    assert_planes(got, want)
+    zr = np.array([0, 5, 5, B - 1], np.int64)
+    want = jmerge.zero_rows(want, jnp.asarray(zr, jnp.int32))
+    got = tmerge.zero_rows(got, t(zr))
+    assert_planes(got, want)
+    rr = np.array([1, 5, 77], np.int64)
+    jr = jmerge.read_rows(want, jnp.asarray(rr, jnp.int32))
+    tr = tmerge.read_rows(got, t(rr))
+    np.testing.assert_array_equal(tr.pn.numpy(), np.asarray(jr.pn))
+    np.testing.assert_array_equal(tr.elapsed.numpy(), np.asarray(jr.elapsed))
+
+
+def test_out_of_range_entries_dropped_not_clamped():
+    pn = np.zeros((8, 2, 2), np.int64)
+    el = np.zeros(8, np.int64)
+    st = state_from_numpy(pn, el, "cpu")
+    rows = t([tmerge.FOLD_PAD_ROW, 8, -1, 3, 3])
+    slots = t([0, 0, 0, 2, 1])
+    vals = t([9, 9, 9, 9, 5])
+    join_kernel.pair_join(st.pn, st.elapsed, rows, slots, vals, vals, rows, vals)
+    tpn, tel = state_to_numpy(st)
+    assert tpn.sum() == 10 and tpn[3, 1].tolist() == [5, 5]
+    # Elapsed entries are keyed by row only: row 3 keeps its max (9).
+    assert tel.tolist() == [0, 0, 0, 9, 0, 0, 0, 0]
+
+
+def test_join_wrappers_reject_bad_operands():
+    st = state_from_numpy(np.zeros((4, 2, 2), np.int64), np.zeros(4, np.int64), "cpu")
+    i32 = torch.zeros(3, dtype=torch.int32)
+    i64 = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        join_kernel.pair_join(st.pn, st.elapsed, i32, i64, i64, i64, i64, i64)
+    with pytest.raises(ValueError):
+        join_kernel.pair_join(st.pn, st.elapsed, i64, i64[:2], i64, i64, i64, i64)
+    with pytest.raises(ValueError):
+        join_kernel.row_join(st.pn, st.elapsed, i64, torch.zeros((3, 3, 2), dtype=torch.int64), i64)
