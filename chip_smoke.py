@@ -10,20 +10,35 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes of the main path (state 1,000,000 buckets × 64 lanes): the pair
    join (8192 pairs with duplicates, FOLD_PAD_ROW sentinels and values past
-   2^32, plus a commit ring of 8 blocks), the row join (512 dense rows) and
+   2^32, plus a commit ring of 8 blocks), the row join (512 dense rows),
    take-n (4096 rows, with padding rows aliasing a live row 0, negative
-   balances, zero rates, count <= 0 and an fp64 refill corpus). int64 must
-   be equal bit for bit (tolerance 0). Each kernel is timed beside its
-   plain version, its bound and, where one exists, the PyTorch library call
-   that computes the same function.
+   balances, zero rates, count <= 0 and an fp64 refill corpus) and
+   decode+fold (512 raw wire-v2 datagram planes of 8 KiB, about 180
+   entries each, mixed with the hostile kinds — flips, truncations,
+   trailing garbage, random blobs, bit-63 values with a fixed-up checksum,
+   lying framing proposals — over random ``hosted`` flags, duplicate rows
+   and sentinel rows; then one plane). int64 must be equal bit for bit
+   (tolerance 0; decoded fields under ``entry_ok``). Each kernel is timed
+   beside its plain version, its bound and, where one exists, the PyTorch
+   library call that computes the same function (for decode+fold, its
+   fold half).
 3. The main path: the port's ``Command`` serving on the asyncio front
    (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
    lane trailers from lanes 1..63 through ``TPURepo.apply_delta``, 50k takes
    (uniform keys plus a Zipf(1.25) hot-key crowd) through ``submit_take``,
    and a few dozen real HTTP requests. The launch counters are zeroed just
-   before and read just after; every kernel must have launched. The same
-   trace replays through a second engine on the CPU (the plain versions):
-   per-ticket outcomes and the final planes must be identical.
+   before and read just after; the join and take kernels must have
+   launched. The same trace replays through a second engine on the CPU
+   (the plain versions): per-ticket outcomes and the final planes must be
+   identical.
+3b. Raw wire-v2 ingest at the ring's batch: 200,000 entries over 200,000
+   names in 8 KiB datagrams (one in 16 corrupted) through
+   ``DeviceEngine.ingest_raw_planes`` in batches of 512 planes; replayed
+   on a CPU engine, accepted counts and final planes must be equal.
+3c. Two replicated nodes over loopback UDP, each a ``Command`` on the card
+   at 1M × 64, wire mode ``delta``, frozen clocks: 20,000 takes over 2,000
+   names split across them, then both must hold the same state for every
+   name within 60 s, and ``decode_fold`` must have launched.
 4. Print the ``kernels`` JSON line, the nvidia-smi line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -294,6 +309,196 @@ def take_checks(torch, tk, dev, rng):
     return res
 
 
+# -- phase 2: decode_fold against its plain version --------------------------
+
+DV2_ROW = 8192
+
+
+def dv2_datagrams(rng, n, nodes, name_pool):
+    """``n`` wire-v2 datagrams of about 180 entries each (10-byte names
+    from ``name_pool``, lanes 1..nodes-1, values below 2^50). Packet i is
+    of kind i % 8, as in the JAX package's ingest corpus: 0 valid, 1 byte
+    flip, 2 truncation, 3 trailing garbage, 4 random
+    blob, 5 values up to 2^62 on lanes up to nodes+15, 6 a bit-63 value
+    with its checksum fixed up, 7 valid bytes under a lying framing
+    proposal (see ``lie_about_framing``). → (datagrams, kinds)."""
+    from patrol_tpu_torch.ops import wire
+
+    out, kind_of = [], []
+    for i in range(n):
+        kind = i % 8
+        hi = (1 << 62) if kind == 5 else (1 << 50)
+        top = nodes + 16 if kind == 5 else nodes
+        names = rng.integers(0, name_pool, 200)
+        vals = rng.integers(0, hi, size=(200, 4))
+        lanes = rng.integers(1, top, 200)
+        ents = [
+            wire.DeltaEntry(f"n{int(k):09d}", int(s), *(int(x) for x in v))
+            for k, s, v in zip(names, lanes, vals)
+        ]
+        acks = rng.integers(0, 1 << 32, int(rng.integers(0, 6))).tolist()
+        data, packed = wire.encode_delta_packet(
+            int(rng.integers(0, nodes)), int(rng.integers(1, 1 << 32)), acks, ents,
+            max_size=DV2_ROW,
+        )
+        check(170 <= packed <= 190, f"datagram packed {packed} entries")
+        b = bytearray(data)
+        if kind == 1:
+            b[int(rng.integers(0, len(b)))] ^= 0x41
+        elif kind == 2:
+            b = b[: int(rng.integers(1, len(b)))]
+        elif kind == 3:
+            b += bytes(rng.integers(0, 256, int(rng.integers(1, 6))).astype(np.uint8))
+        elif kind == 4:
+            b = bytearray(rng.integers(0, 256, int(rng.integers(1, 300))).astype(np.uint8))
+        elif kind == 6:
+            off = 32 + 8 + 4 * b[39] + 2
+            off += 1 + b[off] + 2  # name_len + name + slot
+            b[off] |= 0x80
+            b[-1] = sum(b[32:-1]) & 0xFF
+        out.append(bytes(b))
+        kind_of.append(kind)
+    return out, np.array(kind_of)
+
+
+def to_planes(datagrams, row=DV2_ROW, stale=0xAB):
+    """Datagrams → uint8[P, row] planes (stale ring bytes past each
+    datagram) and int32 lengths, clipped to the row like a ring slot."""
+    planes = np.full((len(datagrams), row), stale, np.uint8)
+    lengths = np.zeros(len(datagrams), np.int32)
+    for i, b in enumerate(datagrams):
+        b = b[:row]
+        planes[i, : len(b)] = np.frombuffer(b, np.uint8)
+        lengths[i] = len(b)
+    return planes, lengths
+
+
+def lie_about_framing(rng, eoff, count, rows_idx):
+    """Perturb one proposed entry offset of each packet in ``rows_idx``:
+    shifted by +1, shifted back by one entry (negative at entry 0), or
+    swapped with its neighbour. Each lie must reject its packet."""
+    for j, p in enumerate(rows_idx):
+        c = int(count[p])
+        k = int(rng.integers(1, c)) if c > 1 else 0
+        mode = j % 3
+        if mode == 0:
+            eoff[p, k] += 1
+        elif mode == 1:
+            eoff[p, k] -= 35
+        else:
+            eoff[p, k - 1], eoff[p, k] = eoff[p, k], eoff[p, k - 1]
+
+
+def decode_fold_inputs(rng, P):
+    """One decode_fold batch at the ring's shape: P planes of 8 KiB, the
+    host walk's framing proposal (lying on kind-7 packets), a row plan
+    with duplicate rows across packets, FOLD_PAD_ROW sentinels and rows
+    under dead entries, and a random ``hosted`` mask."""
+    from patrol_tpu_torch.ops import ingest as ingest_ops
+    from patrol_tpu_torch.ops.merge import FOLD_PAD_ROW
+
+    datagrams, kinds = dv2_datagrams(rng, P, LANES, name_pool=1_000_000)
+    planes, lengths = to_planes(datagrams)
+    walk = ingest_ops.host_walk(planes, lengths)
+    E = ingest_ops.MAX_RAW_ENTRIES
+    # The proposal is the structure walk's, made before the verdict:
+    # kind-7 packets are valid, so the walk has their full framing.
+    eoff = np.maximum(walk.name_off - 1, 0).astype(np.int32)
+    liars = np.flatnonzero(kinds == 7)
+    lie_about_framing(rng, eoff, walk.count, liars)
+    rows = rng.choice(rng.choice(BUCKETS, 20_000, replace=False), size=(P, E)).astype(np.int32)
+    rows[rng.random((P, E)) < 0.05] = FOLD_PAD_ROW
+    hosted = rng.random((P, E)) < 0.1
+    return planes, lengths, eoff, rows, hosted, kinds, walk
+
+
+def decode_fold_run(torch, ik, dev, base_pn, base_el, args_np):
+    """Kernel and plain version on the same inputs; → (kernel outputs,
+    plain outputs, max_abs_err, kernel-state copy, plain-state copy, the
+    device operands)."""
+    planes, lengths, eoff, rows, hosted = args_np
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (planes, lengths, eoff, rows, hosted)]
+    pk, ek = base_pn.clone(), base_el.clone()
+    pp, ep = base_pn.clone(), base_el.clone()
+    out_k = ik.decode_fold(pk, ek, *args)
+    out_p = ik.decode_fold_plain(pp, ep, *args)
+    torch.cuda.synchronize()
+    err = max(check_equal(torch, "decode_fold pn", pk, pp),
+              check_equal(torch, "decode_fold elapsed", ek, ep))
+    for name, a, b in zip(("ok", "entry_ok", "hosted_mask"), out_k[:3], out_p[:3]):
+        check(torch.equal(a, b), f"decode_fold {name}: kernel and plain version differ")
+    eok = out_p[1]
+    for name, a, b in zip(("slot", "cap", "added", "taken", "elapsed"), out_k[3:], out_p[3:]):
+        err = max(err, check_equal(torch, f"decode_fold {name} under entry_ok", a[eok], b[eok]))
+    return out_k, out_p, err, (pk, ek), (pp, ep), args
+
+
+def decode_fold_checks(torch, ik, dev, rng):
+    """decode_fold at P = 512 (the ring batch) and P = 1 (the asyncio
+    path) on the 1M x 64 state: bit-exact to the plain version, then
+    timed beside its bound, its plain version and the library time of its
+    fold half (``scatter_reduce_(amax)`` over the same pairs)."""
+    big = 1 << 40
+    base_pn = torch.from_numpy(
+        rng.integers(0, big, size=(BUCKETS, LANES, 2), dtype=np.int64)
+    ).to(dev)
+    base_el = torch.from_numpy(rng.integers(0, big, size=BUCKETS, dtype=np.int64)).to(dev)
+    t0 = time.perf_counter()
+    planes, lengths, eoff, rows, hosted, kinds, walk = decode_fold_inputs(rng, 512)
+    log(f"decode_fold corpus built in {time.perf_counter() - t0:.1f}s")
+    res = {}
+    for P, sel in ((512, slice(None)), (1, slice(0, 1))):
+        args_np = (planes[sel], lengths[sel], eoff[sel], rows[sel], hosted[sel])
+        out_k, out_p, err, (pk, ek), (pp, ep), args = decode_fold_run(
+            torch, ik, dev, base_pn, base_el, args_np
+        )
+        ok = out_p[0].cpu().numpy()
+        eok = out_p[1]
+        if P == 512:
+            check(ok[kinds == 0].all(), "a valid datagram was rejected")
+            for bad in (4, 6, 7):
+                check(not ok[kinds == bad].any(), f"a hostile datagram of kind {bad} was accepted")
+            check(np.array_equal(ok, walk.ok & (kinds != 7)),
+                  "verdicts differ from the host walk's")
+        else:
+            check(ok.all(), "the P=1 datagram was rejected")
+        fold = eok & ~args[4] & (args[3] >= 0) & (args[3] < BUCKETS)
+        n_fold = int(fold.sum())
+        check(n_fold > (50 if P == 1 else 10_000), f"decode_fold P={P} folds only {n_fold} entries")
+        frow = args[3][fold].to(torch.int64)
+        fslot = out_p[3][fold]
+        lib_idx = (frow * LANES + fslot).unsqueeze(1).expand(-1, 2).contiguous()
+        lib_src = torch.stack([out_p[5][fold], out_p[6][fold]], 1).contiguous()
+        lib_ev = out_p[7][fold].clamp(min=0).contiguous()
+        pn2 = pk.view(-1, 2)
+
+        def lib_fold():
+            pn2.scatter_reduce_(0, lib_idx, lib_src, reduce="amax", include_self=True)
+            ek.scatter_reduce_(0, frow, lib_ev, reduce="amax", include_self=True)
+
+        pairs = len(np.unique((frow * LANES + fslot).cpu().numpy()))
+        frows = len(np.unique(frow.cpu().numpy()))
+        E = eoff.shape[1]
+        nbytes = (int(lengths[sel].sum()) + 4 * P + P * E * (4 + 4 + 1)
+                  + P + P * E * (1 + 1 + 5 * 8) + pairs * 32 + frows * 16)
+        live = int(out_p[1].sum())
+        res[P] = {
+            "ms": device_ms(torch, lambda: ik.decode_fold(pk, ek, *args)),
+            "plain_ms": device_ms(torch, lambda: ik.decode_fold_plain(pp, ep, *args), n=5),
+            "library_ms": device_ms(torch, lib_fold),
+            "bytes": nbytes,
+            "ops": int(lengths[sel].sum()) + live * 40,
+            "max_abs_err": err,
+            "packets_ok": int(ok.sum()),
+            "entries_folded": n_fold,
+            "distinct_pairs": pairs,
+        }
+        del pk, ek, pp, ep, pn2, args, out_k, out_p
+    del base_pn, base_el
+    return res
+
+
 # -- phase 3: the main path -------------------------------------------------
 
 
@@ -500,6 +705,190 @@ def replay_http(repo):
     return want
 
 
+# -- phase 3b: raw ingest at the ring's batch --------------------------------
+
+
+def raw_ingest_trace(rng):
+    """200,000 dv2 entries over 200,000 names, lanes 1..63, in 8 KiB
+    datagrams; one datagram in 16 corrupted by a byte flip. → planes,
+    lengths."""
+    from patrol_tpu_torch.ops import wire
+
+    n_entries, n_names = 200_000, 200_000
+    names = rng.integers(0, n_names, n_entries)
+    lanes = rng.integers(1, LANES, n_entries)
+    vals = rng.integers(0, 1 << 50, size=(n_entries, 4))
+    ents = [
+        wire.DeltaEntry(f"r{int(k):09d}", int(s), *(int(x) for x in v))
+        for k, s, v in zip(names, lanes, vals)
+    ]
+    datagrams = []
+    at = 0
+    while at < n_entries:
+        data, packed = wire.encode_delta_packet(1, len(datagrams) + 1, (), ents[at:], max_size=DV2_ROW)
+        at += packed
+        if len(datagrams) % 16 == 15:
+            b = bytearray(data)
+            b[int(rng.integers(32, len(b)))] ^= 0x41
+            data = bytes(b)
+        datagrams.append(data)
+    return to_planes(datagrams)
+
+
+def run_raw_ingest(engine, planes, lengths, batch=512):
+    """Feed the planes to ``ingest_raw_planes`` in ring batches, then
+    flush; → (entries accepted per batch, seconds)."""
+    accepted = []
+    released = []
+    t0 = time.perf_counter()
+    for lo in range(0, len(planes), batch):
+        accepted.append(engine.ingest_raw_planes(
+            planes[lo:lo + batch], lengths[lo:lo + batch],
+            release=lambda: released.append(1),
+        ))
+    check(engine.flush(600), "raw ingest flush timed out")
+    dt = time.perf_counter() - t0
+    check(len(released) == len(accepted), "a raw plane batch was never released")
+    return accepted, dt
+
+
+# -- phase 3c: two replicated nodes over loopback UDP -------------------------
+
+
+def free_udp_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+TWO_NODE_NAMES, TWO_NODE_TAKES, TWO_NODE_CHUNK = 2000, 20_000, 500
+
+
+def run_two_nodes(Command, LimiterConfig, rng):
+    """Two port nodes on the card, each 1M x 64, peered over loopback in
+    wire mode ``delta`` with frozen clocks: 20,000 takes over 2,000 names
+    split across them, in chunks of 500 (the first take of each chunk over
+    HTTP, the rest through ``submit_take``). Then poll (at most 60 s)
+    until both nodes hold the same state for every name: ``snapshot_many``
+    (one gather a node) while they differ, and ``repo.snapshot(name)`` for
+    every name to confirm. → a dict of what was measured, with the
+    replication counters at each poll.
+
+    Two settings keep the delta plane out of a retransmit storm, which it
+    cannot leave on its own: an interval unacked after a fixed number of
+    flush ticks is resent under a new sequence number, so an ack that
+    comes later than that matches nothing. Both nodes share one Python
+    interpreter here, and under a take flood a receiver's acks come later
+    than the default 8 ticks (160 ms). So the delta planes wait 50 ticks
+    (1 s, ``PATROL_DELTA_RETX_TICKS``'s range), and the next chunk goes in
+    once the last one's tickets have completed and neither node holds an
+    unacked interval."""
+    from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.ops.rate import Rate
+
+    addrs = [f"127.0.0.1:{free_udp_port()}" for _ in range(2)]
+    cfg = LimiterConfig(buckets=BUCKETS, nodes=LANES)
+    nodes = [
+        Node(Command(
+            api_addr="127.0.0.1:0", node_addr=a, peer_addrs=addrs,
+            clock=Clock(1_700_000_000 * NANO), config=cfg, handle_signals=False,
+            warmup=True, device="cuda", wire_mode="delta", shutdown_timeout_s=30,
+        ))
+        for a in addrs
+    ]
+    polls = []
+    try:
+        cmds = [n.cmd for n in nodes]
+        # The wire-v2 capability handshake first: until a peer has
+        # answered it, broadcasts to it go out in the classic form.
+        deadline = time.perf_counter() + 30
+        while not all(len(c.replicator.delta.capable_peers()) == 1 for c in cmds):
+            check(time.perf_counter() < deadline, "the dv2 capability handshake did not complete")
+            time.sleep(0.05)
+        for c in cmds:
+            c.replicator.delta.retransmit_ticks = 50
+        names = [f"c{i}" for i in range(TWO_NODE_NAMES)]
+        pick = rng.integers(0, len(names), TWO_NODE_TAKES).tolist()
+        rate = Rate(freq=50, per_ns=3600 * NANO)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        admitted = http_takes = 0
+        for lo in range(0, len(pick), TWO_NODE_CHUNK):
+            tickets = []
+            for j in range(lo, min(lo + TWO_NODE_CHUNK, len(pick))):
+                cmd, name = cmds[j % 2], names[pick[j]]
+                if j == lo:
+                    conn = http.client.HTTPConnection("127.0.0.1", cmd.api_port, timeout=60)
+                    conn.request("POST", f"/take/{name}?rate=50:1h&count=1")
+                    resp = conn.getresponse()
+                    check(resp.status in (200, 429), f"HTTP take answered {resp.status}")
+                    admitted += resp.status == 200
+                    http_takes += 1
+                    resp.read()
+                    conn.close()
+                else:
+                    tickets.append(cmd.repo.submit_take(name, rate, 1))
+            for t in tickets:
+                check(t.wait(60), "a take ticket never completed")
+                admitted += t.ok
+            drained = time.perf_counter() + 30
+            while any(c.replicator.delta.stats()["wire_intervals_unacked"] for c in cmds):
+                check(time.perf_counter() < drained, "the delta plane did not drain a chunk")
+                time.sleep(0.005)
+        t_takes = time.perf_counter() - t0
+        deadline = time.perf_counter() + 60
+        while True:
+            for c in cmds:
+                check(c.engine.flush(60), "flush timed out")
+            views = [c.engine.snapshot_many(names) for c in cmds]
+            bad = sum(views[0].get(n) != views[1].get(n) for n in names)
+            st = [c.replicator.stats() for c in cmds]
+            polls.append({
+                "t": time.perf_counter() - t0, "names_differ": bad,
+                "dv2_rx": [x["wire_delta_rx_packets"] for x in st],
+                "dv2_tx": [x["wire_delta_packets_tx"] for x in st],
+                "retransmits": [x["wire_interval_retransmits"] for x in st],
+                "unacked": [x["wire_intervals_unacked"] for x in st],
+            })
+            if bad == 0 and len(views[0]) == len(names):
+                snaps = [[c.repo.snapshot(n) for n in names] for c in cmds]
+                if snaps[0] == snaps[1]:
+                    break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"two nodes did not converge in 60 s: {bad} names differ")
+            time.sleep(0.2)
+        t_conv = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        stats = [c.replicator.stats() for c in cmds]
+        # Frozen clocks grant no refill, so the converged taken lanes hold
+        # exactly one token per admitted take, whichever node admitted it.
+        taken = sum(st.lane_taken_nt for s in snaps[0] for st in s)
+        check(taken == admitted * NANO,
+              f"converged taken {taken / NANO} tokens, admitted {admitted} takes")
+    finally:
+        for n in nodes:
+            n.close()
+    rx = [s["wire_delta_rx_packets"] for s in stats]
+    check(launches["decode_fold"] > 0, "decode_fold was not launched by the replicated nodes")
+    check(all(r > 0 for r in rx), f"a node received no dv2 datagram: {rx}")
+    return {
+        "takes": len(pick),
+        "http_takes": http_takes,
+        "admitted": int(admitted),
+        "takes_s": t_takes,
+        "converge_s": t_conv,
+        "wire_delta_rx_packets": rx,
+        "wire_delta_rx_deltas": [s["wire_delta_rx_deltas"] for s in stats],
+        "wire_delta_packets_tx": [s["wire_delta_packets_tx"] for s in stats],
+        "wire_interval_retransmits": [s["wire_interval_retransmits"] for s in stats],
+        "replication_rx_packets": [s["replication_rx_packets"] for s in stats],
+        "launches": launches,
+        "polls": polls,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -511,6 +900,7 @@ def main() -> int:
     from patrol_tpu_torch.command import Command
     from patrol_tpu_torch.models.limiter import LimiterConfig
     from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.ops import ingest_kernel as ik
     from patrol_tpu_torch.ops import join_kernel as jk
     from patrol_tpu_torch.ops import take_kernel as tk
     from patrol_tpu_torch.runtime.engine import DeviceEngine
@@ -543,17 +933,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     take = take_checks(torch, tk, dev, rng)
     torch.cuda.empty_cache()
+    dfold = decode_fold_checks(torch, ik, dev, rng)
+    torch.cuda.empty_cache()
     log(f"pair_join {pair['ms']:.4f} ms, row_join {row['ms']:.4f} ms, take_n {take['ms']:.4f} ms "
-        f"(padding columns only {take['padding_only_ms']:.4f} ms)")
-    report["kernel_detail"] = {"pair_join": pair, "row_join": row, "take_n": take}
+        f"(padding columns only {take['padding_only_ms']:.4f} ms), decode_fold "
+        f"{dfold[512]['ms']:.4f} ms at P=512, {dfold[1]['ms']:.4f} ms at P=1")
+    report["kernel_detail"] = {
+        "pair_join": pair, "row_join": row, "take_n": take,
+        "decode_fold_p512": dfold[512], "decode_fold_p1": dfold[1],
+    }
 
     # 3. The main path.
     trace = make_trace(np.random.default_rng(7))
     clock_now = 1_700_000_000 * NANO
     cfg = LimiterConfig(buckets=BUCKETS, nodes=LANES)
     cmd = Command(
-        api_addr="127.0.0.1:0", clock=Clock(clock_now), config=cfg,
-        handle_signals=False, warmup=True, device="cuda",
+        api_addr="127.0.0.1:0", node_addr=f"127.0.0.1:{free_udp_port()}",
+        clock=Clock(clock_now), config=cfg, handle_signals=False, warmup=True,
+        device="cuda",
     )
     node = Node(cmd)
     try:
@@ -574,8 +971,8 @@ def main() -> int:
     finally:
         node.close()
     log(f"main path: launches {launches}, ticks {ticks}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("pair_join", "row_join", "take_n"):
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
 
     # The same trace, then the HTTP script's takes, through a CPU engine
@@ -619,20 +1016,85 @@ def main() -> int:
     log(f"deltas/s {main['deltas_per_s']:.0f}  takes/s {main['takes_per_s']:.0f}")
     print(f"takes_per_s {main['takes_per_s']:.1f} deltas_per_s {main['deltas_per_s']:.1f}")
 
+    # 3b. Raw wire-v2 ingest at the ring's batch, replayed on the CPU.
+    t0 = time.perf_counter()
+    planes, lengths = raw_ingest_trace(np.random.default_rng(11))
+    log(f"raw ingest trace: {len(planes)} datagrams built in {time.perf_counter() - t0:.1f}s")
+    geng = DeviceEngine(cfg, node_slot=0, clock=Clock(clock_now), device="cuda")
+    try:
+        geng.warmup()
+        _build.reset_launches()
+        acc_g, dt_g = run_raw_ingest(geng, planes, lengths)
+        raw_launches = dict(_build.LAUNCHES)
+        gpu_pn, gpu_el = geng.snapshot_planes()
+    finally:
+        geng.stop()
+    del geng
+    torch.cuda.empty_cache()
+    ceng = DeviceEngine(cfg, node_slot=0, clock=Clock(clock_now), device="cpu")
+    try:
+        acc_c, _ = run_raw_ingest(ceng, planes, lengths)
+        cpu_pn, cpu_el = ceng.snapshot_planes()
+    finally:
+        ceng.stop()
+    check(acc_g == acc_c, "raw ingest accepted counts differ from the CPU replay")
+    if not (np.array_equal(gpu_pn, cpu_pn) and np.array_equal(gpu_el, cpu_el)):
+        raise AssertionError("raw ingest planes differ from the CPU replay")
+    check(raw_launches["decode_fold"] == len(acc_g),
+          f"raw ingest launched decode_fold {raw_launches['decode_fold']} times")
+    accepted = sum(acc_g)
+    check(180_000 < accepted < 200_000, f"raw ingest accepted {accepted} entries")
+    del gpu_pn, gpu_el, cpu_pn, cpu_el
+    raw = {
+        "datagrams": len(planes),
+        "batches": len(acc_g),
+        "accepted": accepted,
+        "seconds": dt_g,
+        "raw_deltas_per_s": accepted / dt_g,
+        "launches": raw_launches,
+    }
+    report["raw_ingest"] = raw
+    log(f"raw ingest: {accepted} entries in {dt_g:.2f}s")
+    print(f"raw_deltas_per_s {raw['raw_deltas_per_s']:.1f}")
+
+    # 3c. Two replicated nodes over loopback UDP.
+    two = run_two_nodes(Command, LimiterConfig, np.random.default_rng(13))
+    report["two_nodes"] = two
+    log(f"two nodes: converged in {two['converge_s']:.2f}s, dv2 rx {two['wire_delta_rx_packets']}, "
+        f"launches {two['launches']}")
+    print(f"two_nodes_converge_s {two['converge_s']:.3f}")
+
     # 4. The kernels line, the card, the contract line.
     kernels = []
-    for name, src, replaces, m in (
-        ("pair_join", "patrol_tpu_torch/csrc/join.cu", "patrol_tpu/ops/pallas_merge.py:86", pair),
-        ("row_join", "patrol_tpu_torch/csrc/join.cu", "patrol_tpu/ops/pallas_merge.py:86", row),
-        ("take_n", "patrol_tpu_torch/csrc/take.cu", "patrol_tpu/ops/take.py:171", take),
+    for name, src, replaces, m, n in (
+        ("pair_join", "patrol_tpu_torch/csrc/join.cu", "patrol_tpu/ops/pallas_merge.py:86",
+         pair, launches["pair_join"]),
+        ("row_join", "patrol_tpu_torch/csrc/join.cu", "patrol_tpu/ops/pallas_merge.py:86",
+         row, launches["row_join"]),
+        ("take_n", "patrol_tpu_torch/csrc/take.cu", "patrol_tpu/ops/take.py:171",
+         take, launches["take_n"]),
+        # Timed at the ring batch (P = 512); launches are those of the two
+        # replicated nodes (phase 3c, P = 1 each). The P = 1 numbers ride
+        # along under *_p1.
+        ("decode_fold", "patrol_tpu_torch/csrc/decode_fold.cu", "patrol_tpu/ops/ingest.py:589",
+         dfold[512], two["launches"]["decode_fold"]),
     ):
         b_ms, b_by = bound(m["bytes"], m["ops"])
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": m["max_abs_err"],
+            "launches": n, "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": m["library_ms"],
-        })
+        }
+        if name == "decode_fold":
+            m1 = dfold[1]
+            b1, by1 = bound(m1["bytes"], m1["ops"])
+            entry.update({
+                "max_abs_err": max(m["max_abs_err"], m1["max_abs_err"]),
+                "ms_p1": m1["ms"], "plain_ms_p1": m1["plain_ms"], "bound_ms_p1": b1,
+                "bound_by_p1": by1, "library_ms_p1": m1["library_ms"],
+            })
+        kernels.append(entry)
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=2, default=str)

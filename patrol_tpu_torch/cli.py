@@ -3,8 +3,9 @@
 Flags mirror the JAX package's CLI: ``--api-addr``, ``--node-addr``,
 repeatable ``--peer-addr``, ``--clock-offset``, ``--log-env``,
 ``--buckets`` / ``--node-lanes`` (state shape), plus ``--device``
-(``cuda`` by default, ``cpu`` for the kernels' plain versions). Options
-whose parts are not ported yet (peers, ``--http-front native``,
+(``cuda`` by default, ``cpu`` for the kernels' plain versions),
+``--wire-mode`` and ``--udp-backend``. Options whose parts are not
+ported yet (``--udp-backend native``, ``--http-front native``,
 ``--mesh-replicas``, ``--checkpoint-dir``) exit with a clear error.
 
 Run as ``python -m patrol_tpu_torch [flags]``.
@@ -31,7 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
         "(POST /take/:bucket?rate=F:D&count=N)",
     )
     p.add_argument("--api-addr", type=_addr, default="127.0.0.1:8080", help="HTTP API address")
-    p.add_argument("--node-addr", type=_addr, default="127.0.0.1:16000", help="replication UDP address (identity only until replication is ported)")
+    p.add_argument("--node-addr", type=_addr, default="127.0.0.1:16000", help="replication UDP address")
     p.add_argument("--node-name", default="", help="node identity for fleet views; defaults to --node-addr")
     p.add_argument(
         "--peer-addr",
@@ -39,7 +40,25 @@ def build_parser() -> argparse.ArgumentParser:
         action="append",
         default=[],
         dest="peer_addrs",
-        help="peer node address (not yet ported: any peer exits with an error)",
+        help="peer node address (repeatable; include all cluster members)",
+    )
+    p.add_argument(
+        "--udp-backend",
+        choices=["auto", "native", "asyncio"],
+        default="auto",
+        help="replication transport: asyncio ('auto' means asyncio; the "
+        "native recvmmsg backend is not yet ported)",
+    )
+    p.add_argument(
+        "--wire-mode",
+        choices=["delta", "full", "aggregate", "compat"],
+        default="delta",
+        help="outgoing replication wire form. Default 'delta': batched "
+        "delta-interval datagrams (wire v2) to peers that answer the "
+        "capability handshake, full-state aggregate datagrams to "
+        "everyone else. 'full' (alias 'aggregate') opts out to the "
+        "per-take full-state plane; 'compat' sends raw own-lane headers "
+        "for rolling upgrades (see ops/wire.py and net/delta.py)",
     )
     p.add_argument(
         "--clock-offset",
@@ -112,6 +131,8 @@ def main(argv=None) -> int:
         node_addr=args.node_addr,
         node_name=args.node_name,
         peer_addrs=args.peer_addrs,
+        udp_backend=args.udp_backend,
+        wire_mode=args.wire_mode,
         clock=offset_clock(offset_ns) if offset_ns else system_clock,
         shutdown_timeout_s=shutdown_ns / 1e9,
         config=LimiterConfig(buckets=args.buckets, nodes=args.node_lanes),

@@ -1,14 +1,14 @@
 """Process supervisor (reference: ``Command``, command.go:17-83).
 
-Wires storage (the device engine) and the API (HTTP, asyncio front) into
-one process and supervises them: an asyncio task group with signal
-handling and a graceful-shutdown timeout. Used by the CLI and by
-in-process harnesses.
+Wires storage (the device engine), replication (UDP, the asyncio
+``Replicator``) and the API (HTTP, asyncio front) into one process and
+supervises them: an asyncio task group with signal handling and a
+graceful-shutdown timeout. Used by the CLI and by in-process multi-node
+harnesses.
 
-This package serves a single node: UDP replication, the native C++ HTTP
-front, the multi-device mesh engine and checkpoints are not ported yet,
-and asking for any of them raises :class:`NotPortedError` before anything
-starts.
+The native C++ UDP backend and HTTP front, the multi-device mesh engine
+and checkpoints are not ported yet: asking for any of them raises
+:class:`NotPortedError` before anything starts.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import List, Optional
 
 from patrol_tpu_torch.models.limiter import SMALL, LimiterConfig
 from patrol_tpu_torch.net.api import API, serve
+from patrol_tpu_torch.net.replication import Replicator, SlotTable
 from patrol_tpu_torch.runtime.bucket import ClockFn, system_clock
 from patrol_tpu_torch.runtime.engine import DeviceEngine
 from patrol_tpu_torch.runtime.repo import TPURepo
@@ -45,6 +46,13 @@ class Command:
     config: LimiterConfig = SMALL
     log: Optional[logging.Logger] = None
     handle_signals: bool = True
+    # "asyncio" is the only UDP backend of this package; "auto" means it.
+    udp_backend: str = "auto"
+    # Outgoing wire form: "delta" (batched wire-v2 delta-interval datagrams
+    # to capability-advertising peers, aggregate full state to the rest),
+    # "full"/"aggregate" (per-take full state) or "compat" (raw own-lane
+    # headers for rolling upgrades). See ops/wire.py and net/delta.py.
+    wire_mode: str = "delta"
     # "python" (asyncio) is the only front of this package; "auto" means it.
     http_front: str = "auto"
     checkpoint_dir: Optional[str] = None
@@ -57,8 +65,9 @@ class Command:
     # Populated by run() for tests/introspection.
     engine: Optional[DeviceEngine] = None
     repo: Optional[TPURepo] = None
-    # Set by run() once the API is accepting (cleared when run() begins
-    # and again after shutdown).
+    replicator: Optional[Replicator] = None
+    # Set by run() once every socket is bound and the API is accepting
+    # (cleared when run() begins and again after shutdown).
     started: asyncio.Event = dataclasses.field(default_factory=asyncio.Event)
     # The bound HTTP port (useful with an ephemeral ``:0`` api_addr).
     api_port: int = 0
@@ -66,6 +75,11 @@ class Command:
     def check_ported(self) -> None:
         """Raise :class:`NotPortedError` for a configuration this package
         cannot serve yet."""
+        if self.udp_backend not in ("auto", "asyncio"):
+            raise NotPortedError(
+                f"--udp-backend {self.udp_backend} is not yet ported "
+                "(only the asyncio backend is)"
+            )
         if self.http_front not in ("auto", "python"):
             raise NotPortedError(
                 f"--http-front {self.http_front} is not yet ported "
@@ -73,16 +87,13 @@ class Command:
             )
         if self.mesh_replicas > 0:
             raise NotPortedError("--mesh-replicas > 0 is not yet ported")
-        if self.peer_addrs:
-            raise NotPortedError(
-                "peers are not yet ported: UDP replication is the next slice"
-            )
         if self.checkpoint_dir:
             raise NotPortedError("checkpoints (--checkpoint-dir) are not yet ported")
 
     async def run(self, stop: Optional[asyncio.Event] = None) -> None:
         """Run until ``stop`` is set or SIGINT/SIGTERM arrives; then shut
-        down gracefully (drain HTTP, stop engine) within the timeout."""
+        down gracefully (flush, drain HTTP, close UDP, stop engine) within
+        the timeout."""
         if self.shutdown_timeout_s <= 0:
             raise ValueError("shutdown_timeout_s must be set")
         self.check_ported()
@@ -91,43 +102,61 @@ class Command:
         self.started.clear()
 
         from patrol_tpu_torch.utils import histogram as hist_mod
+        from patrol_tpu_torch.utils import profiling
 
-        # A single node holds lane 0, as the rank of self in a one-member
-        # list does in the JAX package's slot table.
-        node_slot = 0
+        # Lane = rank of self in the sorted member list.
+        slots = SlotTable(self.node_addr, self.peer_addrs, max_slots=self.config.nodes)
         node_name = self.node_name or self.node_addr
-        hist_mod.set_node_identity(node_slot, node_name)
+        hist_mod.set_node_identity(slots.self_slot, node_name)
         engine = DeviceEngine(
-            self.config, node_slot=node_slot, clock=self.clock, device=self.device
+            self.config, node_slot=slots.self_slot, clock=self.clock, device=self.device
         )
-        repo = TPURepo(engine, send_incast=None)
+        replicator = await Replicator.create(
+            self.node_addr, self.peer_addrs, slots, log=log, wire_mode=self.wire_mode
+        )
+        repo = TPURepo(engine, send_incast=replicator.send_incast_request)
+        replicator.repo = repo
+        engine.on_broadcast = replicator.broadcast_states
+        replicator.fleet.set_identity(node_name)
 
         if self.warmup:
             loop = asyncio.get_running_loop()
             t0 = loop.time()
             await loop.run_in_executor(None, engine.warmup)
             log.info("kernels warmed", extra={"seconds": round(loop.time() - t0, 2)})
+        log.debug(
+            "peers",
+            extra={
+                "self": self.node_addr,
+                "slot": slots.self_slot,
+                "others": [f"{h}:{p}" for h, p in replicator.peers],
+            },
+        )
 
         def stats() -> dict:
-            from patrol_tpu_torch.utils import profiling
-
             return {
                 "engine_ticks": engine.ticks,
                 "engine_evictions": engine.evictions,
                 "engine_scalar_dropped": engine.scalar_dropped,
                 "engine_pending_completions": engine.pending_completions,
                 "buckets": len(engine.directory),
-                "node_slot": node_slot,
+                "node_slot": slots.self_slot,
                 "device": str(engine.device),
                 **profiling.COUNTERS.snapshot(),
+                **replicator.stats(),
                 "histograms": hist_mod.HISTOGRAMS.snapshot(),
             }
 
         api = API(repo, log=log, stats=stats)
+        # /cluster/*, /debug/audit and /admin/peers are served from the
+        # replicator's fleet gossip, audit and membership planes.
+        api.fleet = replicator.fleet
+        api.audit = replicator.audit
+        api.membership = replicator.membership
         host, _, port = self.api_addr.rpartition(":")
         server = await serve(api, host or "127.0.0.1", int(port))
         self.api_port = server.sockets[0].getsockname()[1]
-        self.engine, self.repo = engine, repo
+        self.engine, self.repo, self.replicator = engine, repo, replicator
 
         if self.handle_signals:
             loop = asyncio.get_running_loop()
@@ -141,11 +170,27 @@ class Command:
             await stop.wait()
         finally:
             log.info("shutting down")
+            # Graceful-shutdown flush: re-broadcast the final state of
+            # recently-active buckets (bounded, paced) BEFORE the transport
+            # closes, so a clean restart doesn't silently shed recent takes
+            # whose last broadcast was lost. Best-effort: a failure leaves
+            # peers to re-learn the state via incast on next contact.
+            try:
+                states = engine.drain_dirty_states(limit=1024) if replicator.peers else []
+                for lo in range(0, len(states), 64):
+                    replicator.broadcast_states(states[lo : lo + 64])
+                    await asyncio.sleep(0.002)  # pace; lets the loop send
+                if states:
+                    profiling.COUNTERS.inc("shutdown_flush_states", len(states))
+                    log.info("shutdown flush", extra={"states": len(states)})
+            except Exception:  # pragma: no cover
+                log.exception("shutdown flush failed")
             server.close()
             with contextlib.suppress(asyncio.TimeoutError):
                 await asyncio.wait_for(
                     server.wait_closed(), timeout=self.shutdown_timeout_s
                 )
+            replicator.close()
             engine.stop()
             for handler in (self.log.handlers if self.log else []):
                 with contextlib.suppress(Exception):

@@ -140,6 +140,15 @@ class API:
         self.log = log
         self.stats = stats or (lambda: {})
         self.started_at = time.time()  # patrol-lint: clock-seam (uptime)
+        # patrol-fleet: the replicator's metrics-gossip plane (set by the
+        # supervisor); None ⇒ /cluster/* answers 503 (no fleet view).
+        self.fleet = None
+        # patrol-audit: the replicator's consistency plane (set by the
+        # supervisor); None ⇒ /debug/audit answers 503.
+        self.audit = None
+        # patrol-membership: the replicator's elastic-membership plane
+        # (set by the supervisor); None ⇒ /admin/peers answers 503.
+        self.membership = None
         self._batcher = (
             _TakeBatcher(repo)
             if PYFRONT_BATCH and hasattr(repo, "submit_takes_batch")
@@ -164,9 +173,14 @@ class API:
             return await self._tokens(path[len("/tokens/") :])
         if path.startswith("/debug/") or path == "/metrics":
             return await self._debug(method, path, query)
-        # /cluster/*, /admin/peers, /debug/audit and /debug/jax/trace
-        # belong to planes this package does not carry yet (fleet gossip,
-        # membership, audit, the JAX profiler): they fall through to 404.
+        if path.startswith("/cluster/"):
+            if method != "GET":
+                return 405, b"method not allowed\n", "text/plain"
+            return self._cluster(path)
+        if path == "/admin/peers":
+            return self._admin_peers(method, query)
+        # /debug/jax/trace (the JAX profiler) has no counterpart here and
+        # falls through to 404 like any unknown route.
         return 404, b"not found\n", "text/plain"
 
     # -- the hot route (api.go:51-86) ---------------------------------------
@@ -372,6 +386,19 @@ class API:
             ).encode()
             ctype = "text/plain; version=0.0.4" if path == "/metrics" else "application/json"
             return 200, body, ctype
+        if path == "/debug/audit":
+            # patrol-audit: the consistency plane's gauges plus the last
+            # evaluated window's per-bucket overshoot detail.
+            if self.audit is None:
+                return 503, b"no audit plane\n", "text/plain"
+            body = json.dumps(
+                {
+                    **self.audit.stats(),
+                    "last_evaluation": self.audit.last_evaluation(),
+                },
+                indent=2,
+            ).encode()
+            return 200, body, "application/json"
         if path == "/debug/pprof/" or path == "/debug/pprof":
             index = (
                 "patrol_tpu_torch debug index\n\n"
@@ -385,6 +412,9 @@ class API:
                 "/debug/trace/spans              cross-node take spans JSON (&trace_id=N to filter)\n"
                 "/debug/vars                     engine stats JSON (incl. histogram summaries)\n"
                 "/metrics                        prometheus text exposition (gauges + latency histograms)\n"
+                "/debug/audit                    patrol-audit consistency gauges + last overshoot evaluation JSON\n"
+                "/cluster/metrics                fleet-merged exposition, node-labeled lanes (patrol-fleet gossip)\n"
+                "/cluster/vars                   fleet-merged summaries JSON (patrol-fleet gossip)\n"
             )
             return 200, index.encode(), "text/plain"
         if path == "/debug/pprof/profile":
@@ -463,6 +493,68 @@ class API:
             # probe in the expected format.
             return 200, b"num_symbols: 1\n", "text/plain"
         return 404, b"not found\n", "text/plain"
+
+    def _cluster(self, path: str) -> Tuple[int, bytes, str]:
+        """patrol-fleet fleet views (net/fleet.py): ``/cluster/metrics``
+        is the MERGED Prometheus exposition — every gossiped node's
+        counter and histogram lanes, ``node``-labeled, strictly
+        parseable — and ``/cluster/vars`` the JSON summary form. Served
+        from the local gossip store: any node answers for the fleet."""
+        from patrol_tpu_torch.utils import histogram as hist_mod
+
+        if self.fleet is None:
+            return 503, b"no fleet gossip plane on this node\n", "text/plain"
+        if path == "/cluster/metrics":
+            body = hist_mod.render_fleet_exposition(self.fleet.store).encode()
+            return 200, body, "text/plain; version=0.0.4"
+        if path == "/cluster/vars":
+            body = json.dumps(
+                {**self.fleet.store.summary(), "gossip": self.fleet.stats()},
+                indent=2,
+            ).encode()
+            return 200, body, "application/json"
+        return 404, b"not found\n", "text/plain"
+
+    def _admin_peers(self, method: str, query: str) -> Tuple[int, bytes, str]:
+        """patrol-membership admin surface (net/membership.py). Input
+        rides the query string — both HTTP fronts drain but IGNORE
+        request bodies, like /take.
+
+        * ``GET /admin/peers`` → the live SlotTable view (epoch, lanes,
+          tombstones) + the membership plane's counters.
+        * ``POST /admin/peers?op=add&addr=host:port`` → admit a member;
+          200 with the receipt (lane + epoch), 409 when no lane is
+          assignable (lane space exhausted, or the address's lane is
+          tombstoned — a retired lane needs the rejoin handshake).
+        * ``POST /admin/peers?op=remove&addr=host:port`` → retire the
+          member's lane behind a tombstone; 200 with the receipt carrying
+          ``tombstone_epoch`` (the leaver's future rejoin credential),
+          409 for self/unknown addresses.
+        """
+        if self.membership is None:
+            return 503, b"no membership plane on this node\n", "text/plain"
+        if method == "GET":
+            body = json.dumps(
+                {**self.membership.view(), **self.membership.stats()},
+                indent=2,
+            ).encode()
+            return 200, body, "application/json"
+        if method != "POST":
+            return 405, b"method not allowed\n", "text/plain"
+        q = parse_qs(query, keep_blank_values=True)
+        op = q.get("op", [""])[0]
+        addr = q.get("addr", [""])[0]
+        if op not in ("add", "remove") or not addr or ":" not in addr:
+            return 400, b"need op=add|remove and addr=host:port\n", "text/plain"
+        receipt = (
+            self.membership.local_join(addr)
+            if op == "add"
+            else self.membership.local_leave(addr)
+        )
+        if receipt is None:
+            return 409, f"cannot {op} {addr}\n".encode(), "text/plain"
+        receipt["epoch_now"] = self.membership.view()["epoch"]
+        return 200, json.dumps(receipt, indent=2).encode(), "application/json"
 
     def _metrics(self) -> bytes:
         """Prometheus text exposition (patrol-scope): every numeric stat

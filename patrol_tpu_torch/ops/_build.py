@@ -39,7 +39,7 @@ NVCC_FLAGS = [
 ]
 
 # name -> launches since the last reset_launches().
-LAUNCHES: Dict[str, int] = {"pair_join": 0, "row_join": 0, "take_n": 0}
+LAUNCHES: Dict[str, int] = {"pair_join": 0, "row_join": 0, "take_n": 0, "decode_fold": 0}
 
 _lib = None
 _lib_mu = threading.Lock()
@@ -147,7 +147,11 @@ def lib() -> ctypes.CDLL:
             ]
             cdll.patrol_row_join.argtypes = [p, p, i64, i64, p, p, p, i64, p]
             cdll.patrol_take_n.argtypes = [p, p, i64, i64, i64, p, p, i64, p]
-            for fn in (cdll.patrol_pair_join, cdll.patrol_row_join, cdll.patrol_take_n):
+            cdll.patrol_decode_fold.argtypes = [
+                p, p, i64, i64, p, i64, i64, p, p, p, p, i64, p, p, p, p,
+            ]
+            for fn in (cdll.patrol_pair_join, cdll.patrol_row_join,
+                       cdll.patrol_take_n, cdll.patrol_decode_fold):
                 fn.restype = ctypes.c_int
             _lib = cdll
         return _lib
@@ -165,8 +169,16 @@ def check_rc(rc: int, name: str) -> None:
 
 def check_int64(name: str, t: torch.Tensor, device: torch.device) -> None:
     """Wrapper argument contract: contiguous int64 on the state's device."""
-    if t.dtype != torch.int64:
-        raise TypeError(f"{name} must be int64, got {t.dtype}")
+    check_operand(name, t, torch.int64, device)
+
+
+def check_operand(
+    name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device
+) -> None:
+    """Wrapper argument contract: contiguous ``dtype`` (int64, int32, uint8
+    or bool) on the state's device."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, state is on {device}")
     if not t.is_contiguous():

@@ -11,6 +11,14 @@ queues — take tickets and replication deltas — into kernel launches:
     completion pipeline (completer thread):
         wait for the tick's results, complete tickets, emit broadcasts
 
+Wire-v2 replication ingests on the receiving thread instead:
+:meth:`DeviceEngine.ingest_raw_planes` launches the decode+fold kernel on
+raw datagram byte planes, and :meth:`DeviceEngine.ingest_interval` one
+join of a decoded interval. Every launch of the engine, from any thread,
+goes to the device's default stream, so launches that mutate state run in
+the order they were issued (under ``_state_mu``); a row recycled by
+eviction is zeroed behind any fold already queued for it.
+
 The feeder never synchronises with the device. Each take tick enqueues
 ONE non-blocking device→host copy of its ``[7, K]`` result matrix into
 pinned memory right behind the kernel and records a CUDA event; the
@@ -27,10 +35,10 @@ bucket appearing with a different rate/count in the same tick is deferred
 one tick to preserve the unique-rows kernel invariant.
 
 Not part of this package yet, and absent here: the host fast path (host
-lanes, promotion, demotion), lifecycle GC and the memory budget, the
-native C++ fold, the certified GCRA / concurrency / quota families (their
-entry points raise ``NotImplementedError``), raw wire-v2 ingest, and the
-bulk ingest paths of the native receive loop.
+lanes, promotion, demotion), lifecycle GC and the memory budget (so no
+tombstone re-seeds), the native C++ fold, the certified GCRA / concurrency
+/ quota families (their entry points raise ``NotImplementedError``), and
+the bulk ingest paths of the native receive loop.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from patrol_tpu_torch.models.limiter import (
 )
 from patrol_tpu_torch.ops import _build
 from patrol_tpu_torch.ops import commit as commit_mod
+from patrol_tpu_torch.ops import delta as delta_ops
+from patrol_tpu_torch.ops import ingest as ingest_ops
 from patrol_tpu_torch.ops import merge as merge_mod
 from patrol_tpu_torch.ops import wire
 from patrol_tpu_torch.ops.merge import MergeBatch, merge_batch, merge_scalar_batch
@@ -103,14 +113,18 @@ DISPATCH_AHEAD = max(2, int(os.environ.get("PATROL_DISPATCH_AHEAD", 8)))
 # Device-commit timing on the completion pipeline (device_commit_ns,
 # device_take_ns and per-kernel histograms).
 DEVICE_TIMING = os.environ.get("PATROL_DEVICE_TIMING", "1") != "0"
+# patrol-audit (net/audit.py): the admitted-token audit window. 0 = manual
+# windows (tests close them via roll(force=True)).
+AUDIT_WINDOW_NS = int(float(os.environ.get("PATROL_AUDIT_WINDOW_MS", 5000)) * 1e6)
 
 BroadcastFn = Callable[[List[wire.WireState]], None]
 
 
 class StagingPool:
-    """Shape-bucketed reusable host staging tensors (int64) for packed
-    device operands and result readbacks — pinned memory when the engine
-    runs on CUDA, so copies in both directions are truly asynchronous.
+    """(dtype, shape)-bucketed reusable host staging tensors for packed
+    device operands and result readbacks (int64 matrices, uint8 datagram
+    planes) — pinned memory when the engine runs on CUDA, so copies in
+    both directions are truly asynchronous.
 
     ``release(buf, event)`` returns a buffer together with the CUDA event
     recorded after the copy that reads it; ``lease`` hands out only
@@ -126,9 +140,9 @@ class StagingPool:
         self._max_per_shape = max_per_shape
         self._pin = pin
 
-    def lease(self, shape) -> torch.Tensor:
+    def lease(self, shape, dtype: torch.dtype = torch.int64) -> torch.Tensor:
         t0 = time.perf_counter_ns()
-        key = tuple(shape)
+        key = (dtype, *shape)
         buf = None
         with self._mu:
             stack = self._free.get(key)
@@ -143,7 +157,7 @@ class StagingPool:
             profiling.COUNTERS.inc("staging_reuse_hits")
         else:
             profiling.COUNTERS.inc("staging_leases_fresh")
-            buf = torch.empty(key, dtype=torch.int64, pin_memory=self._pin)
+            buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=self._pin)
         dur = time.perf_counter_ns() - t0
         hist.STAGE_STAGING_WAIT.record(dur)
         tr = trace_mod.TRACE
@@ -153,12 +167,120 @@ class StagingPool:
 
     def release(self, buf: torch.Tensor, event=None) -> None:
         with self._mu:
-            stack = self._free.setdefault(tuple(buf.shape), [])
+            stack = self._free.setdefault((buf.dtype, *buf.shape), [])
             if len(stack) < self._max_per_shape:
                 stack.append((buf, event))
         tr = trace_mod.TRACE
         if tr.enabled:
             tr.record(trace_mod.EV_STAGING_RECYCLE, 0, buf.numel())
+
+
+class AuditLedger:
+    """Own-lane half of the AP-overshoot auditor: a windowed per-bucket
+    admitted-token G-counter. Each admitted take books its nanotokens
+    under the CURRENT window id; a window's per-bucket totals are monotone
+    within the window, so they gossip as join-decompositions exactly like
+    the metrics lattices (net/fleet.py) — receivers max-join per (window,
+    bucket, lane). Window ids are engine-clock derived (``clock //
+    window_ns``), so clock-synced nodes agree on attribution; with
+    ``window_ns == 0`` windows only close via ``roll(force=True)`` and the
+    id is a lockstep epoch counter (the deterministic test/bench mode).
+
+    Alongside the admitted count the ledger keeps each bucket's limit
+    view: capacity base plus the rate-derived refill over the window's
+    observed span — the ``limit × 1`` denominator of the overshoot
+    factor. Thread-safe; one leaf lock, never held across other locks."""
+
+    def __init__(self, window_ns: int = 0):
+        self._mu = threading.Lock()
+        self.window_ns = window_ns
+        self._window = 0
+        self._start_ns: Optional[int] = None
+        # name -> [admitted_nt, cap_nt(max), per_ns(max)] for the open window.
+        self._cur: Dict[str, list] = {}
+        self._closed: deque = deque(maxlen=4)
+        self.windows_closed = 0
+
+    def _clock_window(self, now: int) -> int:
+        return now // self.window_ns if self.window_ns > 0 else self._window
+
+    def _close_locked(self, now: int, next_window: int) -> None:
+        start = self._start_ns if self._start_ns is not None else now
+        dur = max(0, now - start)
+        if self._cur:
+            lanes = {
+                name: (
+                    v[0],
+                    # limit×1: capacity base + refill over the window span.
+                    v[1] + (v[1] * dur // v[2] if v[2] > 0 else 0),
+                )
+                for name, v in self._cur.items()
+            }
+            self._closed.append((self._window, dur, lanes))
+            self.windows_closed += 1
+        self._cur = {}
+        self._window = next_window
+        self._start_ns = now
+
+    def note(
+        self, name: str, admitted_nt: int, cap_nt: int, per_ns: int, now: int
+    ) -> None:
+        """Book one admitted take into the open window (self-rolling on
+        clock-derived window ids)."""
+        if admitted_nt <= 0:
+            return
+        with self._mu:
+            if self._start_ns is None:
+                self._start_ns = now
+                self._window = self._clock_window(now)
+            elif self.window_ns > 0:
+                w = self._clock_window(now)
+                if w > self._window:
+                    self._close_locked(now, w)
+            ent = self._cur.get(name)
+            if ent is None:
+                self._cur[name] = [admitted_nt, max(cap_nt, 0), max(per_ns, 0)]
+            else:
+                ent[0] += admitted_nt
+                ent[1] = max(ent[1], cap_nt)
+                ent[2] = max(ent[2], per_ns)
+
+    def roll(self, now: int, force: bool = False) -> None:
+        """Close the open window when its span lapsed (or ``force``)."""
+        with self._mu:
+            if self._start_ns is None:
+                self._start_ns = now
+                self._window = self._clock_window(now)
+                return
+            if force:
+                self._close_locked(now, self._window + 1)
+            elif self.window_ns > 0:
+                w = self._clock_window(now)
+                if w > self._window:
+                    self._close_locked(now, w)
+
+    def export(self):
+        """→ (current window id, closed windows) where each closed window
+        is ``(window_id, duration_ns, {name: (admitted_nt, limit_nt)})``
+        and the OPEN window rides along too (monotone — shipping partial
+        progress is join-safe). The open window's limit uses the span so
+        far."""
+        with self._mu:
+            out = list(self._closed)
+            if self._cur and self._start_ns is not None:
+                # The open window's partial view (duration so far unknown
+                # to a frozen clock ⇒ 0 refill, conservative).
+                out.append(
+                    (
+                        self._window,
+                        0,
+                        {
+                            name: (v[0], v[1])
+                            for name, v in self._cur.items()
+                        },
+                    )
+                )
+            return self._window, out
 
 
 class TakeTicket:
@@ -443,6 +565,14 @@ class DeviceEngine:
     versions of the kernels on the host (the tests do). Asking for CUDA
     without a card raises."""
 
+    # Raw-plane ingest (ops/ingest.py; the delta plane routes wire-v2
+    # datagrams to ingest_raw_planes when set) and the inline interval
+    # fold (ingest_interval's join launch on the rx thread; when unset the
+    # interval queues for the feeder instead). The JAX package's sharded
+    # mesh engine opts out of both; this engine serves one device.
+    _raw_ingest_capable = True
+    _interval_fold_capable = True
+
     def __init__(
         self,
         config: LimiterConfig,
@@ -479,6 +609,17 @@ class DeviceEngine:
         self._tick_traced: List[Tuple[int, str]] = []
         self._evictions = 0
         self._scalar_dropped = 0
+        # Recently-broadcast bucket names (insertion-ordered, bounded): the
+        # graceful-shutdown flush re-broadcasts these buckets' FINAL state
+        # so a lost last broadcast does not shed a stopping node's most
+        # recent takes. Names, not rows: a row may be recycled between the
+        # broadcast and the flush.
+        self._dirty_mu = threading.Lock()
+        self._dirty_names: Dict[str, None] = {}
+        self._dirty_cap = 4096
+        # patrol-audit: the admitted-token window ledger (net/audit.py
+        # reads it on the audit plane's pace).
+        self._audit = AuditLedger(AUDIT_WINDOW_NS)
         # Completion pipeline: the feeder DISPATCHES ticks and hands
         # (thunk, tickets) to this queue; the completer waits for the
         # device and fans results out. Bounded by the dispatch-ahead depth.
@@ -688,6 +829,417 @@ class DeviceEngine:
             self._cond.notify()
         return created
 
+    def ingest_deltas_batch(
+        self,
+        names: Sequence[str],
+        slots: Sequence[int],
+        added_nt: Sequence[int],
+        taken_nt: Sequence[int],
+        elapsed_ns: Sequence[int],
+        caps_nt: Optional[Sequence[int]] = None,
+        lane_added_nt: Optional[Sequence[int]] = None,
+        lane_taken_nt: Optional[Sequence[int]] = None,
+        scalar: Optional[Sequence[bool]] = None,
+    ) -> int:
+        """Bulk ingest: one vectorized directory pass, one queue append,
+        one wake-up. Returns deltas accepted (the whole batch is dropped
+        only when the pool is spent with every row pinned).
+
+        Per-delta wire semantics (−1 = field absent; see ingest_delta):
+        lane values ≥0 ⇒ exact PN lane merge; cap ≥0 only ⇒ header minus
+        wire cap, deficit-attribution merge; neither ⇒ ``scalar[i]`` picks
+        between v1 scalar state (deficit-attribution merge against OUR
+        cap_base, dropped while that capacity is unknown) and a
+        base-trailer peer's raw own-lane header (plain lane merge; the
+        default when ``scalar`` is omitted). ``caps_nt=None`` entirely ⇒
+        raw lane values."""
+        now = self.clock()
+        slots_a = np.asarray(slots, dtype=np.int64)
+        keep = (slots_a >= 0) & (slots_a < self.config.nodes)
+        caps_a = None if caps_nt is None else np.asarray(caps_nt, dtype=np.int64)
+        lane_a = None if lane_added_nt is None else np.asarray(lane_added_nt, np.int64)
+        lane_t = None if lane_taken_nt is None else np.asarray(lane_taken_nt, np.int64)
+        scalar_a = None if scalar is None else np.asarray(scalar, dtype=bool)
+        if caps_a is None and scalar_a is not None:
+            # Honor the scalar flags even without a caps array (parity with
+            # ingest_delta(..., scalar=True)): all caps absent.
+            caps_a = np.full(len(slots_a), -1, dtype=np.int64)
+        added_a = np.asarray(added_nt, dtype=np.int64)
+        taken_a = np.asarray(taken_nt, dtype=np.int64)
+        elapsed_a = np.asarray(elapsed_ns, dtype=np.int64)
+        if not keep.all():
+            idx = np.flatnonzero(keep)
+            names = [names[i] for i in idx]
+            slots_a = slots_a[idx]
+            added_a, taken_a, elapsed_a = added_a[idx], taken_a[idx], elapsed_a[idx]
+            if caps_a is not None:
+                caps_a = caps_a[idx]
+            if lane_a is not None:
+                lane_a, lane_t = lane_a[idx], lane_t[idx]
+            if scalar_a is not None:
+                scalar_a = scalar_a[idx]
+        if not len(names):
+            return 0
+        accepted = 0
+        # Split oversize batches so one chunk never exceeds a tick's budget.
+        for lo in range(0, len(names), MAX_MERGE_ROWS):
+            hi = lo + MAX_MERGE_ROWS
+            chunk_names = names[lo:hi]
+            res = self._assign_many_pinned(chunk_names, now, with_fresh=True)
+            if res is None:
+                log.warning(
+                    "pool spent (all pinned); %d deltas dropped", len(chunk_names)
+                )
+                continue
+            rows, _fresh = res
+            accepted += self._classify_queue_chunk(
+                rows,
+                slots_a[lo:hi],
+                added_a[lo:hi],
+                taken_a[lo:hi],
+                elapsed_a[lo:hi],
+                None if caps_a is None else caps_a[lo:hi],
+                None if lane_a is None else lane_a[lo:hi],
+                None if lane_t is None else lane_t[lo:hi],
+                None if scalar_a is None else scalar_a[lo:hi],
+            )
+        return accepted
+
+    def _classify_queue_chunk(
+        self,
+        rows: np.ndarray,
+        slots_c: np.ndarray,
+        added_c: np.ndarray,
+        taken_c: np.ndarray,
+        elapsed_c: np.ndarray,
+        caps_c: Optional[np.ndarray],
+        lane_ac: Optional[np.ndarray],
+        lane_tc: Optional[np.ndarray],
+        scalar_c_in: Optional[np.ndarray],
+    ) -> int:
+        """Shared tail of the bulk-ingest paths: wire-semantics
+        classification (see ingest_deltas_batch) over a chunk whose rows
+        are already assigned+pinned, then one queue append + wake-up.
+        Returns deltas queued; unpins any it drops."""
+        added_c = np.maximum(added_c, 0)
+        taken_c = np.maximum(taken_c, 0)
+        elapsed_c = np.maximum(elapsed_c, 0)
+        # patrol-audit staleness stamp (remote absorb; racy by design).
+        self.directory.last_remote_ns[rows] = self.clock()
+        scalar_c = None
+        if caps_c is not None:
+            has_cap = caps_c >= 0
+            # Adopt peer capacities first, so same-batch v1 deltas for
+            # rows initialized here already see the base.
+            self.directory.init_cap_base_many(
+                rows[has_cap & (caps_c > 0)], caps_c[has_cap & (caps_c > 0)]
+            )
+            # v1 (no trailer) ⇒ capacity-included scalar aggregates; a
+            # cap-less base trailer ⇒ raw own-lane header (no subtract).
+            v1 = (
+                ~has_cap & scalar_c_in
+                if scalar_c_in is not None
+                else np.zeros_like(has_cap)
+            )
+            base = self.directory.cap_base_nt[rows]
+            sub = np.where(has_cap, np.maximum(caps_c, 0), np.where(v1, base, 0))
+            added_c = np.maximum(added_c - sub, 0)
+            lane_ok = np.zeros_like(has_cap)
+            if lane_ac is not None:
+                # Lane-trailer packets: the exact PN lane values replace
+                # the header-derived approximation.
+                lane_ok = has_cap & (lane_ac >= 0) & (lane_tc >= 0)
+                added_c = np.where(lane_ok, lane_ac, added_c)
+                taken_c = np.where(lane_ok, lane_tc, taken_c)
+            # Deficit attribution for every aggregate-header delta: v1
+            # packets and cap-without-lane trailers alike.
+            scalar_c = v1 | (has_cap & ~lane_ok)
+            # v1 deltas on rows with unknown capacity: drop (the peer's
+            # next full-state broadcast re-delivers).
+            unknown = v1 & (base == 0)
+            if unknown.any():
+                self._scalar_dropped += int(unknown.sum())
+                self.directory.unpin_rows(rows[unknown])
+                keep_c = ~unknown
+                rows, slots_c = rows[keep_c], slots_c[keep_c]
+                added_c, taken_c = added_c[keep_c], taken_c[keep_c]
+                elapsed_c, scalar_c = elapsed_c[keep_c], scalar_c[keep_c]
+                if not len(rows):
+                    return 0
+        chunk = _DeltaChunk(rows, slots_c, added_c, taken_c, elapsed_c, scalar_c)
+        with self._cond:
+            self._deltas.append(chunk)
+            self._cond.notify()
+        return chunk.n
+
+    def ingest_interval(
+        self,
+        names: Sequence[str],
+        slots: Sequence[int],
+        caps_nt: Sequence[int],
+        added_nt: Sequence[int],
+        taken_nt: Sequence[int],
+        elapsed_ns: Sequence[int],
+    ) -> int:
+        """Bulk ingest of ONE decoded delta-interval datagram (wire v2,
+        net/delta.py's python-decode path): exact absolute PN-lane values
+        only, so no deficit attribution and no capacity gating. One
+        vectorized directory pass, then a SINGLE sentinel-padded join
+        launch (ops/delta.delta_fold) on the calling thread. Returns
+        deltas accepted; drops are loss-tolerant by CRDT design."""
+        if not self._interval_fold_capable:
+            # An engine that opts out of launching on the rx thread: the
+            # entries are exact PN lane values with caps — the lane-trailer
+            # case of the classify path — so they queue for the feeder.
+            return self.ingest_deltas_batch(
+                names, slots, added_nt, taken_nt, elapsed_ns, caps_nt=caps_nt,
+                lane_added_nt=added_nt, lane_taken_nt=taken_nt,
+            )
+        now = self.clock()
+        slots_a = np.asarray(slots, dtype=np.int64)
+        keep = (slots_a >= 0) & (slots_a < self.config.nodes)
+        caps_a = np.asarray(caps_nt, dtype=np.int64)
+        added_a = np.asarray(added_nt, dtype=np.int64)
+        taken_a = np.asarray(taken_nt, dtype=np.int64)
+        elapsed_a = np.asarray(elapsed_ns, dtype=np.int64)
+        if not keep.all():
+            idx = np.flatnonzero(keep)
+            names = [names[i] for i in idx]
+            slots_a, caps_a = slots_a[idx], caps_a[idx]
+            added_a, taken_a, elapsed_a = added_a[idx], taken_a[idx], elapsed_a[idx]
+        if not len(names):
+            return 0
+        accepted = 0
+        for lo in range(0, len(names), MAX_MERGE_ROWS):
+            hi = lo + MAX_MERGE_ROWS
+            chunk_names = names[lo:hi]
+            res = self._assign_many_pinned(chunk_names, now, with_fresh=True)
+            if res is None:
+                log.warning(
+                    "pool spent (all pinned); %d interval deltas dropped",
+                    len(chunk_names),
+                )
+                continue
+            rows, _fresh = res
+            # patrol-audit staleness stamp: these rows just absorbed
+            # remote-lane state (racy int64 write, sampler-only reader).
+            self.directory.last_remote_ns[rows] = now
+            caps_c = np.maximum(caps_a[lo:hi], 0)
+            pos = caps_c > 0
+            if pos.any():
+                self.directory.init_cap_base_many(rows[pos], caps_c[pos])
+            n = len(rows)
+            k = _pad_size(n)
+            buf = self._staging.lease((5, k))
+            packed = buf.numpy()
+            packed[0, :n] = rows
+            packed[0, n:] = _FOLD_PAD_ROW
+            packed[1, :n] = slots_a[lo:hi]
+            packed[2, :n] = np.maximum(added_a[lo:hi], 0)
+            packed[3, :n] = np.maximum(taken_a[lo:hi], 0)
+            packed[4, :n] = np.maximum(elapsed_a[lo:hi], 0)
+            packed[1:, n:] = 0
+            dev = self._ship(buf)
+            t0 = time.perf_counter_ns()
+            with self._state_mu:
+                delta_ops.delta_fold(self.state, delta_ops.DeltaBatch(*dev.unbind(0)))
+            self._observe_device_commit("delta_fold", t0, n)
+            self._ticks += 1
+            # The join is queued on the default stream ahead of any
+            # launch that could recycle these rows, so the pins may go now.
+            self.directory.unpin_rows(rows)
+            accepted += n
+        return accepted
+
+    def ingest_raw_planes(
+        self,
+        planes: np.ndarray,
+        lengths: np.ndarray,
+        walk=None,
+        release: Optional[Callable[[], None]] = None,
+    ) -> int:
+        """Raw dv2 datagram byte planes → joined state in ONE launch of the
+        decode+fold kernel (ops/ingest.py). Framing walk, entry
+        extraction, checksum/validation verdicts, sentinel padding of
+        invalid packets and the scatter-max fold all run in the kernel;
+        the host contributes only the directory pass that resolves entry
+        names to rows (vectorized, through the walk's name offsets and
+        hashes — Python strings materialize only for first-seen buckets).
+
+        ``planes`` is uint8[P, ROW]; ``walk`` is the caller's
+        :func:`ops.ingest.host_walk` result when it already ran one;
+        ``release`` is invoked on the completion pipeline once the planes'
+        copy to the device has finished — or inline if nothing is
+        launched. Returns deltas accepted (folded).
+
+        On CUDA the planes are copied into a pinned staging lease and
+        shipped with a non-blocking copy; the calling (rx) thread never
+        synchronises with the device."""
+        released = release is None
+
+        def _release_inline() -> None:
+            nonlocal released
+            if not released:
+                released = True
+                release()
+
+        try:
+            planes = np.asarray(planes)
+            lengths = np.ascontiguousarray(lengths, np.int32)
+            if walk is None:
+                walk = ingest_ops.host_walk(planes, lengths)
+            if not walk.ok.any():
+                # Every row failed the framing walk: the kernel would fold
+                # nothing, so nothing is launched (a garbage flood must not
+                # burn launches); the finally releases the planes inline.
+                return 0
+            P, row_w = planes.shape
+            E = walk.name_len.shape[1]
+            now = self.clock()
+            live = walk.ok[:, None] & (np.arange(E)[None, :] < walk.count[:, None])
+            pi, ei = np.nonzero(live)
+            rows_pe = np.full((P, E), _FOLD_PAD_ROW, np.int32)
+            pinned: Optional[np.ndarray] = None
+            if pi.size:
+                # Entry filter the python rx path applies per entry:
+                # out-of-range slots and control-channel names never reach
+                # the directory (nor the fold — their rows stay sentinels).
+                slots_f = walk.slot[pi, ei]
+                off_f = walk.name_off[pi, ei].astype(np.int64)
+                len_f = walk.name_len[pi, ei].astype(np.int32)
+                first = planes[pi, np.clip(off_f, 0, row_w - 1)]
+                ctrl = (len_f > 0) & (first == 0)
+                keep = (slots_f >= 0) & (slots_f < self.config.nodes) & ~ctrl
+                pi, ei = pi[keep], ei[keep]
+                off_f, len_f = off_f[keep], len_f[keep]
+            if pi.size:
+                # The directory pass, raw form: vectorized hashed lookup
+                # (pins hits), misses bound once per bucket lifetime.
+                hashes_f = walk.name_hash[pi, ei]
+                name_buf = ingest_ops.gather_name_rows(planes, pi, off_f, len_f)
+                rows_f = self.directory.lookup_hashed_pinned(
+                    hashes_f, name_buf, len_f, now
+                )
+                miss = np.flatnonzero(rows_f < 0)
+                for lo in range(0, miss.size, MAX_MERGE_ROWS):
+                    mi = miss[lo : lo + MAX_MERGE_ROWS]
+                    got = self._bind_wire_misses_pinned(
+                        name_buf, len_f, hashes_f, mi, now
+                    )
+                    if got is not None:
+                        rows_f[mi] = got
+                bound = rows_f >= 0
+                if bound.any():
+                    b_rows = rows_f[bound].astype(np.int64)
+                    pinned = b_rows
+                    # patrol-audit staleness stamp (remote absorb; racy by
+                    # design, sampler-only reader).
+                    self.directory.last_remote_ns[b_rows] = now
+                    caps_b = np.maximum(walk.cap[pi, ei][bound], 0)
+                    pos = caps_b > 0
+                    if pos.any():
+                        self.directory.init_cap_base_many(b_rows[pos], caps_b[pos])
+                    rows_pe[pi[bound], ei[bound]] = b_rows
+
+            # ONE launch for the whole batch. entry_off is the walk's
+            # framing proposal the kernel RE-VALIDATES; rows is the host
+            # plan. Host lanes are not part of this package yet, so no row
+            # is host-resident: ``hosted`` is all false and the reference's
+            # host-lane absorb tail (its _host_absorb_ingest of the
+            # kernel's hosted_mask) has nothing to do.
+            entry_off = np.maximum(walk.name_off - 1, 0)
+            t0 = time.perf_counter_ns()
+            if self._cuda:
+                buf = self._staging.lease((P, row_w), torch.uint8)
+                buf.numpy()[...] = planes
+                planes_dev = buf.to(self.device, non_blocking=True)
+                copied = self._device_event()
+                self._staging.release(buf, copied)
+                plan = self._staging.lease((2 * P * E + P,), torch.int32)
+                flat = plan.numpy()
+                flat[: P * E] = entry_off.reshape(-1)
+                flat[P * E : 2 * P * E] = rows_pe.reshape(-1)
+                flat[2 * P * E :] = lengths
+                plan_dev = self._ship(plan)
+                eoff_dev = plan_dev[: P * E].view(P, E)
+                rows_dev = plan_dev[P * E : 2 * P * E].view(P, E)
+                lengths_dev = plan_dev[2 * P * E :]
+            else:
+                copied = None
+                planes_dev = torch.from_numpy(np.ascontiguousarray(planes))
+                eoff_dev = torch.from_numpy(entry_off.astype(np.int32))
+                rows_dev = torch.from_numpy(rows_pe)
+                lengths_dev = torch.from_numpy(lengths)
+            hosted_dev = torch.zeros((P, E), dtype=torch.bool, device=self.device)
+            _obs_stage(hist.STAGE_H2D, t0, trace_mod.EV_H2D_PUT, int(pi.size))
+            t0 = time.perf_counter_ns()
+            with self._state_mu:
+                ingest_ops.decode_fold_raw(
+                    self.state, planes_dev, lengths_dev, eoff_dev, rows_dev, hosted_dev
+                )
+            _obs_stage(
+                hist.STAGE_DISPATCH, t0, trace_mod.EV_COMMIT_DISPATCH, int(pi.size)
+            )
+            self._observe_device_commit("decode_fold_raw", t0, max(int(pi.size), 1))
+            self._ticks += 1
+            profiling.COUNTERS.inc("ingest_raw_device_dispatches")
+            profiling.COUNTERS.inc(
+                "ingest_raw_bytes_on_device", int(lengths[walk.ok].sum())
+            )
+            if release is not None:
+                released = True
+
+                def _commit_plane() -> None:
+                    # Plane-recycle gate on the completion pipeline: the
+                    # caller's plane is reused only once its copy has
+                    # finished. Runs on the completer, not the rx path.
+                    if copied is not None:
+                        copied.synchronize()
+                    release()
+
+                self._enqueue_completion(_commit_plane, (), {})
+            # The launch is queued on the default stream ahead of any
+            # launch that could recycle these rows, so the pins may go now.
+            if pinned is not None:
+                self.directory.unpin_rows(pinned)
+            return int((rows_pe != _FOLD_PAD_ROW).sum())
+        finally:
+            _release_inline()
+
+    def _assign_many_pinned_wire(self, names, name_rows, name_lens, hashes, now):
+        """Wire-decoded variant of :meth:`_assign_many_pinned` — fresh
+        binds copy the already-decoded name bytes vectorized
+        (directory.assign_many_wire); same eviction-retry contract."""
+        return self._with_evict_retry(
+            lambda: self.directory.assign_many_wire(
+                names, name_rows, name_lens, hashes, now, pin=True
+            ),
+            len(names),
+        )
+
+    def _bind_wire_misses_pinned(
+        self,
+        name_buf: np.ndarray,
+        name_lens: np.ndarray,
+        hashes: np.ndarray,
+        mi: np.ndarray,
+        now: int,
+    ) -> Optional[np.ndarray]:
+        """The miss protocol of the wire ingest path: materialize the
+        first-seen names (the one place the rx path creates Python
+        strings), bind + pin via the wire bind path. None ⇒ pool spent
+        (logged); callers drop those deltas."""
+        miss_names = [
+            bytes(name_buf[i, : name_lens[i]]).decode("utf-8", "surrogateescape")
+            for i in mi
+        ]
+        rows = self._assign_many_pinned_wire(
+            miss_names, name_buf[mi], name_lens[mi], hashes[mi], now
+        )
+        if rows is None:
+            log.warning("pool spent (all pinned); %d deltas dropped", mi.size)
+        return rows
+
     def gcra_take(self, *args, **kwargs):
         raise NotImplementedError("the certified GCRA family is not ported yet")
 
@@ -698,12 +1250,45 @@ class DeviceEngine:
         raise NotImplementedError("the certified hierarchical-quota family is not ported yet")
 
     def _emit_broadcasts(self, broadcasts: List[wire.WireState]) -> None:
-        if not broadcasts or self.on_broadcast is None:
+        if not broadcasts:
             return
-        try:
-            self.on_broadcast(broadcasts)
-        except Exception:  # pragma: no cover
-            log.exception("broadcast hook failed")
+        self._note_dirty(broadcasts)
+        if self.on_broadcast is not None:
+            try:
+                self.on_broadcast(broadcasts)
+            except Exception:  # pragma: no cover
+                log.exception("broadcast hook failed")
+
+    def _note_dirty(self, broadcasts: List[wire.WireState]) -> None:
+        """Remember which buckets this node broadcast state for (bounded,
+        newest kept) — the shutdown-flush working set. Also stamps the
+        patrol-audit per-bucket emission clock (staleness sampler)."""
+        now = self.clock()
+        with self._dirty_mu:
+            d = self._dirty_names
+            for st in broadcasts:
+                d.pop(st.name, None)  # move-to-back keeps recency order
+                d[st.name] = None
+            while len(d) > self._dirty_cap:
+                d.pop(next(iter(d)))
+        for st in broadcasts:
+            row = self.directory.lookup(st.name)
+            if row is not None:
+                self.directory.last_emit_ns[row] = now
+
+    def drain_dirty_states(self, limit: int = 1024) -> List[wire.WireState]:
+        """Snapshot the most recently broadcast buckets' CURRENT full lane
+        state and clear the dirty set — the graceful-shutdown flush
+        payload. Bounded by ``limit`` buckets (newest first); per-lane
+        states, shipped on the normal broadcast path."""
+        with self._dirty_mu:
+            names = list(self._dirty_names)[-limit:]
+            self._dirty_names.clear()
+        out: List[wire.WireState] = []
+        for lo in range(0, len(names), 64):
+            for states in self.snapshot_many(names[lo : lo + 64]).values():
+                out.extend(states)
+        return out
 
     # -- introspection ------------------------------------------------------
 
@@ -760,6 +1345,43 @@ class DeviceEngine:
             )
         return out
 
+    def snapshot_many(self, names: Sequence[str]) -> Dict[str, List[wire.WireState]]:
+        """Batched :meth:`snapshot`: one device gather for many buckets
+        (incast replies, anti-entropy and audit fan-ins)."""
+        known = [(n, self.directory.lookup(n)) for n in names]
+        known = [(n, r) for n, r in known if r is not None]
+        if not known:
+            return {}
+        pn_dev, el_dev = self.read_rows([r for _, r in known])
+        out: Dict[str, List[wire.WireState]] = {}
+        for i, (name, row) in enumerate(known):
+            if self.directory.lookup(name) != row:
+                continue  # evicted mid-read: don't leak another bucket's state
+            pn = pn_dev[i]
+            elapsed = int(el_dev[i])
+            cap = int(self.directory.cap_base_nt[row])
+            sum_a = int(pn[:, 0].sum())
+            sum_t = int(pn[:, 1].sum())
+            states = [
+                wire.from_nanotokens(
+                    name, cap + sum_a, sum_t, elapsed,
+                    origin_slot=s, cap_nt=cap,
+                    lane_added_nt=int(pn[s, 0]), lane_taken_nt=int(pn[s, 1]),
+                )
+                for s in range(pn.shape[0])
+                if pn[s, 0] or pn[s, 1]
+            ]
+            if not states and (elapsed or cap):
+                states = [
+                    wire.from_nanotokens(
+                        name, cap, 0, elapsed, origin_slot=self.node_slot,
+                        cap_nt=cap, lane_added_nt=0, lane_taken_nt=0,
+                    )
+                ]
+            if states:
+                out[name] = states
+        return out
+
     def tokens(self, name: str) -> int:
         """Whole tokens currently in a bucket (introspection)."""
         return self.tokens_if_known(name) or 0
@@ -791,6 +1413,10 @@ class DeviceEngine:
         sentinel[4] = _FOLD_PAD_ROW + np.arange(k)
         rows = torch.full((k,), _FOLD_PAD_ROW, dtype=torch.int64, device=self.device)
         upd = torch.zeros((k, self.config.nodes, 2), dtype=torch.int64, device=self.device)
+        # One all-zero datagram plane: rejected by its length, folds nothing.
+        e = ingest_ops.MAX_RAW_ENTRIES
+        plane = torch.zeros((1, ingest_ops.RAW_PLANE_BYTES), dtype=torch.uint8, device=self.device)
+        plan = torch.zeros((1, e), dtype=torch.int32, device=self.device)
         with self._state_mu:
             take_n_batch(self.state, take, self.node_slot)
             commit_mod.commit_packed(
@@ -798,6 +1424,10 @@ class DeviceEngine:
             )
             merge_mod.merge_rows_dense(
                 self.state, merge_mod.RowDenseBatch(rows, upd, torch.zeros_like(rows))
+            )
+            ingest_ops.decode_fold_raw(
+                self.state, plane, plan[:, 0].contiguous(), plan, plan,
+                torch.zeros((1, e), dtype=torch.bool, device=self.device),
             )
         torch.cuda.synchronize(self.device)
 
@@ -883,6 +1513,18 @@ class DeviceEngine:
         """v1 (reference-peer) deltas dropped while the row's capacity was
         unknown."""
         return self._scalar_dropped
+
+    @property
+    def audit_ledger(self) -> AuditLedger:
+        """patrol-audit admitted-token window ledger (net/audit.py reads
+        it on the audit plane's pace)."""
+        return self._audit
+
+    def audit_staleness_samples(self, limit: int = 64) -> List[int]:
+        """Per-bucket staleness sample for the audit plane: ns the last
+        local emission ran ahead of the last remote absorb, over up to
+        ``limit`` buckets that have seen both."""
+        return [int(v) for v in self.directory.staleness_sample(limit)]
 
     @property
     def pending_completions(self) -> int:
@@ -1074,15 +1716,19 @@ class DeviceEngine:
         broadcasts: List[wire.WireState] = []
         unpin: List[int] = []
         done_ns = time.perf_counter_ns()
+        now_clock = self.clock()
         take_hist = hist.TAKE_SERVICE
         for i, key in enumerate(keys):
             ts = groups[key]
             c_nt = ts[0].count * NANO
+            admitted_nt = 0
             adm = int(admitted[i])
             if 0 < adm < len(ts):
                 profiling.COUNTERS.inc("take_partial_grants")
             outcomes = split_grant(int(have[i]), adm, c_nt, len(ts))
             for t, (remaining, ok) in zip(ts, outcomes):
+                if ok:
+                    admitted_nt += c_nt
                 if t.complete(remaining, ok):
                     unpin.append(t.row)
                     take_hist.record(done_ns - t.t0_ns)
@@ -1091,11 +1737,17 @@ class DeviceEngine:
                             t.trace_id, self.node_slot, "take", t.name,
                             t.t0_ns, done_ns - t.t0_ns,
                         )
+            cap = int(self.directory.cap_base_nt[ts[0].row])
+            if admitted_nt:
+                # patrol-audit: book the admitted tokens into the open
+                # audit window (the AP-overshoot auditor's own lane).
+                self._audit.note(
+                    ts[0].name, admitted_nt, cap, ts[0].rate.per_ns, now_clock
+                )
             if self.on_broadcast is None:
                 continue
             # Replicate full state on every take, success or not; skip
             # only an all-zero state (the incast request marker).
-            cap = int(self.directory.cap_base_nt[ts[0].row])
             if own_a[i] or own_t[i] or elapsed[i] or cap:
                 broadcasts.append(
                     wire.from_nanotokens(

@@ -2,8 +2,9 @@
 ``Repo`` seam (repo.go:13-18), plus the incast request logic of
 ``ReplicatedRepo.GetBucket`` (repo.go:96-106). The name is kept from the
 JAX package so callers of either package read alike; here the device is a
-CUDA card (or the CPU, for tests). Incast is a no-op while ``send_incast``
-is None, as it is in this package until replication is ported.
+CUDA card (or the CPU, for tests). The supervisor wires ``send_incast``
+to ``Replicator.send_incast_request``; with ``send_incast=None`` (engine
+tests) incast is a no-op.
 
 The hot path is the *fused* :meth:`take` (get-or-create + take + upsert +
 broadcast in one engine tick), because splitting it into the reference's

@@ -132,6 +132,7 @@ def test_http_script_matches_reference(monkeypatch):
 
     tcmd = TCommand(
         api_addr="127.0.0.1:0",
+        node_addr=f"127.0.0.1:{_free_port(socket.SOCK_DGRAM)}",
         clock=Clock(),
         config=TConfig(256, 8),
         handle_signals=False,
@@ -152,7 +153,7 @@ def test_http_script_matches_reference(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"peer_addrs": ["127.0.0.1:9"]},
+        {"udp_backend": "native"},
         {"http_front": "native"},
         {"mesh_replicas": 2},
         {"checkpoint_dir": "ckpt"},
@@ -164,16 +165,22 @@ def test_unported_options_refuse_to_start(kwargs):
 
 
 def test_port_only_answers_404_for_planes_not_ported():
+    # The replicator's planes answer; the JAX profiler's route has no
+    # counterpart in the port.
     tcmd = TCommand(
-        api_addr="127.0.0.1:0", clock=Clock(), config=TConfig(16, 2),
-        handle_signals=False, device="cpu",
+        api_addr="127.0.0.1:0", node_addr=f"127.0.0.1:{_free_port(socket.SOCK_DGRAM)}",
+        clock=Clock(), config=TConfig(16, 2), handle_signals=False, device="cpu",
     )
     node = Node(tcmd)
     try:
-        for target in ("/cluster/vars", "/admin/peers", "/debug/audit", "/debug/jax/trace"):
+        for target, status in (
+            ("/cluster/vars", 200), ("/cluster/metrics", 200), ("/admin/peers", 200),
+            ("/debug/audit", 200),
+            ("/debug/jax/trace", 404),
+        ):
             conn = http.client.HTTPConnection("127.0.0.1", tcmd.api_port, timeout=30)
             conn.request("GET", target)
-            assert conn.getresponse().status == 404
+            assert conn.getresponse().status == status, target
             conn.close()
     finally:
         node.close()
