@@ -21,7 +21,12 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    (tolerance 0; decoded fields under ``entry_ok``). Each kernel is timed
    beside its plain version, its bound and, where one exists, the PyTorch
    library call that computes the same function (for decode+fold, its
-   fold half).
+   fold half). Then the per-row RMW scatter at the probe's size: state
+   int32[1,000,000, 8, 128] (the 1M × 256-lane ``pn``, 4.1 GB) over the
+   whole int32 range, 8192 unique rows (one out of range), ``w0`` of both
+   residues mod 4, both inner functions bit for bit against the plain
+   version and the library call, timed also with cold rows and, for
+   ``pairmax``, beside ``pair_join`` on the same updates.
 3. The main path: the port's ``Command`` serving on the asyncio front
    (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
    lane trailers from lanes 1..63 through ``TPURepo.apply_delta``, 50k takes
@@ -39,6 +44,11 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    at 1M × 64, wire mode ``delta``, frozen clocks: 20,000 takes over 2,000
    names split across them, then both must hold the same state for every
    name within 60 s, and ``decode_fold`` must have launched.
+3d. The probe's entry point (``patrol_tpu_torch.scripts.probe_dma_scatter``,
+   ``--device cuda``) at 1M × 256 lanes, K = 8192: ``row_rmw`` must have
+   launched exactly once per call the probe made, and ``pairmax`` through
+   ``row_rmw`` and through ``pair_join`` must leave equal states. Its
+   printout goes to stderr, its numbers to the JSON detail.
 4. Print the ``kernels`` JSON line, the nvidia-smi line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -50,7 +60,9 @@ Details (build log, all numbers) go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import http.client
+import itertools
 import json
 import os
 import statistics
@@ -499,6 +511,115 @@ def decode_fold_checks(torch, ik, dev, rng):
     return res
 
 
+# -- phase 2: row_rmw against its plain version -------------------------------
+
+PROBE_BUCKETS, PROBE_K = 1_000_000, 8192
+
+
+def row_rmw_library(torch, state, rows, w0, lo, hi, inner):
+    """One ``scatter_reduce_(amax)`` computing ``row_rmw``'s function on
+    in-range rows: → a call. ``bcast`` over ``state.view(B, 1024)`` with
+    a ``[K, 1024]`` index; ``pairmax`` over the int64 ``view(B, 512)``
+    with a ``[K, 512]`` update that is zero off the target pair. The
+    index and source are built here, outside any timed call."""
+    from patrol_tpu_torch.ops.row_rmw_kernel import ROW_INTS, pair_value
+
+    b = state.shape[0]
+    ok = (rows >= 0) & (rows < b)
+    r = rows[ok].to(torch.int64)
+    if inner == "bcast":
+        flat = state.view(b, ROW_INTS)
+        src = lo[ok].unsqueeze(1).expand(-1, ROW_INTS).contiguous()
+    else:
+        flat = state.view(b, ROW_INTS).view(torch.int64)
+        src = torch.zeros((r.numel(), ROW_INTS // 2), dtype=torch.int64, device=state.device)
+        src[torch.arange(r.numel(), device=state.device), w0[ok].to(torch.int64) >> 1] = (
+            pair_value(lo[ok], hi[ok])
+        )
+    idx = r.unsqueeze(1).expand(-1, flat.shape[1]).contiguous()
+    return lambda: flat.scatter_reduce_(0, idx, src, reduce="amax", include_self=True)
+
+
+def row_rmw_checks(torch, rk, dev, rng):
+    """``row_rmw`` at the probe's size: state int32[1,000,000, 8, 128]
+    (4.1 GB) drawn over the whole int32 range, so touched rows hold
+    negative pairs; K = 8192 unique rows, one of them out of range (it
+    must be dropped); ``w0`` even over [0, 1024), both residues mod 4;
+    ``lo`` and ``hi`` over the whole int32 range. Each inner function is
+    held bit for bit (tolerance 0) to ``row_rmw_plain`` and to its library
+    call, then timed beside them, beside its bound, with cold rows (a
+    cycle of 8 row sets, 256 MiB, past the 50 MB L2), and — for
+    ``pairmax`` — beside ``pair_join`` on the same updates."""
+    from patrol_tpu_torch.ops import join_kernel as jk
+    from patrol_tpu_torch.ops.row_rmw_kernel import ROW_INTS
+    from patrol_tpu_torch.scripts.probe_dma_scatter import pair_join_operands
+
+    B, K = PROBE_BUCKETS, PROBE_K
+    gen = torch.Generator(device=dev).manual_seed(31)
+    base = torch.empty((B, 8, 128), dtype=torch.int32, device=dev)
+    base.random_(-(1 << 31), (1 << 31) - 1, generator=gen)
+    rows = rng.choice(B, K, replace=False)
+    rows[100] = B + 5
+    w0 = rng.integers(0, 512, K) * 2
+    check({0, 2} <= set((w0 % 4).tolist()), "w0 lacks a residue")
+    lo, hi = rng.integers(-(1 << 31), 1 << 31, size=(2, K))
+    args = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (rows, w0, lo, hi)]
+    live = torch.from_numpy(rows < B).to(dev)
+    live_rows = args[0][live].to(torch.int64)
+    kv = int(live.sum())
+    check(kv == K - 1, f"{kv} live rows")
+    cold_sets = [
+        [torch.from_numpy(rng.choice(B, K, replace=False).astype(np.int32)).to(dev), *args[1:]]
+        for _ in range(8)
+    ]
+    sk, sp = base.clone(), base.clone()
+    out = {}
+    for inner in ("bcast", "pairmax"):
+        sk.copy_(base)
+        sp.copy_(base)
+        rk.row_rmw(sk, *args, inner)
+        rk.row_rmw_plain(sp, *args, inner)
+        torch.cuda.synchronize()
+        check(torch.equal(sk, sp), f"row_rmw {inner}: kernel and plain version differ")
+        touched_k = sk.view(B, ROW_INTS).index_select(0, live_rows).to(torch.int64)
+        touched_p = sp.view(B, ROW_INTS).index_select(0, live_rows).to(torch.int64)
+        err = int((touched_k - touched_p).abs().max())
+        before = base.view(B, ROW_INTS).index_select(0, live_rows)
+        changed = int((touched_k != before).sum())
+        check(changed > 0, f"row_rmw {inner} changed nothing")
+        if inner == "pairmax":
+            pairs = before.view(torch.int64)
+            check(bool((pairs < 0).any()), "no negative pair in the touched rows")
+        sp.copy_(base)
+        lib = row_rmw_library(torch, sp, *args, inner)
+        lib()
+        torch.cuda.synchronize()
+        check(torch.equal(sk, sp), f"row_rmw {inner}: the library call computes another function")
+        sets = itertools.cycle(cold_sets)
+
+        def cold(inner=inner):
+            rk.row_rmw(sk, *next(sets), inner)
+
+        out[inner] = {
+            "ms": device_ms(torch, lambda: rk.row_rmw(sk, *args, inner)),
+            "ms_cold_rows": device_ms(torch, cold),
+            "plain_ms": device_ms(torch, lambda: rk.row_rmw_plain(sp, *args, inner), n=5),
+            "library_ms": device_ms(torch, lib),
+            "bytes": 2 * kv * ROW_INTS * 4 + 4 * K * 4,
+            "ops": kv * (ROW_INTS if inner == "bcast" else ROW_INTS // 2),
+            "max_abs_err": err,
+            "values_changed": changed,
+        }
+    # pairmax as per-pair 64-bit atomicMax: the join kernel on the same
+    # updates (the out-of-range row is dropped there too).
+    pn = sk.view(torch.int64).view(B, ROW_INTS // 4, 2)
+    elapsed = torch.zeros(B, dtype=torch.int64, device=dev)
+    ops = pair_join_operands(*args)
+    out["pairmax"]["pair_join_ms"] = device_ms(torch, lambda: jk.pair_join(pn, elapsed, *ops))
+    out["pairmax"]["pair_join_bytes"] = 4 * 8 * K + 2 * 16 * kv
+    return out
+
+
 # -- phase 3: the main path -------------------------------------------------
 
 
@@ -902,6 +1023,7 @@ def main() -> int:
     from patrol_tpu_torch.ops import _build
     from patrol_tpu_torch.ops import ingest_kernel as ik
     from patrol_tpu_torch.ops import join_kernel as jk
+    from patrol_tpu_torch.ops import row_rmw_kernel as rk
     from patrol_tpu_torch.ops import take_kernel as tk
     from patrol_tpu_torch.runtime.engine import DeviceEngine
     from patrol_tpu_torch.runtime.repo import TPURepo
@@ -935,12 +1057,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     dfold = decode_fold_checks(torch, ik, dev, rng)
     torch.cuda.empty_cache()
+    rmw = row_rmw_checks(torch, rk, dev, rng)
+    torch.cuda.empty_cache()  # the 4.1 GB probe state and its copies
     log(f"pair_join {pair['ms']:.4f} ms, row_join {row['ms']:.4f} ms, take_n {take['ms']:.4f} ms "
         f"(padding columns only {take['padding_only_ms']:.4f} ms), decode_fold "
-        f"{dfold[512]['ms']:.4f} ms at P=512, {dfold[1]['ms']:.4f} ms at P=1")
+        f"{dfold[512]['ms']:.4f} ms at P=512, {dfold[1]['ms']:.4f} ms at P=1, row_rmw "
+        f"{rmw['bcast']['ms']:.4f} ms bcast, {rmw['pairmax']['ms']:.4f} ms pairmax "
+        f"(pair_join on its updates {rmw['pairmax']['pair_join_ms']:.4f} ms)")
     report["kernel_detail"] = {
         "pair_join": pair, "row_join": row, "take_n": take,
         "decode_fold_p512": dfold[512], "decode_fold_p1": dfold[1],
+        "row_rmw_bcast": rmw["bcast"], "row_rmw_pairmax": rmw["pairmax"],
     }
 
     # 3. The main path.
@@ -1064,6 +1191,26 @@ def main() -> int:
         f"launches {two['launches']}")
     print(f"two_nodes_converge_s {two['converge_s']:.3f}")
 
+    # 3d. The probe's entry point on the card: 1M x 256 lanes, K = 8192.
+    from patrol_tpu_torch.scripts import probe_dma_scatter as probe_mod
+
+    _build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        probe = probe_mod.main(["--device", "cuda"])
+    probe_launches = dict(_build.LAUNCHES)
+    torch.cuda.empty_cache()
+    check(probe["pairmax_equals_pair_join"], "pairmax through row_rmw and pair_join differ")
+    check(probe_launches["row_rmw"] == probe["row_rmw_calls"],
+          f"the probe launched row_rmw {probe_launches['row_rmw']} times, "
+          f"made {probe['row_rmw_calls']} calls")
+    check(probe_launches["pair_join"] == probe["inners"]["pair_join"]["calls"] + 1,
+          f"the probe launched pair_join {probe_launches['pair_join']} times")
+    probe["launches"] = probe_launches
+    report["probe"] = probe
+    per_row = {k: v["per_row_ns"] for k, v in probe["inners"].items()}
+    log(f"probe: per-row ns {per_row}, launches {probe_launches}")
+    print("probe_per_row_ns " + " ".join(f"{k} {v:.3f}" for k, v in per_row.items()))
+
     # 4. The kernels line, the card, the contract line.
     kernels = []
     for name, src, replaces, m, n in (
@@ -1078,6 +1225,10 @@ def main() -> int:
         # along under *_p1.
         ("decode_fold", "patrol_tpu_torch/csrc/decode_fold.cu", "patrol_tpu/ops/ingest.py:589",
          dfold[512], two["launches"]["decode_fold"]),
+        # Timed as pairmax (the join); bcast rides along under *_bcast.
+        # Launches are those of the probe's entry point (phase 3d).
+        ("row_rmw", "patrol_tpu_torch/csrc/row_rmw.cu", "scripts/probe_dma_scatter.py:86",
+         rmw["pairmax"], probe_launches["row_rmw"]),
     ):
         b_ms, b_by = bound(m["bytes"], m["ops"])
         entry = {
@@ -1086,6 +1237,18 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": m["library_ms"],
         }
+        if name == "row_rmw":
+            mb = rmw["bcast"]
+            bb, byb = bound(mb["bytes"], mb["ops"])
+            bj, _ = bound(m["pair_join_bytes"], 3 * PROBE_K)
+            entry.update({
+                "max_abs_err": max(m["max_abs_err"], mb["max_abs_err"]),
+                "ms_cold_rows": m["ms_cold_rows"], "pair_join_ms": m["pair_join_ms"],
+                "pair_join_bound_ms": bj,
+                "ms_bcast": mb["ms"], "ms_cold_rows_bcast": mb["ms_cold_rows"],
+                "plain_ms_bcast": mb["plain_ms"], "bound_ms_bcast": bb, "bound_by_bcast": byb,
+                "library_ms_bcast": mb["library_ms"],
+            })
         if name == "decode_fold":
             m1 = dfold[1]
             b1, by1 = bound(m1["bytes"], m1["ops"])

@@ -39,7 +39,9 @@ NVCC_FLAGS = [
 ]
 
 # name -> launches since the last reset_launches().
-LAUNCHES: Dict[str, int] = {"pair_join": 0, "row_join": 0, "take_n": 0, "decode_fold": 0}
+LAUNCHES: Dict[str, int] = {
+    "pair_join": 0, "row_join": 0, "take_n": 0, "decode_fold": 0, "row_rmw": 0,
+}
 
 _lib = None
 _lib_mu = threading.Lock()
@@ -150,8 +152,9 @@ def lib() -> ctypes.CDLL:
             cdll.patrol_decode_fold.argtypes = [
                 p, p, i64, i64, p, i64, i64, p, p, p, p, i64, p, p, p, p,
             ]
+            cdll.patrol_row_rmw.argtypes = [p, i64, p, p, p, p, i64, ctypes.c_int, p]
             for fn in (cdll.patrol_pair_join, cdll.patrol_row_join,
-                       cdll.patrol_take_n, cdll.patrol_decode_fold):
+                       cdll.patrol_take_n, cdll.patrol_decode_fold, cdll.patrol_row_rmw):
                 fn.restype = ctypes.c_int
             _lib = cdll
         return _lib

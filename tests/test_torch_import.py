@@ -31,6 +31,8 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "patrol_tpu_torch.runtime.engine" in mods and len(mods) >= 25
+    assert {"patrol_tpu_torch.ops.row_rmw_kernel",
+            "patrol_tpu_torch.scripts.probe_dma_scatter"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r}\n"

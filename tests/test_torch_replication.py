@@ -208,10 +208,24 @@ def test_two_port_nodes_converge(wire_mode, budget):
 def test_incast_rehydrates_a_fresh_node(budget):
     addrs = [f"127.0.0.1:{free_port()}" for _ in range(2)]
     first = Node(port_cmd(addrs[0], addrs))
+    r0 = first.cmd.replicator
+    ae = r0.antientropy
     second = None
     try:
         # The second node is down while the first spends: its broadcasts
-        # are lost, and only incast can bring the state over.
+        # are lost. Anti-entropy on peer heal would also bring the bucket
+        # over (both packages do; see test_antientropy_binds_a_fresh_node),
+        # so the first node runs without it: it sends no digest and ignores
+        # the fresh node's, and only incast can bring the state over.
+        r0.antientropy = None
+        replies = []
+        reply_incast = r0._reply_incast
+
+        def spy(name, addr, multi_ok=False):
+            replies.append(name)
+            return reply_incast(name, addr, multi_ok)
+
+        r0._reply_incast = spy
         for _ in range(5):
             assert first.cmd.repo.take("cold", _port_rate(None), 1)[1]
         second = Node(port_cmd(addrs[1], addrs))
@@ -224,6 +238,39 @@ def test_incast_rehydrates_a_fresh_node(budget):
         lanes = {st[4]: st[7] for st in view["cold"]}
         assert lanes == {first.cmd.replicator.slots.self_slot: 5 * NANO,
                          fresh.replicator.slots.self_slot: NANO}
+        # Incast delivered it: the first node answered the request, and the
+        # fresh node fetched nothing by anti-entropy.
+        assert "cold" in replies
+        assert fresh.replicator.stats()["ae_fetches_tx"] == 0
+    finally:
+        if second is not None:
+            second.close()
+        first.close()
+        ae.close()
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_antientropy_binds_a_fresh_node(package, budget):
+    """The reference behaviour the incast test steers around: a node that
+    starts after its peer spent learns the bucket from the peer's
+    anti-entropy digest on heal, with no take of its own, in either
+    package."""
+    make = {"jax": jax_cmd, "port": port_cmd}[package]
+    rate = {"jax": JRate, "port": TRate}[package](freq=100, per_ns=3600 * NANO)
+    addrs = [f"127.0.0.1:{free_port()}" for _ in range(2)]
+    first = Node(make(addrs[0], addrs))
+    second = None
+    try:
+        for _ in range(5):
+            assert first.cmd.repo.take("cold", rate, 1)[1]
+        second = Node(make(addrs[1], addrs))
+        fresh = second.cmd
+        while fresh.engine.directory.lookup("cold") is None:
+            assert time.monotonic() < budget, "anti-entropy did not bind the bucket"
+            time.sleep(0.01)
+        view = converge([first.cmd, fresh], ["cold"], budget)
+        assert taken_tokens(view) == 5
+        assert fresh.replicator.stats()["ae_fetches_tx"] >= 1
     finally:
         if second is not None:
             second.close()
