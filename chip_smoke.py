@@ -21,7 +21,16 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    (tolerance 0; decoded fields under ``entry_ok``). Each kernel is timed
    beside its plain version, its bound and, where one exists, the PyTorch
    library call that computes the same function (for decode+fold, its
-   fold half). Then the per-row RMW scatter at the probe's size: state
+   fold half); take-n also on padding columns only, decode+fold also on
+   one plane rejected at its length (each kernel's own floor). On a small
+   state beside it, the two kernels' edge shapes: take-n at N = 1, 31,
+   32, 33, 64 and 65 lanes with the own lane first, last and at 32;
+   decode+fold over datagrams ending at every residue mod 16, with names
+   of every length 0..17, count 0 and the row's maximum count, at P = 16
+   and P = 1 (random stale bytes past each datagram); and a CUDA call on
+   planes one byte past a 16-byte boundary must raise in the wrapper.
+   ``-Xptxas -v``'s lines for both kernels go to the JSON detail. Then
+   the per-row RMW scatter at the probe's size: state
    int32[1,000,000, 8, 128] (the 1M × 256-lane ``pn``, 4.1 GB) over the
    whole int32 range, 8192 unique rows (one out of range), ``w0`` of both
    residues mod 4, both inner functions bit for bit against the plain
@@ -42,8 +51,15 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    on a CPU engine, accepted counts and final planes must be equal.
 3c. Two replicated nodes over loopback UDP, each a ``Command`` on the card
    at 1M × 64, wire mode ``delta``, frozen clocks: 20,000 takes over 2,000
-   names split across them, then both must hold the same state for every
-   name within 60 s, and ``decode_fold`` must have launched.
+   names split across them in paced chunks of 500 (each chunk's delta
+   intervals all acked within 30 s), then both must hold the same state
+   for every name within 60 s, and ``decode_fold`` must have launched.
+   The delta planes run their default, adaptive retransmit timer; the
+   smoothed ack round trip and the timeout it set go to the JSON detail.
+   Chunks 4..9
+   of the paced takes run under ``torch.profiler``: the count and device
+   time of ``take_n_kernel`` and ``decode_fold_kernel`` and the device's
+   busy share of that window go to the JSON detail.
 3d. The probe's entry point (``patrol_tpu_torch.scripts.probe_dma_scatter``,
    ``--device cuda``) at 1M × 256 lanes, K = 8192: ``row_rmw`` must have
    launched exactly once per call the probe made, and ``pairmax`` through
@@ -238,17 +254,18 @@ def join_checks(torch, jk, dev, rng):
     return pair, row
 
 
-def take_inputs(rng):
-    """State and a packed [8, 4096] take tick with every hazard case."""
-    k = 4096
-    pn = np.zeros((BUCKETS, LANES, 2), np.int64)
-    el = np.zeros(BUCKETS, np.int64)
-    live = 3584
-    rows = rng.choice(np.arange(1, BUCKETS), live, replace=False)
+def take_inputs(rng, buckets=BUCKETS, lanes=LANES, k=4096):
+    """State and a packed [8, k] take tick with every hazard case: 7/8 of
+    the columns live, the rest padding (row 0, nreq 0) aliasing a live
+    row 0, and k / 16 columns of fp64 refill corpus."""
+    pn = np.zeros((buckets, lanes, 2), np.int64)
+    el = np.zeros(buckets, np.int64)
+    live = k * 7 // 8
+    rows = rng.choice(np.arange(1, buckets), live, replace=False)
     rows[7] = 0  # row 0 is live; the padding tail aliases it
-    pn[rows] = rng.integers(0, 4 * NANO, size=(live, LANES, 2))
+    pn[rows] = rng.integers(0, 4 * NANO, size=(live, lanes, 2))
     neg = rows[: live // 4]
-    pn[neg, :, 1] += rng.integers(0, 8 * NANO, size=(len(neg), LANES))  # TAKEN > ADDED
+    pn[neg, :, 1] += rng.integers(0, 8 * NANO, size=(len(neg), lanes))  # TAKEN > ADDED
     el[rows] = rng.integers(0, 50 * NANO, live)
     p = np.zeros((8, k), np.int64)
     p[0, :live] = rows
@@ -259,12 +276,13 @@ def take_inputs(rng):
     p[5, :live] = rng.integers(1, 6, live)
     p[6, :live] = rng.choice([0, NANO, 10 * NANO, 3 * NANO + 5], live)
     p[7, :live] = rng.integers(0, 1000 * NANO, live)
-    # fp64 refill corpus on 256 rows: near-integer quotients, interval 1,
-    # huge deltas; a deep debit keeps the raw grant visible in `have`.
-    fp = slice(live - 256, live)
-    intervals = rng.choice([1, 3, 7, 999_999_937, 10**12 + 39, (1 << 40) + 1], 256)
-    mult = rng.choice([1, 3, 10**6 + 1, 10**9 + 7], 256)
-    delta = np.clip(intervals * mult + rng.integers(-1, 2, 256), 0, (1 << 62) - 1)
+    # fp64 refill corpus on k / 16 rows: near-integer quotients, interval
+    # 1, huge deltas; a deep debit keeps the raw grant visible in `have`.
+    nf = k // 16
+    fp = slice(live - nf, live)
+    intervals = rng.choice([1, 3, 7, 999_999_937, 10**12 + 39, (1 << 40) + 1], nf)
+    mult = rng.choice([1, 3, 10**6 + 1, 10**9 + 7], nf)
+    delta = np.clip(intervals * mult + rng.integers(-1, 2, nf), 0, (1 << 62) - 1)
     frows = p[0, fp]
     pn[frows] = 0
     pn[frows, 0, 1] = 1 << 61
@@ -319,6 +337,38 @@ def take_checks(torch, tk, dev, rng):
     }
     del base_pn, base_el, pk, ek, pp, ep
     return res
+
+
+EDGE_BUCKETS = 4096
+
+
+def take_lane_cases():
+    """(N, node_slot) around the kernel's 32-lane warp: the own lane
+    first, last and, past 32 lanes, in the warp's second pass."""
+    return [(n, slot) for n in (1, 31, 32, 33, 64, 65)
+            for slot in sorted({0, n - 1} | ({32} if n > 32 else set()))]
+
+
+def take_edge_checks(torch, tk, dev, rng):
+    """take_n at every lane width of :func:`take_lane_cases` on a small
+    state (4096 buckets, K = 512 with every hazard case), bit for bit
+    against its plain version; → the number of cases and max_abs_err."""
+    err = 0
+    cases = take_lane_cases()
+    for n, slot in cases:
+        pn, el, p = take_inputs(rng, EDGE_BUCKETS, n, 512)
+        pk, ek = torch.from_numpy(pn).to(dev), torch.from_numpy(el).to(dev)
+        pp, ep = pk.clone(), ek.clone()
+        packed = torch.from_numpy(p).to(dev)
+        out_k = tk.take_n(pk, ek, packed, slot)
+        out_p = tk.take_n_plain(pp, ep, packed, slot)
+        torch.cuda.synchronize()
+        tag = f"take_n N={n} node_slot={slot}"
+        err = max(err, check_equal(torch, f"{tag} results", out_k, out_p),
+                  check_equal(torch, f"{tag} pn", pk, pp),
+                  check_equal(torch, f"{tag} elapsed", ek, ep))
+        check(int((out_k[1] >= 1).sum()) > 50, f"{tag}: the corpus admits too little")
+    return {"cases": len(cases), "max_abs_err": err}
 
 
 # -- phase 2: decode_fold against its plain version --------------------------
@@ -446,6 +496,104 @@ def decode_fold_run(torch, ik, dev, base_pn, base_el, args_np):
     return out_k, out_p, err, (pk, ek), (pp, ep), args
 
 
+def residue_datagrams(rng, row=DV2_ROW):
+    """Valid datagrams at the kernel's alignment edges (it stages a plane
+    in 16-byte vectors and decodes entry tails from 4-byte words): one
+    entry with a name of every length 0..17 under 0..3 acks (lengths end
+    at every residue mod 16); 24 packets of 2..6 entries with names of
+    mixed lengths 0..17 (tails start at every residue mod 4); count = 0
+    under 0..3 acks; the row's maximum entry count (empty names) under
+    0..2 acks. Every third packet is followed by a copy with one payload
+    byte flipped. → datagrams."""
+    from patrol_tpu_torch.ops import ingest as ingest_ops
+    from patrol_tpu_torch.ops import wire
+
+    E = ingest_ops.max_entries(row)
+    specs = [([L], a) for L in range(18) for a in range(4)]
+    specs += [(list(rng.integers(0, 18, int(rng.integers(2, 7)))), int(rng.integers(0, 4)))
+              for _ in range(24)]
+    specs += [([], a) for a in range(4)] + [([0] * E, a) for a in range(3)]
+    out = []
+    for i, (name_lens, n_acks) in enumerate(specs):
+        ents = [
+            wire.DeltaEntry(
+                "".join(chr(97 + int(c)) for c in rng.integers(0, 26, int(L))),
+                int(rng.integers(0, LANES)), *(int(x) for x in rng.integers(0, 1 << 50, 4)),
+            )
+            for L in name_lens
+        ]
+        acks = [int(x) for x in rng.integers(0, 1 << 32, n_acks)]
+        data, n = wire.encode_delta_packet(2, i + 1, acks, ents, max_size=row)
+        check(n == len(ents), f"residue packet {i} packed {n} of {len(ents)} entries")
+        out.append(data)
+        if i % 3 == 0:
+            b = bytearray(data)
+            b[int(rng.integers(32, len(b) - 1))] ^= 0x10
+            out.append(bytes(b))
+    return out
+
+
+def decode_fold_edge_checks(torch, ik, dev, rng):
+    """decode_fold over :func:`residue_datagrams` (random stale bytes past
+    every datagram) on a small state, in batches of P = 16 and one plane
+    at a time (P = 1), bit for bit against its plain version, verdicts
+    equal to ``wire.decode_delta_packet``'s. Then a CUDA call on planes
+    that start one byte past a 16-byte boundary must raise in the wrapper
+    and launch nothing. → a dict of what was checked."""
+    from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.ops import ingest as ingest_ops
+    from patrol_tpu_torch.ops import wire
+    from patrol_tpu_torch.ops.merge import FOLD_PAD_ROW
+
+    raw = residue_datagrams(rng)
+    planes = rng.integers(0, 256, (len(raw), DV2_ROW)).astype(np.uint8)
+    lengths = np.array([len(b) for b in raw], np.int32)
+    for i, b in enumerate(raw):
+        planes[i, : len(b)] = np.frombuffer(b, np.uint8)
+    walk = ingest_ops.host_walk(planes, lengths)
+    eoff = np.maximum(walk.name_off - 1, 0).astype(np.int32)
+    rows = rng.integers(0, EDGE_BUCKETS, eoff.shape).astype(np.int32)
+    rows[rng.random(rows.shape) < 0.05] = FOLD_PAD_ROW
+    hosted = rng.random(rows.shape) < 0.1
+    want = np.array([wire.decode_delta_packet(b) is not None for b in raw])
+    check(set((lengths[want] % 16).tolist()) == set(range(16)), "residue corpus misses a residue")
+    base_pn = torch.from_numpy(
+        rng.integers(0, 1 << 40, size=(EDGE_BUCKETS, LANES, 2), dtype=np.int64)
+    ).to(dev)
+    base_el = torch.from_numpy(rng.integers(0, 1 << 40, EDGE_BUCKETS, dtype=np.int64)).to(dev)
+    err = 0
+    for P in (16, 1):
+        for lo in range(0, len(raw), P):
+            sel = slice(lo, lo + P)
+            out_k, _, e, *_ = decode_fold_run(
+                torch, ik, dev, base_pn, base_el,
+                (planes[sel], lengths[sel], eoff[sel], rows[sel], hosted[sel]),
+            )
+            err = max(err, e)
+            check(np.array_equal(out_k[0].cpu().numpy(), want[sel]),
+                  f"decode_fold P={P} at {lo}: verdicts differ from the decoder's")
+    # A plane view one byte past an aligned base: the bulk copy cannot take
+    # it, so the wrapper raises before any launch.
+    P = 2
+    buf = torch.zeros(P * DV2_ROW + 16, dtype=torch.uint8, device=dev)
+    mis = buf[1 : 1 + P * DV2_ROW].view(P, DV2_ROW)
+    args = [torch.from_numpy(np.ascontiguousarray(x[:P])).to(dev)
+            for x in (lengths, eoff, rows, hosted)]
+    before = _build.LAUNCHES["decode_fold"]
+    try:
+        ik.decode_fold(base_pn, base_el, mis, *args)
+    except ValueError:
+        raised = True
+    else:
+        raised = False
+    check(raised, "decode_fold took a plane at byte offset 1")
+    check(_build.LAUNCHES["decode_fold"] == before, "decode_fold launched on a misaligned plane")
+    return {
+        "datagrams": len(raw), "accepted": int(want.sum()),
+        "max_abs_err": err, "misaligned_plane_raises": raised,
+    }
+
+
 def decode_fold_checks(torch, ik, dev, rng):
     """decode_fold at P = 512 (the ring batch) and P = 1 (the asyncio
     path) on the 1M x 64 state: bit-exact to the plain version, then
@@ -506,6 +654,11 @@ def decode_fold_checks(torch, ik, dev, rng):
             "entries_folded": n_fold,
             "distinct_pairs": pairs,
         }
+        if P == 1:
+            # The kernel's own floor: one plane rejected at its length,
+            # before any byte is copied.
+            rej = [args[0], torch.zeros_like(args[1]), *args[2:]]
+            res[P]["rejected_only_ms"] = device_ms(torch, lambda: ik.decode_fold(pk, ek, *rej))
         del pk, ek, pp, ep, pn2, args, out_k, out_p
     del base_pn, base_el
     return res
@@ -617,6 +770,20 @@ def row_rmw_checks(torch, rk, dev, rng):
     ops = pair_join_operands(*args)
     out["pairmax"]["pair_join_ms"] = device_ms(torch, lambda: jk.pair_join(pn, elapsed, *ops))
     out["pairmax"]["pair_join_bytes"] = 4 * 8 * K + 2 * 16 * kv
+    return out
+
+
+def ptxas_lines(build_log: str, names) -> dict:
+    """``-Xptxas -v`` lines (registers, shared memory, spills) of each
+    source in ``names`` from the build log: → {name: [lines]}."""
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            cur = line.split()[1] if line.split()[1] in names else None
+            if cur:
+                out[cur] = []
+        elif cur and ("ptxas" in line or "bytes stack frame" in line):
+            out[cur].append(line.strip())
     return out
 
 
@@ -885,6 +1052,62 @@ def free_udp_port() -> int:
 
 
 TWO_NODE_NAMES, TWO_NODE_TAKES, TWO_NODE_CHUNK = 2000, 20_000, 500
+PROFILE_CHUNKS = range(4, 10)  # the paced takes' chunks traced by the profiler
+PROFILE_KERNELS = ("take_n_kernel", "decode_fold_kernel")
+
+
+class ProfileWindow:
+    """``torch.profiler`` (CPU and CUDA activities) over a window of the
+    paced takes. :meth:`close` ends it and reads, from ``key_averages()``,
+    the count and summed device time of each kernel in
+    :data:`PROFILE_KERNELS`, and from the trace's device events the
+    device busy share of the window (the union of their intervals over
+    the window's wall time), beside the launch counters' view of the same
+    window."""
+
+    def __init__(self):
+        import torch
+        from patrol_tpu_torch.ops import _build
+
+        self.torch = torch
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.__enter__()
+        self.launches0 = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def close(self, takes: int) -> dict:
+        from patrol_tpu_torch.ops import _build
+
+        self.torch.cuda.synchronize()
+        wall = time.perf_counter() - self.t0
+        launches = {k: v - self.launches0[k] for k, v in _build.LAUNCHES.items()}
+        self.prof.__exit__(None, None, None)
+        kernels = {}
+        for name in PROFILE_KERNELS:
+            rows = [e for e in self.prof.key_averages() if name in e.key]
+            kernels[name] = {
+                "count": sum(e.count for e in rows),
+                "device_us": sum(e.device_time_total for e in rows),
+            }
+        spans = sorted(
+            (e.time_range.start, e.time_range.end) for e in self.prof.events()
+            if str(e.device_type).endswith("CUDA") and e.time_range.end > e.time_range.start
+        )
+        busy, end = 0.0, float("-inf")
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        measured = bool(spans)
+        return {
+            "chunks": [PROFILE_CHUNKS.start, PROFILE_CHUNKS.stop], "takes": takes,
+            "wall_s": wall, "kernels": kernels, "device_events": len(spans),
+            "device_busy_us": busy if measured else None,
+            "device_busy_share": busy / (wall * 1e6) if measured else None,
+            "launches": launches,
+        }
 
 
 def run_two_nodes(Command, LimiterConfig, rng):
@@ -897,15 +1120,14 @@ def run_two_nodes(Command, LimiterConfig, rng):
     every name to confirm. → a dict of what was measured, with the
     replication counters at each poll.
 
-    Two settings keep the delta plane out of a retransmit storm, which it
-    cannot leave on its own: an interval unacked after a fixed number of
-    flush ticks is resent under a new sequence number, so an ack that
-    comes later than that matches nothing. Both nodes share one Python
-    interpreter here, and under a take flood a receiver's acks come later
-    than the default 8 ticks (160 ms). So the delta planes wait 50 ticks
-    (1 s, ``PATROL_DELTA_RETX_TICKS``'s range), and the next chunk goes in
-    once the last one's tickets have completed and neither node holds an
-    unacked interval."""
+    Both nodes share one Python interpreter here, so a receiver's acks
+    come back in hundreds of milliseconds to seconds (each P = 1 datagram
+    costs milliseconds of host time on its loop). The delta planes run
+    their default timer, which adapts to that round trip (``net/delta.py``);
+    a fixed timeout under it resends every interval before its ack lands
+    and never drains (``scripts/delta_timer.py`` shows both). The next
+    chunk goes in once the last one's tickets have completed and neither
+    node holds an unacked interval; a chunk's drain is held to 30 s."""
     from patrol_tpu_torch.ops import _build
     from patrol_tpu_torch.ops.rate import Rate
 
@@ -928,15 +1150,17 @@ def run_two_nodes(Command, LimiterConfig, rng):
         while not all(len(c.replicator.delta.capable_peers()) == 1 for c in cmds):
             check(time.perf_counter() < deadline, "the dv2 capability handshake did not complete")
             time.sleep(0.05)
-        for c in cmds:
-            c.replicator.delta.retransmit_ticks = 50
         names = [f"c{i}" for i in range(TWO_NODE_NAMES)]
         pick = rng.integers(0, len(names), TWO_NODE_TAKES).tolist()
         rate = Rate(freq=50, per_ns=3600 * NANO)
         _build.reset_launches()
         t0 = time.perf_counter()
         admitted = http_takes = 0
-        for lo in range(0, len(pick), TWO_NODE_CHUNK):
+        drains = []
+        window = None
+        for ci, lo in enumerate(range(0, len(pick), TWO_NODE_CHUNK)):
+            if ci == PROFILE_CHUNKS.start:
+                window = ProfileWindow()
             tickets = []
             for j in range(lo, min(lo + TWO_NODE_CHUNK, len(pick))):
                 cmd, name = cmds[j % 2], names[pick[j]]
@@ -954,11 +1178,15 @@ def run_two_nodes(Command, LimiterConfig, rng):
             for t in tickets:
                 check(t.wait(60), "a take ticket never completed")
                 admitted += t.ok
-            drained = time.perf_counter() + 30
+            t_drain = time.perf_counter()
             while any(c.replicator.delta.stats()["wire_intervals_unacked"] for c in cmds):
-                check(time.perf_counter() < drained, "the delta plane did not drain a chunk")
+                check(time.perf_counter() < t_drain + 30, f"the delta plane did not drain chunk {ci}")
                 time.sleep(0.005)
+            drains.append(time.perf_counter() - t_drain)
+            if ci == PROFILE_CHUNKS.stop - 1:
+                profile = window.close(len(PROFILE_CHUNKS) * TWO_NODE_CHUNK)
         t_takes = time.perf_counter() - t0
+        timers = [next(iter(c.replicator.delta.lag_stats().values())) for c in cmds]
         deadline = time.perf_counter() + 60
         while True:
             for c in cmds:
@@ -1004,8 +1232,13 @@ def run_two_nodes(Command, LimiterConfig, rng):
         "wire_delta_rx_deltas": [s["wire_delta_rx_deltas"] for s in stats],
         "wire_delta_packets_tx": [s["wire_delta_packets_tx"] for s in stats],
         "wire_interval_retransmits": [s["wire_interval_retransmits"] for s in stats],
+        "srtt_ticks": [t["srtt_ticks"] for t in timers],
+        "retransmit_timeout_ticks": [t["retransmit_timeout_ticks"] for t in timers],
+        "drain_s_max": max(drains),
+        "drain_s_sum": sum(drains),
         "replication_rx_packets": [s["replication_rx_packets"] for s in stats],
         "launches": launches,
+        "profile": profile,
         "polls": polls,
     }
 
@@ -1047,6 +1280,7 @@ def main() -> int:
     _build.lib()
     report["build_s"] = time.perf_counter() - t0
     report["build_log"] = (so.parent / "build.log").read_text() if (so.parent / "build.log").exists() else ""
+    report["ptxas"] = ptxas_lines(report["build_log"], ("take.cu", "decode_fold.cu"))
     log(f"kernels built in {report['build_s']:.1f}s: {so}")
 
     # 2. Kernels against their plain versions.
@@ -1054,19 +1288,23 @@ def main() -> int:
     pair, row = join_checks(torch, jk, dev, rng)
     torch.cuda.empty_cache()
     take = take_checks(torch, tk, dev, rng)
+    take["edges"] = take_edge_checks(torch, tk, dev, rng)
     torch.cuda.empty_cache()
     dfold = decode_fold_checks(torch, ik, dev, rng)
+    dfold["edges"] = decode_fold_edge_checks(torch, ik, dev, rng)
     torch.cuda.empty_cache()
     rmw = row_rmw_checks(torch, rk, dev, rng)
     torch.cuda.empty_cache()  # the 4.1 GB probe state and its copies
     log(f"pair_join {pair['ms']:.4f} ms, row_join {row['ms']:.4f} ms, take_n {take['ms']:.4f} ms "
         f"(padding columns only {take['padding_only_ms']:.4f} ms), decode_fold "
-        f"{dfold[512]['ms']:.4f} ms at P=512, {dfold[1]['ms']:.4f} ms at P=1, row_rmw "
+        f"{dfold[512]['ms']:.4f} ms at P=512, {dfold[1]['ms']:.4f} ms at P=1 "
+        f"(rejected at its length {dfold[1]['rejected_only_ms']:.4f} ms), row_rmw "
         f"{rmw['bcast']['ms']:.4f} ms bcast, {rmw['pairmax']['ms']:.4f} ms pairmax "
         f"(pair_join on its updates {rmw['pairmax']['pair_join_ms']:.4f} ms)")
     report["kernel_detail"] = {
         "pair_join": pair, "row_join": row, "take_n": take,
         "decode_fold_p512": dfold[512], "decode_fold_p1": dfold[1],
+        "decode_fold_edges": dfold["edges"],
         "row_rmw_bcast": rmw["bcast"], "row_rmw_pairmax": rmw["pairmax"],
     }
 
@@ -1188,7 +1426,9 @@ def main() -> int:
     two = run_two_nodes(Command, LimiterConfig, np.random.default_rng(13))
     report["two_nodes"] = two
     log(f"two nodes: converged in {two['converge_s']:.2f}s, dv2 rx {two['wire_delta_rx_packets']}, "
-        f"launches {two['launches']}")
+        f"retransmits {two['wire_interval_retransmits']}, srtt ticks {two['srtt_ticks']}, "
+        f"longest drain {two['drain_s_max']:.2f}s, launches {two['launches']}")
+    log(f"profiled window: {json.dumps(two['profile'])}")
     print(f"two_nodes_converge_s {two['converge_s']:.3f}")
 
     # 3d. The probe's entry point on the card: 1M x 256 lanes, K = 8192.
@@ -1253,10 +1493,15 @@ def main() -> int:
             m1 = dfold[1]
             b1, by1 = bound(m1["bytes"], m1["ops"])
             entry.update({
-                "max_abs_err": max(m["max_abs_err"], m1["max_abs_err"]),
+                "max_abs_err": max(m["max_abs_err"], m1["max_abs_err"],
+                                   dfold["edges"]["max_abs_err"]),
                 "ms_p1": m1["ms"], "plain_ms_p1": m1["plain_ms"], "bound_ms_p1": b1,
                 "bound_by_p1": by1, "library_ms_p1": m1["library_ms"],
+                "rejected_only_ms": m1["rejected_only_ms"],
             })
+        if name == "take_n":
+            entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
+            entry["padding_only_ms"] = m["padding_only_ms"]
         kernels.append(entry)
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -21,40 +21,67 @@
 // A lying plan (entry_off) can only reject a packet, never smuggle one in:
 // the chain is fully determined by the bytes.
 //
-// What bounds it on this card: bytes. A call reads each datagram's bytes
-// once and the [P, E] plan, writes the [P, E] outputs, and read-modify-
-// writes 16 B per folded pair and 8 B per folded elapsed; at the ring
-// batch (P = 512 planes of 8 KiB) that is a few MB, so a few microseconds
-// of HBM time, and at P = 1 a launch is bound by launch latency.
+// What bounds it on this card. Bytes, in principle: a call reads each
+// datagram once and the [P, E] plan, writes the [P, E] outputs and
+// read-modify-writes 16 B per folded pair and 8 B per folded elapsed --
+// about 10 MB, 3 us of HBM time, at the ring batch (P = 512 planes of
+// 8 KiB). In practice latency: a datagram of 8 KiB is almost no work, so
+// what a block costs is its chain of dependent steps, and at P = 1 that
+// chain (behind the launch) is the whole time; at P = 512 every block
+// fits in one wave, so the same chain sets the pace there too. The end of
+// the chain is the fold: its 64-bit atomics go to scattered rows, one
+// address at a time through the block's SM.
 //
-// Design. One block of 256 threads per packet. The block stages the
-// datagram's [0, length) bytes into shared memory (16-byte loads when the
-// rows are 16-byte aligned), so every later read -- header, name-length
-// bytes, the 34-byte entry tails -- hits shared memory, and bytes past the
-// length are never read as data. A block reduction gives the checksum;
-// thread 0 checks the header. Then one thread per entry ordinal reads its
-// proposed offset and name-length byte and publishes where its entry
-// ends; after a barrier each thread checks its link of the chain and the
-// bit-63 guards, and __syncthreads_and gives the packet's verdict. Only
-// after that verdict does any thread fold: an entry must never be folded
-// before a later entry's guard has had its say. The fold is 64-bit
-// atomicMax, exact on all of int64 and on duplicate keys across packets
-// (as in join.cu). Decoded fields of entries that are not live are
-// written as 0 (the contract leaves them unspecified).
+// Design: one block per datagram, one thread per entry ordinal (the
+// block has max(256, E rounded to a warp) threads), and a chain of two
+// global round trips (the length, then the datagram) and three barriers.
+//  * Every load that does not depend on the datagram goes out first:
+//    each thread loads its ordinal's plan (entry_off, rows, hosted) into
+//    registers, and thread 0 loads lengths[p].
+//  * Thread 0 arms an mbarrier and stages the datagram with one bulk
+//    asynchronous copy (TMA, cp.async.bulk) of round_up_16(length) bytes
+//    into shared memory; after barrier 1 (the mbarrier armed, the length
+//    published) every thread waits on the mbarrier for the bytes. The
+//    wrapper guarantees what the copy needs: a 16-byte-aligned plane base
+//    and a row width that is a multiple of 16. The bytes past the length
+//    that the round-up brings in never enter the checksum, the chain or a
+//    field. A length outside [43, ROW] is rejected before any byte is
+//    copied.
+//  * Between barriers 1 and 2: every thread sums its share of the
+//    checksum bytes [32, end) as 16-byte shared-memory vectors with a
+//    SIMD byte sum (__dp4a; the ragged end masked), reduced per warp;
+//    warp 0 checks the 32 envelope bytes, one a lane, with __all_sync;
+//    every thread reads its proposed entry's name length and the header
+//    fields it needs (n_acks, off0, count) itself, and publishes where its
+//    entry ends.
+//  * Between barriers 2 and 3: warp 0 adds the warp partials (one a
+//    lane, __reduce_add_sync) and lane 0 checks the checksum and the
+//    header; every thread checks its link of the chain and decodes its
+//    34-byte tail from aligned 4-byte words (__funnelshift_r for the
+//    misaligned start, __byte_perm for the big-endian swap), which also
+//    gives the bit-63 guard. Barrier 3 is __syncthreads_and: the packet's
+//    verdict.
+//  * Only after that verdict does any thread fold: an entry must never be
+//    folded before a later entry's guard has had its say. The fold is
+//    64-bit atomicMax, exact on all of int64 and on duplicate keys across
+//    packets (as in join.cu). Decoded fields of entries that are not live
+//    are written as 0 (the contract leaves them unspecified).
 //
 // C interface (loaded with ctypes): device pointers of contiguous tensors
-// -- pn/elapsed int64, planes uint8[P, ROW], lengths int32[P], entry_off
-// and rows int32[P, E], hosted bool[P, E]; outputs ok bool[P], masks
-// bool[2, P, E] (entry_ok, hosted_mask), fields int64[5, P, E]. `stream`
-// is a cudaStream_t. Returns the cudaError_t of the launch (0 on
-// success); P <= 0 launches nothing and returns 0.
+// -- pn/elapsed int64, planes uint8[P, ROW] (16-byte-aligned base, ROW a
+// multiple of 16), lengths int32[P], entry_off and rows int32[P, E],
+// hosted bool[P, E]; outputs ok bool[P], masks bool[2, P, E] (entry_ok,
+// hosted_mask), fields int64[5, P, E]. `stream` is a cudaStream_t. Returns
+// the cudaError_t of the launch (0 on success; cudaErrorInvalidValue for
+// E > 1024 or a misaligned plane); P <= 0 launches nothing and returns 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMinThreads = 256;
+constexpr int kMaxThreads = 1024;  // one thread per entry ordinal: E <= 1024
 constexpr int kBase = 32;   // envelope: 25-byte v1 header + 7-byte name
 constexpr int kHead = 8;    // version u8 | sender_slot u16 | seq u32 | n_acks u8
 constexpr int kAck = 4;
@@ -63,159 +90,206 @@ constexpr int kTail = 34;   // slot u16 | cap u64 | added u64 | taken u64 | elap
 constexpr int kMinLen = kBase + kHead + kCount + 1;  // 43
 constexpr int kVersion = 2;
 constexpr int kMaxAcks = 32;
-__constant__ unsigned char kName[7] = {0x00, 0x70, 0x74, 0x21, 0x64, 0x76, 0x32};
+constexpr int kSlack = 16;  // tail words may read a few bytes past `end`
+// The envelope: 24 zero bytes, the name's length (7), then the reserved
+// name "\x00pt!dv2", here little-endian (byte i of the name is bits 8i..).
+constexpr unsigned long long kName = 0x0032766421747000ull;
 
-__device__ __forceinline__ long long be64(const unsigned char* s) {
-  unsigned long long v = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v = (v << 8) | s[k];
-  return (long long)v;
+__device__ __forceinline__ unsigned envelope_byte(int i) {
+  return i < 24 ? 0u : (i == 24 ? 7u : (unsigned)(kName >> (8 * (i - 25))) & 0xFFu);
 }
 
-// Rejected packet: verdict false, every entry dead, fields zero.
-__device__ void write_rejected(long long p, long long pe0, int E, long long PE,
-                               bool* ok_out, bool* masks, long long* fields) {
-  if (threadIdx.x == 0) ok_out[p] = false;
-  for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    masks[pe0 + e] = false;
-    masks[PE + pe0 + e] = false;
-#pragma unroll
-    for (int k = 0; k < 5; ++k) fields[k * PE + pe0 + e] = 0;
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One 8-byte big-endian value from two byte-stream words.
+__device__ __forceinline__ long long be64(uint32_t hi, uint32_t lo) {
+  return (long long)(((unsigned long long)__byte_perm(hi, 0, 0x0123) << 32) |
+                     __byte_perm(lo, 0, 0x0123));
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
 decode_fold_kernel(long long* __restrict__ pn, long long* __restrict__ elapsed,
                    long long B, long long N,
                    const unsigned char* __restrict__ planes, long long row_bytes,
-                   long long row_pad, int vec16,
                    const int* __restrict__ lengths,
                    const int* __restrict__ entry_off,
                    const int* __restrict__ rows,
                    const bool* __restrict__ hosted, int E, long long PE,
                    bool* __restrict__ ok_out, bool* __restrict__ masks,
                    long long* __restrict__ fields) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* nxt_s = reinterpret_cast<int*>(smem + row_pad);  // [E] end of entry e
-  __shared__ int warp_sum[kThreads / 32];
-  __shared__ int s_ok, s_count, s_off0;
+  extern __shared__ __align__(16) unsigned char smem[];  // the datagram
+  __shared__ __align__(8) unsigned long long bar;
+  __shared__ int nxt_s[kMaxThreads];  // where entry e ends; -1 outside
+  __shared__ unsigned warp_sum[kMaxThreads / 32];
+  __shared__ int s_len;
 
   const long long p = blockIdx.x;
   const long long pe0 = p * E;
   const int tid = threadIdx.x;
-  const int len = lengths[p];
-  // The length bounds reject before any byte is read (block-uniform).
-  if (len < kMinLen || (long long)len > row_bytes) {
-    write_rejected(p, pe0, E, PE, ok_out, masks, fields);
-    return;
+  const int lane = tid & 31;
+  const bool mine = tid < E;  // this thread's entry ordinal exists
+
+  // 1. Every load that does not depend on the datagram goes out before
+  // anything waits: the plan of this thread's ordinal, and the length.
+  const int len0 = tid == 0 ? lengths[p] : 0;
+  int eo = 0, row = -1;
+  bool host = false;
+  if (mine) {
+    eo = entry_off[pe0 + tid];
+    row = rows[pe0 + tid];
+    host = hosted[pe0 + tid];
+  }
+  const uint32_t b = smem_addr(&bar);
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const int len = len0;
+    s_len = len;
+    // The length bounds reject before any byte is read.
+    if (len >= kMinLen && (long long)len <= row_bytes) {
+      const uint32_t nbytes = (uint32_t)((len + 15) & ~15);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   ::"r"(b), "r"(nbytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n"
+          ::"r"(smem_addr(smem)), "l"(planes + p * row_bytes), "r"(nbytes), "r"(b)
+          : "memory");
+    }
+  }
+  __syncthreads();  // barrier 1: the mbarrier is armed and the length known
+  const int len = s_len;
+  if (len >= kMinLen && (long long)len <= row_bytes) {
+    // Every thread waits for the copy's bytes on the mbarrier (phase 0),
+    // which makes the async proxy's writes visible to it.
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n.reg .pred q;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 q, [%1], 0;\n"
+          "selp.u32 %0, 1, 0, q;\n}\n"
+          : "=r"(done) : "r"(b) : "memory");
+    }
+  } else {
+    if (tid == 0) ok_out[p] = false;
+    if (mine) {
+      masks[pe0 + tid] = false;
+      masks[PE + pe0 + tid] = false;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) fields[k * PE + pe0 + tid] = 0;
+    }
+    return;  // block-uniform
   }
   const int end = len - 1;  // the checksum byte
 
-  // Stage [0, len) into shared memory. With 16-byte loads the last vector
-  // may carry a few stale bytes past len; nothing below reads them.
-  const unsigned char* src = planes + p * row_bytes;
-  if (vec16) {
-    const int nv = (len + 15) / 16;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(smem);
-    for (int i = tid; i < nv; i += blockDim.x) d4[i] = s4[i];
-  } else {
-    for (int i = tid; i < len; i += blockDim.x) smem[i] = src[i];
+  // 2a. Checksum of [kBase, end): 16-byte vectors (kBase is a multiple of
+  // 16, so only the vector holding `end` is ragged, and thread 0 masks
+  // it), summed four bytes at a time with __dp4a.
+  unsigned sum = 0;
+  const uint4* v4 = reinterpret_cast<const uint4*>(smem);
+  const int full = end / 16;  // vectors wholly before end
+  for (int v = kBase / 16 + tid; v < full; v += blockDim.x) {
+    const uint4 x = v4[v];
+    sum = __dp4a(x.x, 0x01010101u, sum);
+    sum = __dp4a(x.y, 0x01010101u, sum);
+    sum = __dp4a(x.z, 0x01010101u, sum);
+    sum = __dp4a(x.w, 0x01010101u, sum);
   }
-  __syncthreads();
-
-  // Checksum: sum of [kBase, end), a block reduction.
-  int sum = 0;
-  for (int i = kBase + tid; i < end; i += blockDim.x) sum += smem[i];
+  if (tid == 0 && full * 16 < end) {  // the ragged vector (end >= 42: full >= 2)
+    const uint4 x = v4[full];
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, o);
-  if ((tid & 31) == 0) warp_sum[tid >> 5] = sum;
-  __syncthreads();
-
-  if (tid == 0) {
-    int total = 0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += warp_sum[w];
-    bool h = true;
-    for (int i = 0; i < 24; ++i) h &= smem[i] == 0;
-    h &= smem[24] == 7;
-    for (int i = 0; i < 7; ++i) h &= smem[25 + i] == kName[i];
-    h &= (total & 0xFF) == smem[end];
-    h &= smem[kBase] == kVersion;
-    const int n_acks = smem[kBase + 7];
-    h &= n_acks <= kMaxAcks;
-    const int off0 = kBase + kHead + kAck * n_acks;
-    h &= off0 + kCount <= end;
-    int count = 0;
-    if (h) {  // off0 + 2 <= end < len: the count bytes are staged
-      count = (smem[off0] << 8) | smem[off0 + 1];
-      h &= count <= E;
-      if (count == 0) h &= off0 + kCount == end;
+    for (int j = 0; j < 4; ++j) {
+      const int left = end - (full * 16 + 4 * j);  // bytes of this word before end
+      const uint32_t m = left >= 4 ? 0xFFFFFFFFu : (left <= 0 ? 0u : (1u << (8 * left)) - 1u);
+      sum = __dp4a(w[j] & m, 0x01010101u, sum);
     }
-    s_ok = h;
-    s_count = h ? count : 0;
-    s_off0 = off0;
   }
-  __syncthreads();
-  if (!s_ok) {
-    write_rejected(p, pe0, E, PE, ok_out, masks, fields);
-    return;
-  }
-  const int count = s_count;
-  const int off0 = s_off0;
+  sum = __reduce_add_sync(0xFFFFFFFFu, sum);
+  if (lane == 0) warp_sum[tid >> 5] = sum;
 
-  // Where each proposed entry ends; -1 for an offset outside the payload,
-  // which rejects the packet below (and is never read through).
-  for (int e = tid; e < count; e += blockDim.x) {
-    const int eo = entry_off[pe0 + e];
-    nxt_s[e] = (eo >= 0 && eo < end) ? eo + 1 + smem[eo] + kTail : -1;
-  }
-  __syncthreads();
+  // The name length at this ordinal's proposed offset, read before the
+  // header's verdict (an offset outside [0, end) reads nothing).
+  const int nl = (mine && eo >= 0 && eo < end) ? smem[eo] : -1;
 
+  // 2b. The header, read by every thread; warp 0 checks the envelope
+  // bytes one a lane.
   bool good = true;
-  for (int e = tid; e < count; e += blockDim.x) {
-    const int eo = entry_off[pe0 + e];
-    const int nx = nxt_s[e];
+  if (tid < 32) good = __all_sync(0xFFFFFFFFu, smem[lane] == envelope_byte(lane)) != 0;
+  const int n_acks = smem[kBase + 7];
+  const int off0 = kBase + kHead + kAck * n_acks;
+  bool hdr = smem[kBase] == kVersion && n_acks <= kMaxAcks && off0 + kCount <= end;
+  int count = 0;
+  if (hdr) {  // off0 + 2 <= end < len: the count bytes are staged
+    count = (smem[off0] << 8) | smem[off0 + 1];
+    hdr = count <= E && (count != 0 || off0 + kCount == end);
+  }
+  if (!hdr) count = 0;
+
+  // 2c. Where this thread's entry ends; -1 for an offset outside the
+  // payload, which rejects the packet below (and is never read through).
+  const bool live = tid < count;
+  int nx = -1;
+  if (live) {
+    nx = nl >= 0 ? eo + 1 + nl + kTail : -1;
+    nxt_s[tid] = nx;
+  }
+  __syncthreads();  // barrier 2: warp partials and entry ends published
+
+  if (tid < 32) {  // warp 0 adds the warp partials
+    unsigned total = lane < (int)(blockDim.x >> 5) ? warp_sum[lane] : 0u;
+    total = __reduce_add_sync(0xFFFFFFFFu, total);
+    if (tid == 0) good &= hdr && (total & 0xFFu) == smem[end];
+  }
+  long long f[5] = {0, 0, 0, 0, 0};
+  if (live) {
     const bool inside = nx >= 0 && nx <= end;
     good &= inside;
-    good &= eo == (e == 0 ? off0 + kCount : nxt_s[e - 1]);
-    if (e == count - 1) good &= nx == end;
+    good &= eo == (tid == 0 ? off0 + kCount : nxt_s[tid - 1]);
+    if (tid == count - 1) good &= nx == end;
     if (inside) {
-      // Bit 63 of a big-endian u64 is the top bit of its first byte.
-      const unsigned char* t = smem + nx - kTail;
-      good &= ((t[2] | t[10] | t[18] | t[26]) & 0x80) == 0;
-    }
-  }
-  const bool pkt_ok = __syncthreads_and(good) != 0;
-
-  // Only now, with the packet's verdict known, write and fold.
-  if (tid == 0) ok_out[p] = pkt_ok;
-  for (int e = tid; e < E; e += blockDim.x) {
-    long long f[5] = {0, 0, 0, 0, 0};
-    bool eok = false, hm = false;
-    if (pkt_ok && e < count) {
-      const unsigned char* t = smem + nxt_s[e] - kTail;
-      f[0] = (t[0] << 8) | t[1];
-      f[1] = be64(t + 2);
-      f[2] = be64(t + 10);
-      f[3] = be64(t + 18);
-      f[4] = be64(t + 26);
-      eok = f[0] < N;
-      hm = eok && hosted[pe0 + e];
-      if (eok && !hm) {
-        const long long r = rows[pe0 + e];
-        if (r >= 0 && r < B) {
-          long long* dst = pn + (r * N + f[0]) * 2;
-          atomicMax(dst, f[2]);
-          atomicMax(dst + 1, f[3]);
-          atomicMax(elapsed + r, f[4] > 0 ? f[4] : 0LL);
-        }
-      }
-    }
-    masks[pe0 + e] = eok;
-    masks[PE + pe0 + e] = hm;
+      // The tail is [t, t + 34): slot at t, then four u64 at t + 2 + 8i.
+      // Nine aligned words from a = (t + 2) & ~3 cover the four values;
+      // funnel shifts realign them, __byte_perm swaps them big-endian.
+      const int t = nx - kTail;
+      const int a = (t + 2) & ~3;
+      const uint32_t sh = 8u * (uint32_t)((t + 2) & 3);
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(smem + a);
+      uint32_t u[8];
 #pragma unroll
-    for (int k = 0; k < 5; ++k) fields[k * PE + pe0 + e] = f[k];
+      for (int k = 0; k < 8; ++k) u[k] = __funnelshift_r(w[k], w[k + 1], sh);
+      f[0] = (smem[t] << 8) | smem[t + 1];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) f[1 + k] = be64(u[2 * k], u[2 * k + 1]);
+      // Bit 63 of a big-endian u64 is the top bit of its first byte.
+      good &= (f[1] | f[2] | f[3] | f[4]) >= 0;
+    }
   }
+  const bool pkt_ok = __syncthreads_and(good) != 0;  // barrier 3: the verdict
+
+  // 3. Only now, with the packet's verdict known, write and fold.
+  if (tid == 0) ok_out[p] = pkt_ok;
+  if (!mine) return;
+  bool eok = false, hm = false;
+  if (pkt_ok && live) {
+    eok = f[0] < N;
+    hm = eok && host;
+    if (eok && !hm && row >= 0 && (long long)row < B) {
+      long long* dst = pn + ((long long)row * N + f[0]) * 2;
+      atomicMax(dst, f[2]);
+      atomicMax(dst + 1, f[3]);
+      atomicMax(elapsed + row, f[4] > 0 ? f[4] : 0LL);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) f[k] = 0;
+  }
+  masks[pe0 + tid] = eok;
+  masks[PE + pe0 + tid] = hm;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) fields[k * PE + pe0 + tid] = f[k];
 }
 
 }  // namespace
@@ -226,17 +300,20 @@ extern "C" int patrol_decode_fold(void* pn, void* elapsed, long long B, long lon
                                   const void* rows, const void* hosted, long long E,
                                   void* ok, void* masks, void* fields, void* stream) {
   if (P <= 0) return 0;
-  const long long row_pad = (row_bytes + 15) / 16 * 16;
-  const size_t smem = (size_t)row_pad + 4 * (size_t)E;
+  // The bulk copy's contract: a 16-byte-aligned source and a size that is
+  // a multiple of 16 (round_up_16(length) <= ROW needs ROW % 16 == 0).
+  if (E < 1 || E > kMaxThreads || (uintptr_t)planes % 16 != 0 || row_bytes % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)row_bytes + kSlack;
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         decode_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
-  const int vec16 = ((uintptr_t)planes % 16 == 0) && (row_bytes % 16 == 0);
-  decode_fold_kernel<<<(unsigned)P, kThreads, smem, (cudaStream_t)stream>>>(
+  const int threads = E > kMinThreads ? (int)((E + 31) / 32 * 32) : kMinThreads;
+  decode_fold_kernel<<<(unsigned)P, threads, smem, (cudaStream_t)stream>>>(
       (long long*)pn, (long long*)elapsed, B, N, (const unsigned char*)planes,
-      row_bytes, row_pad, vec16, (const int*)lengths, (const int*)entry_off,
+      row_bytes, (const int*)lengths, (const int*)entry_off,
       (const int*)rows, (const bool*)hosted, (int)E, P * E, (bool*)ok,
       (bool*)masks, (long long*)fields);
   return (int)cudaGetLastError();

@@ -20,7 +20,14 @@ shape of Almeida et al. (arXiv:1410.2803):
   delta traffic (or bare-ack datagrams when they have none);
 * unacked intervals **retransmit** after a timeout — with the CURRENT
   values (absolute monotone state subsumes every older interval, so no
-  history is kept) — and acked intervals are **garbage-collected**;
+  history is kept) — and acked intervals are **garbage-collected**. The
+  timeout adapts per peer: every interval seq is sent once, so each ack
+  is an unambiguous round-trip sample (in flush ticks), smoothed as in
+  TCP (RFC 6298: ``srtt + max(1, 4·rttvar)``, never under the configured
+  ``retransmit_ticks``), and each retransmit round doubles it until the
+  next sample. A fixed timeout shorter than the peer's ack latency
+  resends every interval before its ack lands, and the resends keep the
+  receiver behind: a storm that does not end by itself;
 * when a peer stops acking (interval log overflow) or heals from a
   partition, the plane falls back to **full-state repair**: the pending
   interval log is dropped, the peer's capability is re-negotiated, and
@@ -47,6 +54,7 @@ owning replicator's thread-safe ``unicast``.
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 import threading
@@ -86,6 +94,10 @@ MIN_DELTA_MTU = wire.PACKET_SIZE
 # restores the python decode path everywhere.
 RAW_INGEST = os.environ.get("PATROL_RAW_INGEST", "1") != "0"
 
+# Ceiling of the adaptive retransmit timeout, in flush ticks (10 s at the
+# default 20 ms pacing).
+MAX_RETRANSMIT_TICKS = 500
+
 
 def _encode_ctrl(name_payload: bytes) -> bytes:
     name = name_payload.decode("utf-8", "surrogateescape")
@@ -97,7 +109,7 @@ class _PeerDelta:
 
     __slots__ = (
         "capable", "max_rx", "next_seq", "unacked", "pending_acks",
-        "last_advert_tick", "last_rx_data_ns",
+        "last_advert_tick", "last_rx_data_ns", "srtt", "rttvar", "backoff",
     )
 
     def __init__(self) -> None:
@@ -116,6 +128,11 @@ class _PeerDelta:
         # from this peer (0 = never) — the audit plane's per-peer
         # time-since-last-absorb gauge.
         self.last_rx_data_ns = 0
+        # Ack round trip in flush ticks (None until the first sample) and
+        # the retransmit backoff exponent since the last sample.
+        self.srtt: Optional[float] = None
+        self.rttvar = 0.0
+        self.backoff = 0
 
 
 class DeltaPlane:
@@ -149,6 +166,9 @@ class DeltaPlane:
             if retransmit_ticks is None
             else retransmit_ticks
         )
+        # The adaptive timeout's ceiling; ``retransmit_ticks`` is its
+        # floor, and a ceiling under the floor holds the timeout fixed.
+        self.max_retransmit_ticks = MAX_RETRANSMIT_TICKS
         self.max_unacked_intervals = max_unacked_intervals
         self.max_dirty = max_dirty
         self.advert_ticks = advert_ticks
@@ -370,6 +390,30 @@ class DeltaPlane:
             )
         return data_packets
 
+    def _timeout_locked(self, st: _PeerDelta) -> int:
+        """Ticks an interval toward this peer waits for its ack. Caller
+        holds _mu."""
+        floor = self.retransmit_ticks
+        # RFC 6298 §2.3 with a clock granularity of one tick: a sample is
+        # read between two flushes, so an ack may land up to a tick later.
+        rto = floor if st.srtt is None else st.srtt + max(1.0, 4.0 * st.rttvar)
+        rto *= 1 << st.backoff
+        return min(max(math.ceil(rto), floor), max(floor, self.max_retransmit_ticks))
+
+    def _on_ack_locked(self, st: _PeerDelta, seq: int) -> None:
+        """GC an acked interval and take its round trip as a sample
+        (RFC 6298 §2 gains). Caller holds _mu."""
+        rec = st.unacked.pop(seq, None)
+        if rec is None:
+            return
+        r = float(self._tick - rec[0])
+        if st.srtt is None:
+            st.srtt, st.rttvar = r, r / 2.0
+        else:
+            st.rttvar = 0.75 * st.rttvar + 0.25 * abs(st.srtt - r)
+            st.srtt = 0.875 * st.srtt + 0.125 * r
+        st.backoff = 0
+
     def _flush_peer_locked(
         self,
         addr: Addr,
@@ -386,9 +430,10 @@ class DeltaPlane:
         )
         retransmitted = 0
         now_ns = time.perf_counter_ns()
+        timeout = self._timeout_locked(st)
         for seq in [
             s for s, (t, _, _) in st.unacked.items()
-            if tick - t >= self.retransmit_ticks
+            if tick - t >= timeout
         ]:
             _, _, ents = st.unacked.pop(seq)
             live = False
@@ -413,6 +458,7 @@ class DeltaPlane:
             if live:
                 retransmitted += 1
         if retransmitted:
+            st.backoff = min(st.backoff + 1, 6)
             self.interval_retransmits += retransmitted
             profiling.COUNTERS.inc("wire_interval_retransmits", retransmitted)
             tr = trace_mod.TRACE
@@ -561,7 +607,7 @@ class DeltaPlane:
                 st.capable = True
                 n_acks = int(walk.n_acks[i])
                 for k in range(n_acks):
-                    st.unacked.pop(int(walk.acks[i, k]), None)
+                    self._on_ack_locked(st, int(walk.acks[i, k]))
                 if n_acks and tr.enabled:
                     tr.record(trace_mod.EV_DELTA_ACK, 0, n_acks)
                 if walk.seq[i]:
@@ -619,7 +665,7 @@ class DeltaPlane:
             # its advert arrives, assume the conservative rx bound.
             st.capable = True
             for seq in pkt.acks:
-                st.unacked.pop(seq, None)
+                self._on_ack_locked(st, seq)
             if pkt.acks:
                 tr = trace_mod.TRACE
                 if tr.enabled:
@@ -669,7 +715,9 @@ class DeltaPlane:
         * ``oldest_unacked_age_ns`` — age of the oldest un-acked interval
           (0 when fully acked): how long the peer has been behind;
         * ``last_rx_data_age_ns`` — time since the peer last shipped us a
-          data-bearing interval (None when it never has).
+          data-bearing interval (None when it never has);
+        * ``srtt_ticks`` / ``retransmit_timeout_ticks`` — the smoothed ack
+          round trip (None before the first ack) and the timeout it sets.
 
         Covers every peer that has exchanged delta traffic; read-only."""
         now = time.perf_counter_ns() if now_ns is None else now_ns
@@ -691,6 +739,8 @@ class DeltaPlane:
                         if st.last_rx_data_ns
                         else None
                     ),
+                    "srtt_ticks": st.srtt,
+                    "retransmit_timeout_ticks": self._timeout_locked(st),
                 }
         return out
 

@@ -137,6 +137,19 @@ def decode_fold_plain(
     return ok, entry_ok, hosted_mask, slot, cap, added, taken, elapsed_e
 
 
+def check_bulk_copy(planes: torch.Tensor) -> None:
+    """The kernel stages each plane row with one bulk asynchronous copy,
+    which needs a 16-byte-aligned source and a size that is a multiple
+    of 16: → raises ``ValueError`` unless the planes' base address and
+    row width are both multiples of 16."""
+    if planes.data_ptr() % 16 or planes.shape[-1] % 16:
+        raise ValueError(
+            "planes must start on a 16-byte boundary with a row width that is "
+            f"a multiple of 16 (base % 16 = {planes.data_ptr() % 16}, "
+            f"row = {planes.shape[-1]})"
+        )
+
+
 def decode_fold(
     pn: torch.Tensor,
     elapsed: torch.Tensor,
@@ -149,7 +162,9 @@ def decode_fold(
     """Decode P raw dv2 datagrams and fold them into state, in place.
 
     Operands, all contiguous on the state's device: ``planes`` uint8[P,
-    ROW] (bytes past ``lengths[p]`` are stale and never read as data),
+    ROW] (bytes past ``lengths[p]`` are stale and never read as data; on a
+    CUDA state 16-byte aligned with ROW a multiple of 16, see
+    :func:`check_bulk_copy`),
     ``lengths`` int32[P], ``entry_off`` int32[P, E] (the host walk's
     proposed offset of each entry's name-length byte; re-checked, never
     trusted), ``rows`` int32[P, E] (the host's row plan; rows outside
@@ -182,6 +197,7 @@ def decode_fold(
         raise ValueError(f"lengths must be [{P}], got {tuple(lengths.shape)}")
     if dev.type == "cpu":
         return decode_fold_plain(pn, elapsed, planes, lengths, entry_off, rows, hosted)
+    check_bulk_copy(planes)
     ok = torch.empty(P, dtype=torch.bool, device=dev)
     masks = torch.empty((2, P, E), dtype=torch.bool, device=dev)
     fields = torch.empty((5, P, E), dtype=torch.int64, device=dev)

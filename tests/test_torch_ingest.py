@@ -13,7 +13,10 @@ random blobs, bit-63 values with a fixed-up checksum, all over stale
   ``hosted_mask`` everywhere, the decoded fields under ``entry_ok`` (the
   reference leaves them unspecified elsewhere) — with random ``hosted``,
   sentinel rows, rows under dead entries and lying framing proposals.
-  Tolerance 0: every value is an exact integer;
+  Tolerance 0: every value is an exact integer. The same holds on a
+  corpus at the kernel's alignment edges (datagram lengths at every
+  residue mod 16, entry tails at every residue mod 4, count 0 and the
+  row's maximum count), and the kernel's bulk-copy contract is checked;
 * the engine seam: the port's ``ingest_raw_planes``, its
   ``ingest_interval`` and its queued bulk path (``ingest_deltas_batch``)
   give the same planes as the JAX engine's ``ingest_raw_planes`` (host
@@ -190,6 +193,115 @@ def test_decode_fold_plain_matches_reference(impl):
     assert (tst.pn.numpy() > 0).sum() > 50
 
 
+def _entry(rng, name_len, wire=twire):
+    return wire.DeltaEntry(
+        "".join(chr(97 + int(c)) for c in rng.integers(0, 26, name_len)),
+        int(rng.integers(0, NODES)),
+        *(int(x) for x in rng.integers(0, 1 << 50, 4)),
+    )
+
+
+def residue_corpus(part, seed=31):
+    """Valid datagrams at the kernel's alignment edges (it stages a plane
+    in 16-byte vectors and decodes entry tails from 4-byte words):
+
+    * ``lengths``: one entry with a name of every length 0..17 under 0..3
+      acks, so datagram lengths end at every residue mod 16;
+    * ``names``: 2..6 entries a packet with names of mixed lengths 0..17,
+      so later entries' tails start at every residue mod 4;
+    * ``counts``: ``count = 0`` packets under 0..3 acks, and packets at
+      the row's maximum entry count ``E`` (empty names) under 0..2 acks.
+
+    Every third packet is followed by a copy with one payload byte
+    flipped, which the checksum must reject."""
+    rng = np.random.default_rng(seed)
+    out = []
+    if part == "lengths":
+        specs = [([L], a) for L in range(18) for a in range(4)]
+    elif part == "names":
+        specs = [(list(rng.integers(0, 18, int(rng.integers(2, 7)))), int(rng.integers(0, 4)))
+                 for _ in range(24)]
+    else:
+        specs = [([], a) for a in range(4)] + [([0] * E, a) for a in range(3)]
+    for i, (name_lens, n_acks) in enumerate(specs):
+        ents = [_entry(rng, int(L)) for L in name_lens]
+        acks = [int(x) for x in rng.integers(0, 1 << 32, n_acks)]
+        data, n = twire.encode_delta_packet(2, i + 1, acks, ents, max_size=ROW)
+        assert n == len(ents)
+        out.append(data)
+        if i % 3 == 0:
+            b = bytearray(data)
+            b[int(rng.integers(32, len(b) - 1))] ^= 0x10
+            out.append(bytes(b))
+    return out
+
+
+@pytest.mark.parametrize("impl", ["jit", "pallas"])
+@pytest.mark.parametrize("part", ["lengths", "names", "counts"])
+def test_decode_fold_alignment_edges_match_reference(part, impl):
+    raw = residue_corpus(part)
+    rng = np.random.default_rng(7)
+    # Random stale bytes past every datagram: a ragged vector edge that
+    # let one into the checksum would reject a valid packet.
+    planes = rng.integers(0, 256, (len(raw), ROW)).astype(np.uint8)
+    lengths = np.array([len(b) for b in raw], np.int32)
+    for i, b in enumerate(raw):
+        planes[i, : len(b)] = np.frombuffer(b, np.uint8)
+    walk = tingest.host_walk(planes, lengths)
+    eoff = np.maximum(walk.name_off - 1, 0).astype(np.int32)
+    rows = rng.integers(0, BUCKETS, eoff.shape).astype(np.int32)
+    rows[rng.random(rows.shape) < 0.1] = PAD
+    hosted = rng.random(rows.shape) < 0.2
+    jst = jinit(JConfig(buckets=BUCKETS, nodes=NODES))
+    jargs = [jnp.asarray(x) for x in (planes, lengths, eoff, rows, hosted)]
+    if impl == "jit":
+        want = jingest.decode_fold_raw_jit(jst, *jargs)
+    else:
+        want = jingest.decode_fold_raw_pallas(jst, *jargs, interpret=True)
+    tst = tinit(TConfig(buckets=BUCKETS, nodes=NODES), device="cpu")
+    got = tingest.decode_fold_raw_plain(
+        tst, *(torch.from_numpy(x) for x in (planes, lengths, eoff, rows, hosted))
+    )
+    np.testing.assert_array_equal(tst.pn.numpy(), np.asarray(want[0].pn))
+    np.testing.assert_array_equal(tst.elapsed.numpy(), np.asarray(want[0].elapsed))
+    for i in (1, 2, 3):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]), err_msg=str(i))
+    eok = np.asarray(want[2])
+    for i in range(4, 9):
+        np.testing.assert_array_equal(got[i].numpy()[eok], np.asarray(want[i])[eok])
+    # The verdicts are the decoder's, and the corpus reaches its edges.
+    ok = got[1].numpy()
+    for i, b in enumerate(raw):
+        assert ok[i] == (twire.decode_delta_packet(b) is not None), i
+    assert 0 < (~ok).sum() < ok.sum()
+    if part == "lengths":
+        assert set((lengths[ok] % 16).tolist()) == set(range(16))
+    elif part == "names":
+        live = np.arange(E)[None, :] < walk.count[:, None]
+        assert set(walk.name_len[live].tolist()) == set(range(18))
+        tails = (walk.name_off + walk.name_len)[np.asarray(want[2])]
+        assert set((tails % 4).tolist()) == {0, 1, 2, 3}
+    else:
+        assert set(walk.count[ok].tolist()) == {0, E}
+
+
+@pytest.mark.parametrize(
+    "offset,row,ok",
+    [(0, ROW, True), (16, 64, True), (1, ROW, False), (0, 2047, False)],
+)
+def test_bulk_copy_contract(offset, row, ok):
+    # The kernel's bulk copy needs a 16-byte-aligned plane base and a row
+    # width that is a multiple of 16; a CUDA call raises on anything else.
+    buf = torch.zeros(offset + 2 * row + 64, dtype=torch.uint8)
+    base = buf.data_ptr() % 16
+    planes = buf[(16 - base) % 16 + offset :][: 2 * row].view(2, row)
+    if ok:
+        ingest_kernel.check_bulk_copy(planes)
+    else:
+        with pytest.raises(ValueError):
+            ingest_kernel.check_bulk_copy(planes)
+
+
 def test_decode_fold_wrapper_contract():
     raw, planes, lengths, eoff, rows, hosted, _ = _corpus_inputs(5, 16)
     args = [torch.from_numpy(x) for x in (planes, lengths, eoff, rows, hosted)]
@@ -300,6 +412,21 @@ def test_engine_raw_seam_matches_interval_path_and_reference(monkeypatch):
     assert views["interval"] == views["jax raw"]
     assert views["queued"] == views["jax raw"]
     assert any(pn != [[0, 0]] * NODES for pn, _, _ in views["raw"].values())
+
+
+def test_raw_ingest_reuses_one_hosted_operand_per_shape():
+    # Host lanes are not ported, so ``hosted`` is all false: one tensor
+    # per (P, E) shape is made once and reused by every later launch.
+    eng = tengine_mod.DeviceEngine(TConfig(BUCKETS, NODES), device="cpu")
+    try:
+        rng = np.random.default_rng(4)
+        for _ in range(3):
+            _feed_raw(eng, [mk_packet(rng, 5)])
+        _feed_raw(eng, [mk_packet(rng, 5), mk_packet(rng, 5)])
+        assert sorted(eng._no_hosted) == [(1, E), (2, E)]
+        assert not any(t.any() for t in eng._no_hosted.values())
+    finally:
+        eng.stop()
 
 
 def test_raw_planes_with_no_valid_packets_release_inline():

@@ -22,7 +22,7 @@ budget of its own.
 
 The traffic is kept to a few dozen names: the asyncio raw path walks each
 datagram in numpy on the receiving loop, and on a slow shared CPU a flood
-can outrun the delta plane's fixed retransmit timer (see ROADMAP §C).
+can outrun the JAX package's fixed retransmit timer (see ROADMAP §C).
 """
 
 import asyncio

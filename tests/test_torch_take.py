@@ -203,6 +203,36 @@ def test_fp64_refill_corpus(chunk):
     assert len(set(grant.tolist())) > k // 2  # non-vacuous spread
 
 
+def _lane_width_cases():
+    """(N, node_slot): lane widths around the kernel's 32-lane warp, the
+    own lane first, last and, past 32, in the second pass of the warp."""
+    cases = []
+    for n in (1, 31, 32, 33, 64, 65):
+        for slot in sorted({0, n - 1} | ({32} if n > 32 else set())):
+            cases.append((n, slot))
+    return cases
+
+
+@pytest.mark.parametrize("n,node_slot", _lane_width_cases())
+def test_lane_widths(n, node_slot):
+    # The kernel gives each live column a warp that loads lane pairs
+    # l, l + 32, ... and takes the own lane from the lane that loaded it;
+    # every N and own-lane position must give the reference's results.
+    rng = np.random.default_rng(1000 + 97 * n + node_slot)
+    pn = rng.integers(0, 10 * NANO, size=(B, n, 2), dtype=np.int64)
+    pn[::3, :, 1] += rng.integers(0, 20 * NANO, size=(len(pn[::3]), n))  # debits
+    el = rng.integers(0, 50 * NANO, size=(B,), dtype=np.int64)
+    p = random_packed(rng, 40)
+    p[2], p[3] = 10, NANO  # a live rate, so some columns admit
+    p[4] = rng.choice([NANO // 4, NANO // 2, NANO], 40)
+    p[0] = rng.permutation(np.arange(1, B))[:40]  # live rows stay unique
+    p[0, :5] = 0  # padding columns alias row 0, which is live beside them
+    p[5, :4] = 0
+    p[5, 4] = 3
+    out = assert_same(pn, el, p, node_slot)
+    assert (out[1] >= 1).sum() > 5 and (out[1] == 0).sum() > 3  # non-vacuous
+
+
 def test_unpacked_take_batch_matches_packed():
     rng = np.random.default_rng(12)
     pn, el = random_state(rng)
