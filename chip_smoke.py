@@ -8,10 +8,16 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
 1. Build every CUDA kernel from ``patrol_tpu_torch/csrc`` (nvcc, sm_90a)
    and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path (state 1,000,000 buckets × 64 lanes): the pair
-   join (8192 pairs with duplicates, FOLD_PAD_ROW sentinels and values past
-   2^32, plus a commit ring of 8 blocks), the row join (512 dense rows),
-   take-n (4096 rows, with padding rows aliasing a live row 0, negative
+   shapes of the main path (state 1,000,000 buckets × 64 lanes): the join
+   kernel through each wrapper — ``pair_join`` (8192 pairs with
+   duplicates, FOLD_PAD_ROW sentinels and values past 2^32), the J = 8
+   commit ring (64,536 folded deltas) whole and cut at its live counts,
+   ``row_join`` (512 dense rows), ``tick_join`` (512 dense rows and 8192
+   pairs in one launch, and as ``row_join`` then ``pair_join``), the ring
+   warm and cold beside a
+   byte and a sector-granular bound, and each wrapper's floor (one live
+   entry); ``cuobjdump -sass`` must show the reduction body as
+   ``RED.E.MAX.S64`` and no returning ``ATOM``. Then take-n (4096 rows, with padding rows aliasing a live row 0, negative
    balances, zero rates, count <= 0 and an fp64 refill corpus) and
    decode+fold (512 raw wire-v2 datagram planes of 8 KiB, about 180
    entries each, mixed with the hostile kinds — flips, truncations,
@@ -29,7 +35,8 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    of every length 0..17, count 0 and the row's maximum count, at P = 16
    and P = 1 (random stale bytes past each datagram); and a CUDA call on
    planes one byte past a 16-byte boundary must raise in the wrapper.
-   ``-Xptxas -v``'s lines for both kernels go to the JSON detail. Then
+   ``-Xptxas -v``'s lines for these and the join kernel go to the JSON
+   detail. Then
    the per-row RMW scatter at the probe's size: state
    int32[1,000,000, 8, 128] (the 1M × 256-lane ``pn``, 4.1 GB) over the
    whole int32 range, 8192 unique rows (one out of range), ``w0`` of both
@@ -41,8 +48,11 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    lane trailers from lanes 1..63 through ``TPURepo.apply_delta``, 50k takes
    (uniform keys plus a Zipf(1.25) hot-key crowd) through ``submit_take``,
    and a few dozen real HTTP requests. The launch counters are zeroed just
-   before and read just after; the join and take kernels must have
-   launched. The same trace replays through a second engine on the CPU
+   before and read just after; the join kernel (through any of its
+   wrappers) and take-n must have launched. The deltas run under
+   ``torch.profiler``: the join kernel's count and device time, the
+   device's busy share, and how the merge ticks committed (single-block,
+   hybrid, commit rings by J) go to the JSON detail. The same trace replays through a second engine on the CPU
    (the plain versions): per-ticket outcomes and the final planes must be
    identical.
 3b. Raw wire-v2 ingest at the ring's batch: 200,000 entries over 200,000
@@ -150,13 +160,51 @@ def check_equal(torch, name: str, a, b) -> int:
 
 
 def join_checks(torch, jk, dev, rng):
+    """The join kernel through each of its wrappers on the 1M x 64 state,
+    bit for bit (tolerance 0) against the plain versions, then timed:
+
+    * ``pair_join`` at 8192 pairs with duplicates (a quarter on 64 hot
+      rows), 256 sentinel pairs and values past 2^32;
+    * ``row_join`` at 512 dense rows (the fold's ceiling), 8 sentinels;
+    * ``tick_join``, the hybrid tick: 512 dense rows and 8192 unique pairs
+      on other rows, as one launch and as ``row_join`` then ``pair_join``;
+    * the J = 8 commit ring of 64,536 folded deltas through
+      ``commit_packed``, whole (sentinel tail included) and cut at the
+      fold's live counts, warm (the same ring again) and cold (a cycle of
+      16 rings on fresh random rows, ~10 MB of touched sectors each, past
+      the 50 MB L2), beside two bounds: the table's rule (live inputs
+      once, each touched 16-byte pair and 8-byte elapsed word read and
+      written once) and a sector-granular one (each touched 32-byte
+      sector read and written once);
+    * each wrapper's floor: the same launch with one live pair, one live
+      row, or one of each.
+
+    → {"pair": ..., "row": ..., "tick": ..., "ring": ...}, each with the
+    keys the kernels line reads."""
+    from patrol_tpu_torch.models.limiter import LimiterState
+    from patrol_tpu_torch.ops import commit as commit_mod
     from patrol_tpu_torch.ops.merge import FOLD_PAD_ROW
+    from patrol_tpu_torch.runtime.engine import DeltaArrays, fold_core
 
     big = 1 << 40
     base_pn = torch.from_numpy(
         rng.integers(0, big, size=(BUCKETS, LANES, 2), dtype=np.int64)
     ).to(dev)
     base_el = torch.from_numpy(rng.integers(0, big, size=BUCKETS, dtype=np.int64)).to(dev)
+
+    def dev64(*xs):
+        return [torch.from_numpy(np.ascontiguousarray(x, np.int64)).to(dev) for x in xs]
+
+    pk, ek = base_pn.clone(), base_el.clone()
+    pp, ep = base_pn.clone(), base_el.clone()
+    errs = {}
+
+    def same(name, kernel, plain):
+        kernel(pk, ek)
+        plain(pp, ep)
+        torch.cuda.synchronize()
+        errs[name] = max(check_equal(torch, f"{name} pn", pk, pp),
+                         check_equal(torch, f"{name} elapsed", ek, ep))
 
     # Pair join: 8192 pairs, duplicates (a quarter on 64 hot rows), 256
     # sentinel pairs, values past 2^32.
@@ -166,35 +214,31 @@ def join_checks(torch, jk, dev, rng):
     rows[-256:] = FOLD_PAD_ROW + np.arange(256)
     slots = rng.integers(0, LANES, k)
     vals = rng.integers(0, 2 * big, size=(3, k))
-    args = [torch.from_numpy(np.ascontiguousarray(x, np.int64)).to(dev)
-            for x in (rows, slots, vals[0], vals[1], rows, vals[2])]
-    pk, ek = base_pn.clone(), base_el.clone()
-    pp, ep = base_pn.clone(), base_el.clone()
-    jk.pair_join(pk, ek, *args)
-    jk.pair_join_plain(pp, ep, *args)
-    torch.cuda.synchronize()
-    pair_err = max(check_equal(torch, "pair_join pn", pk, pp),
-                   check_equal(torch, "pair_join elapsed", ek, ep))
+    args = dev64(rows, slots, vals[0], vals[1], rows, vals[2])
+    same("pair_join", lambda p, e: jk.pair_join(p, e, *args),
+         lambda p, e: jk.pair_join_plain(p, e, *args))
 
-    # Commit ring: 8 blocks of 8192 unique sorted pairs, flattened.
-    from patrol_tpu_torch.ops import commit as commit_mod
-    from patrol_tpu_torch.runtime.engine import DeltaArrays, fold_core
+    # Commit ring: 8 blocks of 8192, 64,536 deltas folded (and, for the
+    # cold cycle, 16 more rings on fresh random rows).
+    def fold_ring(n):
+        d = DeltaArrays(
+            rng.integers(0, BUCKETS, n), rng.integers(0, LANES, n),
+            rng.integers(0, 2 * big, n), rng.integers(0, 2 * big, n),
+            rng.integers(0, 2 * big, n), np.zeros(n, bool),
+        )
+        ur, us, ua, ut, er, e = fold_core(d)
+        ring = commit_mod.pack_commit_blocks(ur, us, ua, ut, er, e, 8192)
+        check(ring.shape[1] == 8, f"commit ring has {ring.shape[1]} blocks, want 8")
+        return torch.from_numpy(ring).to(dev), len(ur), len(er)
 
-    n = 8 * 8192 - 1000
-    d = DeltaArrays(
-        rng.integers(0, BUCKETS, n), rng.integers(0, LANES, n),
-        rng.integers(0, 2 * big, n), rng.integers(0, 2 * big, n),
-        rng.integers(0, 2 * big, n), np.zeros(n, bool),
-    )
-    ring = commit_mod.pack_commit_blocks(*fold_core(d), 8192)
-    check(ring.shape[1] == 8, f"commit ring has {ring.shape[1]} blocks, want 8")
-    ring_t = torch.from_numpy(ring).to(dev)
+    n_ring = 8 * 8192 - 1000
+    ring_t, n, ne = fold_ring(n_ring)
     flat = [ring_t[i].reshape(-1).contiguous() for i in range(6)]
-    jk.pair_join(pk, ek, *flat)
-    jk.pair_join_plain(pp, ep, *flat)
-    torch.cuda.synchronize()
-    pair_err = max(pair_err, check_equal(torch, "commit ring pn", pk, pp),
-                   check_equal(torch, "commit ring elapsed", ek, ep))
+    live = commit_mod.live_pairs(ring_t, n, ne, BUCKETS)
+    same("ring whole", lambda p, e: jk.pair_join(p, e, *flat),
+         lambda p, e: jk.pair_join_plain(p, e, *flat))
+    same("ring live", lambda p, e: commit_mod.commit_packed(LimiterState(p, e), ring_t, n, ne),
+         lambda p, e: jk.pair_join_plain(p, e, *flat))
 
     # Row join: 512 dense rows (the fold's ceiling), 8 of them sentinels.
     r = 512
@@ -202,56 +246,128 @@ def join_checks(torch, jk, dev, rng):
     drows[-8:] = FOLD_PAD_ROW + np.arange(8)
     upd = rng.integers(0, 2 * big, size=(r, LANES, 2))
     upd[:, ::3] = 0  # untouched lanes carry zeros
-    dargs = [torch.from_numpy(np.ascontiguousarray(x, np.int64)).to(dev)
-             for x in (drows, upd, rng.integers(0, 2 * big, r))]
-    jk.row_join(pk, ek, *dargs)
-    jk.row_join_plain(pp, ep, *dargs)
-    torch.cuda.synchronize()
-    row_err = max(check_equal(torch, "row_join pn", pk, pp),
-                  check_equal(torch, "row_join elapsed", ek, ep))
+    dargs = dev64(drows, upd, rng.integers(0, 2 * big, r))
+    same("row_join", lambda p, e: jk.row_join(p, e, *dargs),
+         lambda p, e: jk.row_join_plain(p, e, *dargs))
+
+    # The hybrid tick: 512 dense rows and 8192 unique pairs (one a row) on
+    # other rows, every entry live.
+    hrows = rng.choice(BUCKETS, r + k, replace=False)
+    hdense = dev64(hrows[:r], upd, rng.integers(0, 2 * big, r))
+    hpairs = dev64(hrows[r:], rng.integers(0, LANES, k), *rng.integers(0, 2 * big, size=(2, k)),
+                   hrows[r:], rng.integers(0, 2 * big, k))
+    same("tick_join", lambda p, e: jk.tick_join(p, e, hdense, hpairs),
+         lambda p, e: jk.tick_join_plain(p, e, hdense, hpairs))
+    same("tick as row_join then pair_join",
+         lambda p, e: (jk.row_join(p, e, *hdense), jk.pair_join(p, e, *hpairs)),
+         lambda p, e: jk.tick_join_plain(p, e, hdense, hpairs))
 
     # Timing at the checked shapes.
-    live = rows < BUCKETS
-    uniq_pairs = len(np.unique(rows[live] * LANES + slots[live]))
-    uniq_rows = len(np.unique(rows[live]))
-    ok_t = args[0] < BUCKETS
-    lib_idx = (args[0][ok_t] * LANES + args[1][ok_t]).unsqueeze(1).expand(-1, 2).contiguous()
-    lib_src = torch.stack([args[2][ok_t], args[3][ok_t]], 1).contiguous()
-    lib_er, lib_ev = args[4][ok_t].contiguous(), args[5][ok_t].contiguous()
-    pn2 = pk.view(-1, 2)
+    def t(fn, **kw):
+        return device_ms(torch, fn, **kw)
 
-    def lib_pair():
-        pn2.scatter_reduce_(0, lib_idx, lib_src, reduce="amax", include_self=True)
-        ek.scatter_reduce_(0, lib_er, lib_ev, reduce="amax", include_self=True)
+    def lib_pairs(idx, src, er, ev):
+        pk.view(-1, 2).scatter_reduce_(0, idx, src, reduce="amax", include_self=True)
+        ek.scatter_reduce_(0, er, ev, reduce="amax", include_self=True)
 
-    pair_bytes = 8 * (6 * k) + 2 * 16 * uniq_pairs + 2 * 8 * uniq_rows
+    def lib_operands(rows_t, slots_t, added, taken, erows, evals):
+        """The library call's operands for a pair half (in-range only)."""
+        ok = (rows_t < BUCKETS) & (slots_t < LANES)
+        eok = erows < BUCKETS
+        return ((rows_t[ok] * LANES + slots_t[ok]).unsqueeze(1).expand(-1, 2).contiguous(),
+                torch.stack([added[ok], taken[ok]], 1).contiguous(),
+                erows[eok].contiguous(), evals[eok].contiguous())
+
+    ok = rows < BUCKETS
+    uniq_pairs = len(np.unique(rows[ok] * LANES + slots[ok]))
+    uniq_rows = len(np.unique(rows[ok]))
+    lib = lib_operands(*args)
+    one = [a[:1].contiguous() for a in args[:4]] + [args[4][:0], args[5][:0]]
     pair = {
-        "ms": device_ms(torch, lambda: jk.pair_join(pk, ek, *args)),
-        "plain_ms": device_ms(torch, lambda: jk.pair_join_plain(pp, ep, *args)),
-        "library_ms": device_ms(torch, lib_pair),
-        "bytes": pair_bytes,
+        "ms": t(lambda: jk.pair_join(pk, ek, *args)),
+        "floor_ms": t(lambda: jk.pair_join(pk, ek, *one)),
+        "plain_ms": t(lambda: jk.pair_join_plain(pp, ep, *args)),
+        "library_ms": t(lambda: lib_pairs(*lib)),
+        "bytes": 8 * (6 * k) + 2 * 16 * uniq_pairs + 2 * 8 * uniq_rows,
         "ops": 3 * k,
-        "max_abs_err": pair_err,
+        "max_abs_err": errs["pair_join"],
     }
-    live_r = drows < BUCKETS
-    rlib_idx = dargs[0][torch.from_numpy(live_r).to(dev)].view(-1, 1, 1).expand(-1, LANES, 2).contiguous()
-    rlib_src = dargs[1][torch.from_numpy(live_r).to(dev)].contiguous()
 
-    def lib_row():
-        pk.scatter_reduce_(0, rlib_idx, rlib_src, reduce="amax", include_self=True)
-
+    live_r = torch.from_numpy(drows < BUCKETS).to(dev)
+    rlib_idx = dargs[0][live_r].view(-1, 1, 1).expand(-1, LANES, 2).contiguous()
+    rlib_src = dargs[1][live_r].contiguous()
     nr = int(live_r.sum())
-    row_bytes = 8 * (r + r * LANES * 2 + r) + 2 * (nr * LANES * 16 + nr * 8)
     row = {
-        "ms": device_ms(torch, lambda: jk.row_join(pk, ek, *dargs)),
-        "plain_ms": device_ms(torch, lambda: jk.row_join_plain(pp, ep, *dargs)),
-        "library_ms": device_ms(torch, lib_row),
-        "bytes": row_bytes,
+        "ms": t(lambda: jk.row_join(pk, ek, *dargs)),
+        "floor_ms": t(lambda: jk.row_join(pk, ek, *(a[:1] for a in dargs))),
+        "plain_ms": t(lambda: jk.row_join_plain(pp, ep, *dargs)),
+        "library_ms": t(lambda: pk.scatter_reduce_(0, rlib_idx, rlib_src, reduce="amax",
+                                                   include_self=True)),
+        "bytes": 8 * (r + r * LANES * 2 + r) + 2 * (nr * LANES * 16 + nr * 8),
         "ops": r * (2 * LANES + 1),
-        "max_abs_err": row_err,
+        "max_abs_err": errs["row_join"],
     }
-    del base_pn, base_el, pk, ek, pp, ep, pn2
-    return pair, row
+
+    hlib_rows = hdense[0].view(-1, 1, 1).expand(-1, LANES, 2).contiguous()
+    hlib = lib_operands(*hpairs[:4], torch.cat([hdense[0], hpairs[4]]),
+                        torch.cat([hdense[2], hpairs[5]]))
+
+    def lib_tick():
+        pk.scatter_reduce_(0, hlib_rows, hdense[1], reduce="amax", include_self=True)
+        lib_pairs(*hlib)
+
+    tick = {
+        "ms": t(lambda: jk.tick_join(pk, ek, hdense, hpairs)),
+        "two_launches_ms": t(lambda: (jk.row_join(pk, ek, *hdense),
+                                      jk.pair_join(pk, ek, *hpairs))),
+        "floor_ms": t(lambda: jk.tick_join(pk, ek, [a[:1] for a in hdense],
+                                           [a[:1] for a in hpairs])),
+        "plain_ms": t(lambda: jk.tick_join_plain(pp, ep, hdense, hpairs)),
+        "library_ms": t(lib_tick),
+        "bytes": 8 * (r * (2 * LANES + 2) + 6 * k) + 2 * (r * (LANES * 16 + 8) + k * (16 + 8)),
+        "ops": r * (2 * LANES + 1) + 3 * k,
+        "max_abs_err": max(v for name, v in errs.items() if name.startswith("tick")),
+    }
+
+    # The ring, warm and cold, whole and live-only, both bodies.
+    def ring_bytes(ring_dev, cn, cne):
+        """(table-rule bytes, sector-granular bytes) of one ring's live
+        entries: inputs once, then each touched 16-byte pair and 8-byte
+        elapsed word, or each touched 32-byte sector, read and written."""
+        rnp = ring_dev.reshape(6, -1).cpu().numpy()
+        inputs = cn * 32 + cne * 16
+        sec = (len(np.unique((rnp[0, :cn] * LANES + rnp[1, :cn]) // 2))
+               + len(np.unique(rnp[4, :cne] // 4)))
+        return inputs + 2 * (cn * 16 + cne * 8), inputs + 2 * 32 * sec
+
+    b_table, b_sector = ring_bytes(ring_t, n, ne)
+    ring = {
+        "n": n, "ne": ne, "slots": int(ring_t[0].numel()),
+        "bytes": b_table, "bytes_sectors": b_sector, "ops": 3 * n + ne,
+    }
+    cold = [fold_ring(n_ring) for _ in range(16)]
+    cold_live = [commit_mod.live_pairs(c, cn, cne, BUCKETS) for c, cn, cne in cold]
+    cold_flat = [[c[i].reshape(-1).contiguous() for i in range(6)] for c, _, _ in cold]
+    cold_bytes = [ring_bytes(*c) for c in cold]
+    ring["bytes_cold"] = statistics.mean(b for b, _ in cold_bytes)
+    ring["bytes_sectors_cold"] = statistics.mean(b for _, b in cold_bytes)
+    # Live prefix and whole ring in turns (live, whole, whole, live); each
+    # time is the mean of its two turns.
+    for key, ops in (("", live), ("_whole", flat), ("_whole", flat), ("", live)):
+        cyc = itertools.cycle(cold_live if ops is live else cold_flat)
+        ring.setdefault("ms" + key + "_turns", []).append(
+            t(lambda: jk.pair_join(pk, ek, *ops)))
+        ring.setdefault("ms_cold" + key + "_turns", []).append(
+            t(lambda: jk.pair_join(pk, ek, *next(cyc))))
+    for key in ("", "_whole"):
+        for warm in ("ms", "ms_cold"):
+            ring[warm + key] = statistics.mean(ring.pop(warm + key + "_turns"))
+    ring["plain_ms"] = t(lambda: jk.pair_join_plain(pp, ep, *live), n=5)
+    rlib = lib_operands(*live)
+    ring["library_ms"] = t(lambda: lib_pairs(*rlib))
+    ring["max_abs_err"] = max(v for name, v in errs.items() if name.startswith("ring"))
+    del base_pn, base_el, pk, ek, pp, ep, cold, cold_live, cold_flat
+    return {"pair": pair, "row": row, "tick": tick, "ring": ring}
 
 
 def take_inputs(rng, buckets=BUCKETS, lanes=LANES, k=4096):
@@ -773,6 +889,46 @@ def row_rmw_checks(torch, rk, dev, rng):
     return out
 
 
+def join_sass(so) -> dict:
+    """The 64-bit max updates in the join kernel's machine code: →
+    {"red_max_s64": n, "atom": n} from ``cuobjdump -sass`` of the built
+    library (None where the toolkit has no cuobjdump). They must compile
+    to ``RED.E.MAX.S64`` (no return trip), never to a returning ``ATOM``."""
+    from patrol_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    out, inside = {"red_max_s64": 0, "atom": 0}, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "join_kernel" in line
+        elif inside and "*/" in line:
+            words = [w for w in line.split("*/")[1].split() if not w.startswith("@")]
+            op = words[0] if words else ""
+            out["red_max_s64"] += op.startswith("RED") and "MAX.S64" in op
+            out["atom"] += op.startswith("ATOM")
+    return out
+
+
+def commit_split(hist_mod, profiling, before=None) -> dict:
+    """How the engine's merge ticks committed: the count of each
+    device-commit label (``device_kernel_<label>_ns``: ``merge_folded``
+    single-block ticks, ``merge_hybrid`` ticks with a dense half,
+    ``commit_blocks`` rings) and the ``commit_*`` counters (rings by J,
+    blocks coalesced), less ``before``."""
+    out = {
+        name[len("device_kernel_"):-len("_ns")]: h["count"]
+        for name, h in hist_mod.HISTOGRAMS.snapshot().items()
+        if name.startswith("device_kernel_") and isinstance(h, dict)
+    }
+    out.update({k: v for k, v in profiling.COUNTERS.snapshot().items() if k.startswith("commit_")})
+    before = before or {}
+    return {k: v - before.get(k, 0) for k, v in out.items() if v - before.get(k, 0)}
+
+
 def ptxas_lines(build_log: str, names) -> dict:
     """``-Xptxas -v`` lines (registers, shared memory, spills) of each
     source in ``names`` from the build log: → {name: [lines]}."""
@@ -926,13 +1082,15 @@ def drive_http(port):
     return out
 
 
-def run_trace(engine, repo, trace, hold=False):
+def run_trace(engine, repo, trace, hold=False, profile=False):
     """Drive deltas then takes through the repo facade; → (outcomes,
-    seconds for deltas, seconds for takes). With ``hold`` the engine's
-    state lock is held while a burst queues (the feeder parks at its next
-    dispatch), so the first uniform burst drains as one multi-block commit
-    ring and the hot-row burst as one fold with dense rows — what a flood
-    does to a busy node."""
+    seconds for deltas, seconds for takes, profile). With ``hold`` the
+    engine's state lock is held while a burst queues (the feeder parks at
+    its next dispatch), so the first uniform burst drains as one
+    multi-block commit ring and the hot-row burst as one fold with dense
+    rows — what a flood does to a busy node. With ``profile`` the deltas
+    (every burst, until flushed) run under a :class:`ProfileWindow` of
+    the join kernel; else the profile is None."""
     deltas, hot_burst, vals, caps, takes = trace
     cut = 30_000
     phases = (
@@ -940,6 +1098,7 @@ def run_trace(engine, repo, trace, hold=False):
         (deltas[cut:], cut, False),
         (hot_burst, len(deltas), hold),
     )
+    window = ProfileWindow(JOIN_PROFILE_KERNELS) if profile else None
     t0 = time.perf_counter()
     for items, offset, held in phases:
         if held:
@@ -952,6 +1111,7 @@ def run_trace(engine, repo, trace, hold=False):
                 engine._state_mu.release()
     check(engine.flush(600), "delta flush timed out")
     t_deltas = time.perf_counter() - t0
+    prof = window.close(deltas=len(deltas) + len(hot_burst)) if window else None
     t0 = time.perf_counter()
     tickets = []
     for name in takes:
@@ -961,7 +1121,7 @@ def run_trace(engine, repo, trace, hold=False):
     t_takes = time.perf_counter() - t0
     for t in tickets:
         check(t.wait(60), "a take ticket never completed")
-    return [(t.ok, t.remaining) for t in tickets], t_deltas, t_takes
+    return [(t.ok, t.remaining) for t in tickets], t_deltas, t_takes, prof
 
 
 def replay_http(repo):
@@ -1054,22 +1214,23 @@ def free_udp_port() -> int:
 TWO_NODE_NAMES, TWO_NODE_TAKES, TWO_NODE_CHUNK = 2000, 20_000, 500
 PROFILE_CHUNKS = range(4, 10)  # the paced takes' chunks traced by the profiler
 PROFILE_KERNELS = ("take_n_kernel", "decode_fold_kernel")
+JOIN_PROFILE_KERNELS = ("join_kernel",)  # phase 3's deltas
 
 
 class ProfileWindow:
-    """``torch.profiler`` (CPU and CUDA activities) over a window of the
-    paced takes. :meth:`close` ends it and reads, from ``key_averages()``,
-    the count and summed device time of each kernel in
-    :data:`PROFILE_KERNELS`, and from the trace's device events the
-    device busy share of the window (the union of their intervals over
-    the window's wall time), beside the launch counters' view of the same
-    window."""
+    """``torch.profiler`` (CPU and CUDA activities) over a window of a
+    phase. :meth:`close` ends it and reads, from ``key_averages()``, the
+    count and summed device time of each kernel whose name holds one of
+    ``kernels``, and from the trace's device events the device busy share
+    of the window (the union of their intervals over the window's wall
+    time), beside the launch counters' view of the same window."""
 
-    def __init__(self):
+    def __init__(self, kernels=PROFILE_KERNELS):
         import torch
         from patrol_tpu_torch.ops import _build
 
         self.torch = torch
+        self.kernels = kernels
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         self.prof = torch.profiler.profile(activities=acts)
         self.prof.__enter__()
@@ -1077,7 +1238,7 @@ class ProfileWindow:
         torch.cuda.synchronize()
         self.t0 = time.perf_counter()
 
-    def close(self, takes: int) -> dict:
+    def close(self, **meta) -> dict:
         from patrol_tpu_torch.ops import _build
 
         self.torch.cuda.synchronize()
@@ -1085,7 +1246,7 @@ class ProfileWindow:
         launches = {k: v - self.launches0[k] for k, v in _build.LAUNCHES.items()}
         self.prof.__exit__(None, None, None)
         kernels = {}
-        for name in PROFILE_KERNELS:
+        for name in self.kernels:
             rows = [e for e in self.prof.key_averages() if name in e.key]
             kernels[name] = {
                 "count": sum(e.count for e in rows),
@@ -1102,8 +1263,7 @@ class ProfileWindow:
                 end = b
         measured = bool(spans)
         return {
-            "chunks": [PROFILE_CHUNKS.start, PROFILE_CHUNKS.stop], "takes": takes,
-            "wall_s": wall, "kernels": kernels, "device_events": len(spans),
+            **meta, "wall_s": wall, "kernels": kernels, "device_events": len(spans),
             "device_busy_us": busy if measured else None,
             "device_busy_share": busy / (wall * 1e6) if measured else None,
             "launches": launches,
@@ -1184,7 +1344,10 @@ def run_two_nodes(Command, LimiterConfig, rng):
                 time.sleep(0.005)
             drains.append(time.perf_counter() - t_drain)
             if ci == PROFILE_CHUNKS.stop - 1:
-                profile = window.close(len(PROFILE_CHUNKS) * TWO_NODE_CHUNK)
+                profile = window.close(
+                    chunks=[PROFILE_CHUNKS.start, PROFILE_CHUNKS.stop],
+                    takes=len(PROFILE_CHUNKS) * TWO_NODE_CHUNK,
+                )
         t_takes = time.perf_counter() - t0
         timers = [next(iter(c.replicator.delta.lag_stats().values())) for c in cmds]
         deadline = time.perf_counter() + 60
@@ -1261,6 +1424,7 @@ def main() -> int:
     from patrol_tpu_torch.runtime.engine import DeviceEngine
     from patrol_tpu_torch.runtime.repo import TPURepo
     from patrol_tpu_torch.utils import histogram as hist_mod
+    from patrol_tpu_torch.utils import profiling
 
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1280,12 +1444,18 @@ def main() -> int:
     _build.lib()
     report["build_s"] = time.perf_counter() - t0
     report["build_log"] = (so.parent / "build.log").read_text() if (so.parent / "build.log").exists() else ""
-    report["ptxas"] = ptxas_lines(report["build_log"], ("take.cu", "decode_fold.cu"))
+    report["ptxas"] = ptxas_lines(report["build_log"], ("take.cu", "decode_fold.cu", "join.cu"))
+    report["join_sass"] = join_sass(so)
+    sass = report["join_sass"]
+    if sass is not None:
+        check(sass["atom"] == 0 and sass["red_max_s64"] > 0,
+              f"join_kernel's 64-bit max updates are not all reductions: {sass}")
     log(f"kernels built in {report['build_s']:.1f}s: {so}")
 
     # 2. Kernels against their plain versions.
     rng = np.random.default_rng(20261016)
-    pair, row = join_checks(torch, jk, dev, rng)
+    joins = join_checks(torch, jk, dev, rng)
+    pair, row, tick, ring = joins["pair"], joins["row"], joins["tick"], joins["ring"]
     torch.cuda.empty_cache()
     take = take_checks(torch, tk, dev, rng)
     take["edges"] = take_edge_checks(torch, tk, dev, rng)
@@ -1295,14 +1465,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     rmw = row_rmw_checks(torch, rk, dev, rng)
     torch.cuda.empty_cache()  # the 4.1 GB probe state and its copies
-    log(f"pair_join {pair['ms']:.4f} ms, row_join {row['ms']:.4f} ms, take_n {take['ms']:.4f} ms "
+    log(f"joins: {json.dumps(joins)}")
+    log(f"pair_join {pair['ms']:.4f} ms, row_join {row['ms']:.4f} ms, tick_join "
+        f"{tick['ms']:.4f} ms (two launches {tick['two_launches_ms']:.4f} ms), ring warm "
+        f"{ring['ms']:.4f} ms cold {ring['ms_cold']:.4f} ms, take_n {take['ms']:.4f} ms "
         f"(padding columns only {take['padding_only_ms']:.4f} ms), decode_fold "
         f"{dfold[512]['ms']:.4f} ms at P=512, {dfold[1]['ms']:.4f} ms at P=1 "
         f"(rejected at its length {dfold[1]['rejected_only_ms']:.4f} ms), row_rmw "
         f"{rmw['bcast']['ms']:.4f} ms bcast, {rmw['pairmax']['ms']:.4f} ms pairmax "
         f"(pair_join on its updates {rmw['pairmax']['pair_join_ms']:.4f} ms)")
     report["kernel_detail"] = {
-        "pair_join": pair, "row_join": row, "take_n": take,
+        "pair_join": pair, "row_join": row, "tick_join": tick, "commit_ring": ring,
+        "take_n": take,
         "decode_fold_p512": dfold[512], "decode_fold_p1": dfold[1],
         "decode_fold_edges": dfold["edges"],
         "row_rmw_bcast": rmw["bcast"], "row_rmw_pairmax": rmw["pairmax"],
@@ -1320,11 +1494,15 @@ def main() -> int:
     node = Node(cmd)
     try:
         engine, repo = cmd.engine, cmd.repo
+        split0 = commit_split(hist_mod, profiling)
         _build.reset_launches()
-        outcomes, t_deltas, t_takes = run_trace(engine, repo, trace, hold=True)
+        outcomes, t_deltas, t_takes, join_profile = run_trace(
+            engine, repo, trace, hold=True, profile=True
+        )
         http_out = drive_http(cmd.api_port)
         check(engine.flush(120), "flush after HTTP timed out")
         launches = dict(_build.LAUNCHES)
+        split = commit_split(hist_mod, profiling, split0)
         # The engine's stage histograms over the main path (count, sum,
         # p50, p99 in their unit): where the host and device time went.
         stages = {
@@ -1335,17 +1513,18 @@ def main() -> int:
         ticks = engine.ticks
     finally:
         node.close()
-    log(f"main path: launches {launches}, ticks {ticks}")
-    for name in ("pair_join", "row_join", "take_n"):
-        if launches[name] == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    log(f"main path: launches {launches}, ticks {ticks}, commits {split}")
+    log(f"phase 3 deltas under the profiler: {json.dumps(join_profile)}")
+    join_launches = launches["pair_join"] + launches["row_join"] + launches["tick_join"]
+    check(join_launches > 0, "the join kernel was not launched on the main path")
+    check(launches["take_n"] > 0, "kernel take_n was not launched on the main path")
 
     # The same trace, then the HTTP script's takes, through a CPU engine
     # (the kernels' plain versions).
     ceng = DeviceEngine(cfg, node_slot=0, clock=Clock(clock_now), device="cpu")
     try:
         crepo = TPURepo(ceng)
-        c_outcomes, _, _ = run_trace(ceng, crepo, trace)
+        c_outcomes, _, _, _ = run_trace(ceng, crepo, trace)
         http_want = replay_http(crepo)
         check(ceng.flush(600), "CPU replay flush timed out")
         cpu_pn, cpu_el = ceng.snapshot_planes()
@@ -1375,6 +1554,8 @@ def main() -> int:
         "ticks": ticks,
         "launches": launches,
         "launches_per_tick": {name: n / ticks for name, n in launches.items()},
+        "commits": split,
+        "join_profile": join_profile,
         "stages": stages,
     }
     report["main_path"] = main
@@ -1454,10 +1635,15 @@ def main() -> int:
     # 4. The kernels line, the card, the contract line.
     kernels = []
     for name, src, replaces, m, n in (
+        # One join kernel behind three wrappers: each entry's launches are
+        # the kernel's on the main path, through any wrapper (its own
+        # wrapper's count rides along as wrapper_launches).
         ("pair_join", "patrol_tpu_torch/csrc/join.cu", "patrol_tpu/ops/pallas_merge.py:86",
-         pair, launches["pair_join"]),
+         pair, join_launches),
         ("row_join", "patrol_tpu_torch/csrc/join.cu", "patrol_tpu/ops/pallas_merge.py:86",
-         row, launches["row_join"]),
+         row, join_launches),
+        ("tick_join", "patrol_tpu_torch/csrc/join.cu", "patrol_tpu/ops/pallas_merge.py:86",
+         tick, join_launches),
         ("take_n", "patrol_tpu_torch/csrc/take.cu", "patrol_tpu/ops/take.py:171",
          take, launches["take_n"]),
         # Timed at the ring batch (P = 512); launches are those of the two
@@ -1499,6 +1685,19 @@ def main() -> int:
                 "bound_by_p1": by1, "library_ms_p1": m1["library_ms"],
                 "rejected_only_ms": m1["rejected_only_ms"],
             })
+        if name in ("pair_join", "row_join", "tick_join"):
+            entry["wrapper_launches"] = launches[name]
+            entry.update({key: m[key] for key in m if key.startswith(("floor_ms", "ms_", "two_"))})
+        if name == "pair_join":
+            entry["max_abs_err"] = max(m["max_abs_err"], ring["max_abs_err"])
+            # The J = 8 commit ring, through commit_packed's live prefix.
+            entry["ring"] = {
+                **{key: ring[key] for key in ring if "bytes" not in key and key != "ops"},
+                "bound_ms": bound(ring["bytes"], ring["ops"])[0],
+                "bound_ms_sectors": bound(ring["bytes_sectors"], ring["ops"])[0],
+                "bound_ms_cold": bound(ring["bytes_cold"], ring["ops"])[0],
+                "bound_ms_sectors_cold": bound(ring["bytes_sectors_cold"], ring["ops"])[0],
+            }
         if name == "take_n":
             entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
             entry["padding_only_ms"] = m["padding_only_ms"]

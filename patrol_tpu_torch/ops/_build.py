@@ -40,7 +40,8 @@ NVCC_FLAGS = [
 
 # name -> launches since the last reset_launches().
 LAUNCHES: Dict[str, int] = {
-    "pair_join": 0, "row_join": 0, "take_n": 0, "decode_fold": 0, "row_rmw": 0,
+    "pair_join": 0, "row_join": 0, "tick_join": 0, "take_n": 0, "decode_fold": 0,
+    "row_rmw": 0,
 }
 
 _lib = None
@@ -144,17 +145,16 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             cdll = ctypes.CDLL(str(build()))
             p, i64 = ctypes.c_void_p, ctypes.c_longlong
-            cdll.patrol_pair_join.argtypes = [
-                p, p, i64, i64, p, p, p, p, i64, p, p, i64, p,
+            cdll.patrol_join.argtypes = [
+                p, p, i64, i64, p, p, p, i64, p, p, p, p, i64, p, p, i64, p,
             ]
-            cdll.patrol_row_join.argtypes = [p, p, i64, i64, p, p, p, i64, p]
             cdll.patrol_take_n.argtypes = [p, p, i64, i64, i64, p, p, i64, p]
             cdll.patrol_decode_fold.argtypes = [
                 p, p, i64, i64, p, i64, i64, p, p, p, p, i64, p, p, p, p,
             ]
             cdll.patrol_row_rmw.argtypes = [p, i64, p, p, p, p, i64, ctypes.c_int, p]
-            for fn in (cdll.patrol_pair_join, cdll.patrol_row_join,
-                       cdll.patrol_take_n, cdll.patrol_decode_fold, cdll.patrol_row_rmw):
+            for fn in (cdll.patrol_join, cdll.patrol_take_n,
+                       cdll.patrol_decode_fold, cdll.patrol_row_rmw):
                 fn.restype = ctypes.c_int
             _lib = cdll
         return _lib

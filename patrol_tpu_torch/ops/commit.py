@@ -5,12 +5,13 @@ each (rows, slots, added, taken, erows, elapsed), the flattened view
 sorted and unique with out-of-range sentinel padding — committed as ONE
 join-kernel launch instead of J. Exact because the join is commutative
 and idempotent. :func:`commit_shape` and :func:`pack_commit_blocks` are
-the host packers (numpy), as in the reference.
+the host packers (numpy), as in the reference. The engine commits only
+the live prefix of a ring (:func:`commit_packed` with the fold's counts).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,36 +21,45 @@ from patrol_tpu_torch.ops.join_kernel import pair_join
 from patrol_tpu_torch.ops.merge import FOLD_PAD_ROW
 
 
-class CommitBlocks(NamedTuple):
-    """J fixed-shape blocks of host-folded merge pairs, committed in one
-    launch (see :func:`pack_commit_blocks` for the invariants)."""
-
-    rows: torch.Tensor  # [J, K]
-    slots: torch.Tensor  # [J, K]
-    added_nt: torch.Tensor  # int64[J, K]
-    taken_nt: torch.Tensor  # int64[J, K]
-    erows: torch.Tensor  # [J, K]
-    elapsed_ns: torch.Tensor  # int64[J, K]
-
-
-def commit_blocks(state: LimiterState, blocks: CommitBlocks) -> LimiterState:
-    """Fold a whole block ring into state with ONE join launch, in place."""
-
-    def flat(t: torch.Tensor) -> torch.Tensor:
-        return t.to(torch.int64).reshape(-1).contiguous()
-
-    pair_join(
-        state.pn, state.elapsed, flat(blocks.rows), flat(blocks.slots),
-        flat(blocks.added_nt), flat(blocks.taken_nt), flat(blocks.erows),
-        flat(blocks.elapsed_ns),
-    )
+def commit_packed(
+    state: LimiterState,
+    packed: torch.Tensor,
+    n: Optional[int] = None,
+    ne: Optional[int] = None,
+) -> LimiterState:
+    """Fold a packed ``int64[6, J, K]`` (or ``[6, K]``) block ring, the
+    staging matrix the engine ships, into state with ONE join launch, in
+    place. ``n`` and ``ne``, when given, are the live counts of its pair
+    and elapsed rows (``len(ur)`` and ``len(er)`` of the fold): the join
+    then gets the live prefixes only and never loads the sentinel tail
+    (see :func:`live_pairs`)."""
+    pair_join(state.pn, state.elapsed, *live_pairs(packed, n, ne, state.pn.shape[0]))
     return state
 
 
-def commit_packed(state: LimiterState, packed: torch.Tensor) -> LimiterState:
-    """:func:`commit_blocks` over the packed ``int64[6, J, K]`` (or
-    ``[6, K]``) staging matrix the engine ships."""
-    return commit_blocks(state, CommitBlocks(*packed.unbind(0)))
+def live_pairs(
+    packed: torch.Tensor, n: Optional[int], ne: Optional[int], buckets: int
+) -> Tuple[torch.Tensor, ...]:
+    """The pair half of a packed ``[6, J, K]`` or ``[6, K]`` matrix as
+    views of its live prefixes: rows, slots, added and taken cut at ``n``,
+    erows and elapsed at ``ne`` (None: the whole row). On a CPU tensor,
+    every entry past a count must be a sentinel (a row outside ``[0,
+    buckets)``), else ValueError; on a card that check would be a device
+    sync and is not made."""
+    flat = packed.reshape(6, -1)
+    k = flat.shape[1]
+    n = k if n is None else n
+    ne = k if ne is None else ne
+    if not (0 <= n <= k and 0 <= ne <= k):
+        raise ValueError(f"live counts ({n}, {ne}) outside a ring of {k}")
+    if flat.device.type == "cpu":
+        for row, count, what in ((flat[0], n, "pair"), (flat[4], ne, "elapsed")):
+            tail = row[count:]
+            if ((tail >= 0) & (tail < buckets)).any():
+                raise ValueError(f"a live {what} entry lies past the live count {count}")
+    return (
+        flat[0, :n], flat[1, :n], flat[2, :n], flat[3, :n], flat[4, :ne], flat[5, :ne]
+    )
 
 
 def commit_shape(n_pairs: int, block_rows: int) -> Tuple[int, int, int]:

@@ -65,6 +65,7 @@ from patrol_tpu_torch.ops import _build
 from patrol_tpu_torch.ops import commit as commit_mod
 from patrol_tpu_torch.ops import delta as delta_ops
 from patrol_tpu_torch.ops import ingest as ingest_ops
+from patrol_tpu_torch.ops import join_kernel
 from patrol_tpu_torch.ops import merge as merge_mod
 from patrol_tpu_torch.ops import wire
 from patrol_tpu_torch.ops.merge import MergeBatch, merge_batch, merge_scalar_batch
@@ -510,6 +511,12 @@ def pack_folded(ur, us, ua, ut, er, e) -> Optional[np.ndarray]:
     packed[4, ne:] = _FOLD_PAD_ROW + np.arange(k - ne)
     packed[5, ne:] = 0
     return packed
+
+
+def _live(rows: np.ndarray) -> int:
+    """Live entries of a packed row: those before its ``FOLD_PAD_ROW``
+    sentinel tail."""
+    return int(np.count_nonzero(rows < _FOLD_PAD_ROW))
 
 
 def fold_hybrid(deltas: DeltaArrays, nodes: int, row_dense_min: int):
@@ -1415,23 +1422,20 @@ class DeviceEngine:
         _build.lib()
         k = 8
         take = torch.zeros((TAKE_PACK_ROWS, k), dtype=torch.int64, device=self.device)
-        sentinel = np.zeros((6, k), np.int64)
-        sentinel[0] = _FOLD_PAD_ROW
-        sentinel[4] = _FOLD_PAD_ROW + np.arange(k)
-        rows = torch.full((k,), _FOLD_PAD_ROW, dtype=torch.int64, device=self.device)
-        upd = torch.zeros((k, self.config.nodes, 2), dtype=torch.int64, device=self.device)
+        # One merge tick of sentinels only, both halves at full length as
+        # their live count: the join launches once and drops every entry.
+        pad = _FOLD_PAD_ROW + torch.arange(k, device=self.device)
+        zeros = torch.zeros(k, dtype=torch.int64, device=self.device)
+        dense = (pad, torch.zeros((k, self.config.nodes, 2), dtype=torch.int64,
+                                  device=self.device), zeros)
+        pairs = (pad, pad, zeros, zeros, pad, zeros)
         # One all-zero datagram plane: rejected by its length, folds nothing.
         e = ingest_ops.MAX_RAW_ENTRIES
         plane = torch.zeros((1, ingest_ops.RAW_PLANE_BYTES), dtype=torch.uint8, device=self.device)
         plan = torch.zeros((1, e), dtype=torch.int32, device=self.device)
         with self._state_mu:
             take_n_batch(self.state, take, self.node_slot)
-            commit_mod.commit_packed(
-                self.state, torch.from_numpy(sentinel).to(self.device)
-            )
-            merge_mod.merge_rows_dense(
-                self.state, merge_mod.RowDenseBatch(rows, upd, torch.zeros_like(rows))
-            )
+            join_kernel.tick_join(self.state.pn, self.state.elapsed, dense, pairs)
             ingest_ops.decode_fold_raw(
                 self.state, plane, plan[:, 0].contiguous(), plan, plan,
                 torch.zeros((1, e), dtype=torch.bool, device=self.device),
@@ -1811,6 +1815,38 @@ class DeviceEngine:
         buf.numpy()[...] = arr
         return self._ship(buf)
 
+    def _stage_tick(self, packed, dense):
+        """Both halves of a folded tick in ONE staging lease, shipped with
+        ONE copy: a flat int64 buffer holding ``packed`` [6, k], then the
+        dense rows [rp], updates [rp, N, 2] and elapsed [rp], each at
+        fold_hybrid's padded shape (None for an absent half). → (dense,
+        pairs): device views of the live prefixes, cut at the count of
+        rows below the ``FOLD_PAD_ROW`` tail, or None."""
+        k = packed.shape[1] if packed is not None else 0
+        rp = len(dense[0]) if dense is not None else 0
+        w = 2 * self.config.nodes
+        buf = self._staging.lease((6 * k + rp * (w + 2),))
+        host = buf.numpy()
+        at = 0
+        for arr in ([packed] if k else []) + (list(dense) if rp else []):
+            host[at:at + arr.size] = arr.reshape(-1)
+            at += arr.size
+        dev = self._ship(buf)
+        pairs_dev = dense_dev = None
+        if k:
+            pairs_dev = commit_mod.live_pairs(
+                dev[:6 * k].view(6, k), _live(packed[0]), _live(packed[4]),
+                self.state.pn.shape[0],
+            )
+        if rp:
+            r, o = _live(dense[0]), 6 * k
+            dense_dev = (
+                dev[o:o + r],
+                dev[o + rp:o + rp + r * w].view(r, self.config.nodes, 2),
+                dev[o + rp + rp * w:o + rp + rp * w + r],
+            )
+        return dense_dev, pairs_dev
+
     def _device_event(self):
         """An event recorded behind the work just launched (None on CPU,
         where the launch has already run)."""
@@ -1837,21 +1873,17 @@ class DeviceEngine:
             packed, dense = fold_hybrid(deltas, self.config.nodes, self._row_dense_min)
             _obs_stage(hist.STAGE_FOLD, t0, trace_mod.EV_FOLD, len(deltas))
             t0 = time.perf_counter_ns()
-            dense_dev = tuple(self._upload(x) for x in dense) if dense is not None else None
-            packed_dev = self._upload(packed) if packed is not None else None
+            dense_dev, pairs_dev = self._stage_tick(packed, dense)
             _obs_stage(hist.STAGE_H2D, t0, trace_mod.EV_H2D_PUT, len(deltas))
             t0 = time.perf_counter_ns()
             with self._state_mu:
-                if dense_dev is not None:
-                    merge_mod.merge_rows_dense(
-                        self.state, merge_mod.RowDenseBatch(*dense_dev)
-                    )
-                if packed_dev is not None:
-                    commit_mod.commit_packed(self.state, packed_dev)
+                join_kernel.tick_join(self.state.pn, self.state.elapsed, dense_dev, pairs_dev)
             _obs_stage(
                 hist.STAGE_DISPATCH, t0, trace_mod.EV_COMMIT_DISPATCH, len(deltas)
             )
-            self._observe_device_commit("merge_folded", t0, len(deltas))
+            self._observe_device_commit(
+                "merge_folded" if dense is None else "merge_hybrid", t0, len(deltas)
+            )
             self._ticks += 1
             return
         n = len(deltas)
@@ -1882,25 +1914,28 @@ class DeviceEngine:
         t0 = time.perf_counter_ns()
         ur, us, ua, ut, er, e = fold_core(deltas)
         _obs_stage(hist.STAGE_FOLD, t0, trace_mod.EV_FOLD, len(deltas))
-        if len(ur) <= MAX_MERGE_ROWS:
+        n, ne = len(ur), len(er)
+        if n <= MAX_MERGE_ROWS:
             # The fold collapsed the drain into one block.
             kernel = "merge_folded"
             t0 = time.perf_counter_ns()
             dev = self._upload(pack_folded(ur, us, ua, ut, er, e))
         else:
             kernel = "commit_blocks"
-            buf = self._staging.lease(commit_mod.commit_shape(len(ur), MAX_MERGE_ROWS))
+            shape = commit_mod.commit_shape(n, MAX_MERGE_ROWS)
+            buf = self._staging.lease(shape)
             commit_mod.pack_commit_blocks(
                 ur, us, ua, ut, er, e, MAX_MERGE_ROWS, out=buf.numpy()
             )
             t0 = time.perf_counter_ns()
             dev = self._ship(buf)
-        _obs_stage(hist.STAGE_H2D, t0, trace_mod.EV_H2D_PUT, len(ur))
+            profiling.COUNTERS.inc(f"commit_ring_j{shape[1]}")
+        _obs_stage(hist.STAGE_H2D, t0, trace_mod.EV_H2D_PUT, n)
         t0 = time.perf_counter_ns()
         with self._state_mu:
-            commit_mod.commit_packed(self.state, dev)
-        _obs_stage(hist.STAGE_DISPATCH, t0, trace_mod.EV_COMMIT_DISPATCH, len(ur))
-        self._observe_device_commit(kernel, t0, len(ur))
+            commit_mod.commit_packed(self.state, dev, n, ne)  # the live prefix only
+        _obs_stage(hist.STAGE_DISPATCH, t0, trace_mod.EV_COMMIT_DISPATCH, n)
+        self._observe_device_commit(kernel, t0, n)
         self._ticks += 1
         profiling.COUNTERS.inc("commit_blocks_coalesced", blocks_in)
         profiling.COUNTERS.inc("commit_dispatches")

@@ -21,7 +21,7 @@ from patrol_tpu.ops.rate import Rate as JRate
 from patrol_tpu.runtime import engine as jengine_mod
 from patrol_tpu_torch.models.limiter import NANO
 from patrol_tpu_torch.ops import commit as tcommit
-from patrol_tpu_torch.ops import merge as tmerge
+from patrol_tpu_torch.ops import join_kernel as tjoin
 from patrol_tpu_torch.models.limiter import LimiterConfig as TConfig
 from patrol_tpu_torch.ops import wire as twire
 from patrol_tpu_torch.ops.rate import Rate as TRate
@@ -172,17 +172,17 @@ def test_engine_trace_matches_reference(monkeypatch, take_fold, tick_fold, block
     # Spies on the port's join entry points, to show the trace reaches the
     # paths each parameter is meant to exercise.
     calls = {"dense": 0, "ring": 0}
-    real_dense, real_commit = tmerge.merge_rows_dense, tcommit.commit_packed
+    real_tick, real_commit = tjoin.tick_join, tcommit.commit_packed
 
-    def dense_spy(state, batch):
-        calls["dense"] += 1
-        return real_dense(state, batch)
+    def tick_spy(pn, elapsed, dense, pairs, **kw):
+        calls["dense"] += dense is not None
+        return real_tick(pn, elapsed, dense, pairs, **kw)
 
-    def commit_spy(state, packed):
+    def commit_spy(state, packed, *args, **kw):
         calls["ring"] += packed.dim() == 3
-        return real_commit(state, packed)
+        return real_commit(state, packed, *args, **kw)
 
-    monkeypatch.setattr(tmerge, "merge_rows_dense", dense_spy)
+    monkeypatch.setattr(tjoin, "tick_join", tick_spy)
     monkeypatch.setattr(tcommit, "commit_packed", commit_spy)
 
     tclock = Clock()
@@ -231,3 +231,61 @@ def test_unported_families_raise():
                 fn()
     finally:
         eng.stop()
+
+
+@pytest.mark.parametrize("hold", [False, True])
+@pytest.mark.parametrize("seed", [5, 8])
+def test_hybrid_tick_is_one_lease_and_one_launch(monkeypatch, seed, hold):
+    """With the tick fold on in both engines, a trace with hot rows ends in
+    the same planes, and each folded merge tick of the port stages both
+    halves in ONE lease and joins them with ONE tick_join call."""
+    monkeypatch.setenv("PATROL_TICK_FOLD", "1")
+    monkeypatch.setattr(jengine_mod, "HOST_FASTPATH", False)
+    phases = make_trace(seed=seed, hold=hold)
+
+    jclock = Clock()
+    jeng = jengine_mod.DeviceEngine(JConfig(BUCKETS, NODES), node_slot=0, clock=jclock)
+    try:
+        want = run_engine(jeng, jclock, phases, lambda f, p: JRate(freq=f, per_ns=p), jwire)
+        j_pn, j_el = jeng.snapshot_planes()
+    finally:
+        jeng.stop()
+
+    tclock = Clock()
+    teng = tengine_mod.DeviceEngine(
+        TConfig(BUCKETS, NODES), node_slot=0, clock=tclock, device="cpu"
+    )
+    counts = {"lease": 0, "tick_join": 0}
+    ticks = []  # (leases, tick_join calls, halves) per lane-merge tick
+    pool, real_lease = teng._staging, tengine_mod.StagingPool.lease
+    real_tick, real_apply = tjoin.tick_join, teng._apply_lane_merges
+
+    def lease_spy(self, *a, **kw):
+        counts["lease"] += self is pool
+        return real_lease(self, *a, **kw)
+
+    def tick_spy(pn, elapsed, dense, pairs, **kw):
+        counts["tick_join"] += 1
+        counts["halves"] = (dense is not None, pairs is not None)
+        return real_tick(pn, elapsed, dense, pairs, **kw)
+
+    def apply_spy(deltas):
+        before = dict(counts)
+        real_apply(deltas)
+        ticks.append((counts["lease"] - before["lease"],
+                      counts["tick_join"] - before["tick_join"], counts.get("halves")))
+
+    try:
+        monkeypatch.setattr(tengine_mod.StagingPool, "lease", lease_spy)
+        monkeypatch.setattr(tjoin, "tick_join", tick_spy)
+        monkeypatch.setattr(teng, "_apply_lane_merges", apply_spy)
+        got = run_engine(teng, tclock, phases, lambda f, p: TRate(freq=f, per_ns=p), twire)
+        t_pn, t_el = teng.snapshot_planes()
+    finally:
+        teng.stop()
+
+    assert got == want
+    np.testing.assert_array_equal(t_pn, j_pn)
+    np.testing.assert_array_equal(t_el, j_el)
+    assert ticks and all(n_lease == 1 and n_tick == 1 for n_lease, n_tick, _ in ticks)
+    assert any(h == (True, True) for _, _, h in ticks)  # a tick with both halves

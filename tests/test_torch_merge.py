@@ -1,12 +1,15 @@
 """The scatter-max join of the PyTorch port against the JAX package.
 
 Every entry point of the port's join family — ``merge_batch``,
-``merge_batch_folded``, ``merge_rows_dense`` and ``commit_blocks``, all
-routed through the join kernel's wrappers (their plain version on a CPU
-state) — is held bit for bit to the JAX function of the same name, and
-``merge_batch`` also to the Pallas kernel ``merge_batch_pallas`` run in
-interpret mode as ``tests/test_pallas_merge.py`` runs it. Inputs come from
-a numpy seed; int64 equality is exact. The plain ops (``merge_scalar_batch``,
+``merge_batch_folded``, ``merge_rows_dense`` and ``commit_packed`` (whole
+or cut at the fold's live counts), all routed through the join kernel's
+wrappers (their plain version on a CPU state) — is held bit for bit to
+the JAX function of the same name, and ``merge_batch`` also to the
+Pallas kernel ``merge_batch_pallas`` run in interpret mode as
+``tests/test_pallas_merge.py`` runs it. ``tick_join`` on
+``fold_hybrid``'s two halves, staged as the engine stages them, is held
+to the JAX package's ``merge_rows_dense`` then ``merge_batch_folded``.
+Inputs come from a numpy seed; int64 equality is exact. The plain ops (``merge_scalar_batch``,
 ``merge_dense``, ``zero_rows``, ``read_rows``) are held to theirs too.
 """
 
@@ -20,6 +23,7 @@ from patrol_tpu.models.limiter import LimiterState as JState
 from patrol_tpu.ops import commit as jcommit
 from patrol_tpu.ops import merge as jmerge
 from patrol_tpu.ops import pallas_merge
+from patrol_tpu.runtime import engine as jengine_mod
 from patrol_tpu.runtime.engine import DeviceEngine as JEngine
 from patrol_tpu.runtime.engine import DeltaArrays as JDeltas
 from patrol_tpu.runtime.engine import fold_hybrid as j_fold_hybrid
@@ -256,3 +260,150 @@ def test_join_wrappers_reject_bad_operands():
         join_kernel.pair_join(st.pn, st.elapsed, i64, i64[:2], i64, i64, i64, i64)
     with pytest.raises(ValueError):
         join_kernel.row_join(st.pn, st.elapsed, i64, torch.zeros((3, 3, 2), dtype=torch.int64), i64)
+
+
+def _hybrid_deltas(rng, n_dense):
+    """A tick whose fold holds ``n_dense`` dense rows (every lane touched,
+    some twice) and sparse rows touching fewer than 4 lanes each."""
+    pool = rng.permutation(B)
+    dense_rows, sparse_rows = pool[:n_dense], pool[n_dense:n_dense + 300]
+    rows = [np.repeat(dense_rows, N + 2)]
+    slots = [np.concatenate([rng.permutation(N), rng.integers(0, N, 2)]) for _ in dense_rows]
+    for r in sparse_rows:
+        lanes = rng.choice(N, int(rng.integers(1, 4)), replace=False)
+        rows.append(np.full(len(lanes) + 1, r))
+        slots.append(np.append(lanes, lanes[0]))  # one duplicate key a row
+    rows = np.concatenate(rows).astype(np.int64)
+    slots = np.concatenate(slots).astype(np.int64) if slots else np.zeros(0, np.int64)
+    k = len(rows)
+    vals = rng.integers(0, 2 * BIG, size=(3, k))
+    return tengine.DeltaArrays(rows, slots, vals[0], vals[1], vals[2], np.zeros(k, bool))
+
+
+@pytest.mark.parametrize("n_dense", [0, 1, 512])
+def test_tick_join_on_fold_hybrid(n_dense):
+    """One tick_join over fold_hybrid's two halves, staged in one lease
+    and cut to their live prefixes as the engine does, against the JAX
+    package's merge_rows_dense then merge_batch_folded on the padded
+    arrays."""
+    rng = np.random.default_rng(40 + n_dense)
+    pn, el = base_state(rng)
+    deltas = _hybrid_deltas(rng, n_dense)
+    packed, dense = tengine.fold_hybrid(deltas, N, 4)
+    j_packed, j_dense = j_fold_hybrid(JDeltas(*deltas), N, 4)
+    np.testing.assert_array_equal(packed, j_packed)
+    assert (dense is None) == (n_dense == 0) and (j_dense is None) == (n_dense == 0)
+    want = jstate(pn, el)
+    if dense is not None:
+        for x, y in zip(dense, j_dense):
+            np.testing.assert_array_equal(x, y)
+        assert (dense[0] < tmerge.FOLD_PAD_ROW).sum() == n_dense
+        want = jmerge.merge_rows_dense(
+            want, jmerge.RowDenseBatch(
+                jnp.asarray(dense[0], jnp.int32), jnp.asarray(dense[1]),
+                jnp.asarray(dense[2]),
+            ),
+        )
+    want = jmerge.merge_batch_folded(
+        want, jmerge.FoldedMergeBatch(
+            jnp.asarray(packed[0], jnp.int32), jnp.asarray(packed[1], jnp.int32),
+            jnp.asarray(packed[2]), jnp.asarray(packed[3]),
+            jnp.asarray(packed[4], jnp.int32), jnp.asarray(packed[5]),
+        ),
+    )
+    eng = tengine.DeviceEngine(tengine.LimiterConfig(B, N), device="cpu")
+    try:
+        d_live, p_live = eng._stage_tick(packed, dense)
+    finally:
+        eng.stop()
+    assert (d_live is None) == (n_dense == 0)
+    if d_live is not None:
+        assert d_live[0].numel() == n_dense
+    assert (p_live[0] < B).all() and (p_live[4] < B).all()
+    got = state_from_numpy(pn, el, "cpu")
+    join_kernel.tick_join(got.pn, got.elapsed, d_live, p_live)
+    assert_planes(got, want)
+
+
+@pytest.mark.parametrize("live", [False, True])
+@pytest.mark.parametrize("j", [1, 2, 8])
+def test_commit_packed_live_counts(j, live):
+    """commit_packed on a J-block ring, whole or cut at the fold's live
+    counts, against the JAX engine's commit_packed."""
+    rng = np.random.default_rng(60 + 2 * j + live)
+    pn, el = base_state(rng)
+    block = 32
+    rows, slots, a, tk, e = rand_deltas(rng, j * block - block // 2 if j > 1 else 20)
+    deltas = tengine.DeltaArrays(rows, slots, a, tk, e, np.zeros(len(rows), bool))
+    ur, us, ua, ut, er, ee = tengine.fold_core(deltas)
+    ring = tcommit.pack_commit_blocks(ur, us, ua, ut, er, ee, block)
+    assert ring.shape == (6, j, block)
+    want = jengine_mod._jit_commit_packed()(jstate(pn, el), jnp.asarray(ring))
+    counts = (len(ur), len(er)) if live else (None, None)
+    got = tcommit.commit_packed(state_from_numpy(pn, el, "cpu"), t(ring), *counts)
+    assert_planes(got, want)
+
+
+@pytest.mark.parametrize("which", ["pairs", "elapsed"])
+def test_live_count_past_a_live_entry_raises(which):
+    rng = np.random.default_rng(70)
+    rows, slots, a, tk, e = rand_deltas(rng, 40)
+    deltas = tengine.DeltaArrays(rows, slots, a, tk, e, np.zeros(40, bool))
+    ur, us, ua, ut, er, ee = tengine.fold_core(deltas)
+    ring = t(tcommit.pack_commit_blocks(ur, us, ua, ut, er, ee, 64))
+    st = state_from_numpy(*base_state(rng), "cpu")
+    n, ne = (len(ur) - 1, len(er)) if which == "pairs" else (len(ur), len(er) - 1)
+    with pytest.raises(ValueError, match="past the live count"):
+        tcommit.commit_packed(st, ring, n, ne)
+    tcommit.commit_packed(st, ring, len(ur), len(er))
+
+
+def test_tick_join_exact_for_duplicate_keys():
+    """Duplicate pair keys, duplicate elapsed rows and a dense row that is
+    also in the pair half (which the fold never sends) still join
+    exactly: against the JAX package's merge_rows_dense then merge_batch."""
+    rng = np.random.default_rng(71)
+    pn, el = base_state(rng)
+    rows, slots, a, tk, e = rand_deltas(rng, 300, dup_rows=[2, 2, 9, R + 3])
+    d_rows = np.array([9, 40, R + 3], np.int64)
+    d_upd = rng.integers(0, 2 * BIG, size=(3, N, 2))
+    d_el = rng.integers(0, 2 * BIG, 3)
+    want = jmerge.merge_rows_dense(
+        jstate(pn, el),
+        jmerge.RowDenseBatch(jnp.asarray(d_rows, jnp.int32), jnp.asarray(d_upd), jnp.asarray(d_el)),
+    )
+    want = jmerge.merge_batch(
+        want, jmerge.MergeBatch(
+            jnp.asarray(rows, jnp.int32), jnp.asarray(slots, jnp.int32),
+            jnp.asarray(a), jnp.asarray(tk), jnp.asarray(e),
+        ),
+    )
+    got = state_from_numpy(pn, el, "cpu")
+    join_kernel.tick_join(
+        got.pn, got.elapsed, (t(d_rows), t(d_upd), t(d_el)),
+        (t(rows), t(slots), t(a), t(tk), t(rows), t(e)),
+    )
+    assert_planes(got, want)
+
+
+_I32 = torch.zeros(3, dtype=torch.int32)
+_I64 = torch.zeros(3, dtype=torch.int64)
+_TICK_BAD = {
+    "dense_int32_rows": (TypeError, (_I32, torch.zeros((3, 2, 2), dtype=torch.int64), _I64), None),
+    "dense_wrong_width": (ValueError, (_I64, torch.zeros((3, 3, 2), dtype=torch.int64), _I64), None),
+    "dense_short_evals": (ValueError, (_I64, torch.zeros((3, 2, 2), dtype=torch.int64), _I64[:2]), None),
+    "dense_two_operands": (ValueError, (_I64, _I64), None),
+    "pairs_int32_slots": (TypeError, None, (_I64, _I32, _I64, _I64, _I64, _I64)),
+    "pairs_ragged": (ValueError, None, (_I64, _I64[:2], _I64, _I64, _I64, _I64)),
+    "pairs_ragged_elapsed": (ValueError, None, (_I64, _I64, _I64, _I64, _I64, _I64[:1])),
+    "pairs_noncontiguous": (ValueError, None, (_I64, _I64, _I64, _I64, torch.zeros(6, dtype=torch.int64)[::2], _I64)),
+    "pairs_five_operands": (ValueError, None, (_I64, _I64, _I64, _I64, _I64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_TICK_BAD))
+def test_tick_join_rejects_bad_operands(case):
+    err, dense, pairs = _TICK_BAD[case]
+    st = state_from_numpy(np.zeros((4, 2, 2), np.int64), np.zeros(4, np.int64), "cpu")
+    with pytest.raises(err):
+        join_kernel.tick_join(st.pn, st.elapsed, dense, pairs)
