@@ -6,6 +6,7 @@
 Phases (any failure exits nonzero; nothing is caught and skipped):
 
 1. Build every CUDA kernel from ``patrol_tpu_torch/csrc`` (nvcc, sm_90a)
+   and the native host library from ``patrol_tpu_torch/native`` (g++),
    and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes of the main path (state 1,000,000 buckets × 64 lanes): the join
@@ -52,15 +53,20 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    wrappers) and take-n must have launched. The deltas run under
    ``torch.profiler``: the join kernel's count and device time, the
    device's busy share, and how the merge ticks committed (single-block,
-   hybrid, commit rings by J) go to the JSON detail. The same trace replays through a second engine on the CPU
-   (the plain versions): per-ticket outcomes and the final planes must be
-   identical.
+   hybrid, commit rings by J) go to the JSON detail, with the ticks that
+   folded in C++ (``fold_native_ticks``, the hot-row burst's when it
+   falls into a tick of 1,024 deltas or more); the tick fold is also
+   timed on one clustered batch of 131,072 deltas over 64 rows, numpy
+   against native (host ns, outputs equal). The same trace replays
+   through a second engine on the CPU (the plain versions): per-ticket
+   outcomes and the final planes must be identical.
 3b. Raw wire-v2 ingest at the ring's batch: 200,000 entries over 200,000
    names in 8 KiB datagrams (one in 16 corrupted) through
    ``DeviceEngine.ingest_raw_planes`` in batches of 512 planes; replayed
    on a CPU engine, accepted counts and final planes must be equal.
-3c. Two replicated nodes over loopback UDP, each a ``Command`` on the card
-   at 1M × 64, wire mode ``delta``, frozen clocks: 20,000 takes over 2,000
+3c. Two replicated nodes over loopback UDP on the asyncio backend, each a
+   ``Command`` on the card at 1M × 64, wire mode ``delta``, frozen clocks:
+   20,000 takes over 2,000
    names split across them in paced chunks of 500 (each chunk's delta
    intervals all acked within 30 s), then both must hold the same state
    for every name within 60 s, and ``decode_fold`` must have launched.
@@ -70,6 +76,15 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    of the paced takes run under ``torch.profiler``: the count and device
    time of ``take_n_kernel`` and ``decode_fold_kernel`` and the device's
    busy share of that window go to the JSON detail.
+3e. Phase 3c again, same traffic, on the native UDP backend: recvmmsg
+   batches of up to 512 datagrams into the rx ring, each batch of dv2
+   datagrams shipped from its ring plane to one ``decode_fold`` launch.
+   Each node's replicator must be a ``NativeReplicator`` whose ring planes
+   report ``is_pinned()``; once the nodes stop, each ring's leases and
+   commits must be equal and above zero; ``decode_fold`` must have run at
+   a mean P above 1, some batch straight from a pinned plane, and the
+   nodes must converge as in 3c. The P histogram, launches, retransmits,
+   ack srtt and the profiled window go beside 3c's.
 3d. The probe's entry point (``patrol_tpu_torch.scripts.probe_dma_scatter``,
    ``--device cuda``) at 1M × 256 lanes, K = 8192: ``row_rmw`` must have
    launched exactly once per call the probe made, and ``pairmax`` through
@@ -1270,40 +1285,80 @@ class ProfileWindow:
         }
 
 
-def run_two_nodes(Command, LimiterConfig, rng):
-    """Two port nodes on the card, each 1M x 64, peered over loopback in
-    wire mode ``delta`` with frozen clocks: 20,000 takes over 2,000 names
-    split across them, in chunks of 500 (the first take of each chunk over
-    HTTP, the rest through ``submit_take``). Then poll (at most 60 s)
-    until both nodes hold the same state for every name: ``snapshot_many``
-    (one gather a node) while they differ, and ``repo.snapshot(name)`` for
-    every name to confirm. → a dict of what was measured, with the
-    replication counters at each poll.
+def plane_counts(hist_mod) -> tuple:
+    """(count per log2 bucket, sum) of the ``ingest_raw_planes`` histogram:
+    the planes P of every raw ``decode_fold`` launch in this process."""
+    lat = hist_mod.RAW_PLANES.to_lattice()
+    counts = [sum(lane[b] for lane in lat["counts"]) for b in range(len(lat["counts"][0]))]
+    return counts, sum(lat["sums"])
 
-    Both nodes share one Python interpreter here, so a receiver's acks
-    come back in hundreds of milliseconds to seconds (each P = 1 datagram
-    costs milliseconds of host time on its loop). The delta planes run
-    their default timer, which adapts to that round trip (``net/delta.py``);
-    a fixed timeout under it resends every interval before its ack lands
-    and never drains (``scripts/delta_timer.py`` shows both). The next
-    chunk goes in once the last one's tickets have completed and neither
-    node holds an unacked interval; a chunk's drain is held to 30 s."""
+
+def plane_histogram(before, after) -> dict:
+    """The P histogram of the launches between two :func:`plane_counts`:
+    launches per range of P, their count and mean P."""
+    counts = [b - a for a, b in zip(before[0], after[0])]
+    launches = sum(counts)
+    hist = {}
+    for b, c in enumerate(counts):
+        if c:
+            lo, hi = (0, 0) if b == 0 else (1 << (b - 1), (1 << b) - 1)
+            hist[str(lo) if lo == hi else f"{lo}-{hi}"] = c
+    planes = after[1] - before[1]
+    return {"launches": launches, "planes": planes,
+            "mean_p": planes / launches if launches else None, "by_p": hist}
+
+
+def run_two_nodes(Command, LimiterConfig, rng, udp_backend):
+    """Two port nodes on the card, each 1M x 64, on the UDP backend named,
+    peered over loopback in wire mode ``delta`` with frozen clocks: 20,000
+    takes over 2,000 names split across them, in chunks of 500 (the first
+    take of each chunk over HTTP, the rest through ``submit_take``). Then
+    poll (at most 60 s) until both nodes hold the same state for every
+    name: ``snapshot_many`` (one gather a node) while they differ, and
+    ``repo.snapshot(name)`` for every name to confirm. → a dict of what
+    was measured, with the replication counters at each poll.
+
+    Both nodes share one Python interpreter here. On the asyncio backend a
+    receiver's acks come back in hundreds of milliseconds to seconds (each
+    P = 1 datagram costs milliseconds of host time on its loop); the
+    native backend receives up to 512 datagrams a syscall into its rx
+    ring and ships each batch to one ``decode_fold`` launch. The delta
+    planes run their default timer, which adapts to the ack round trip
+    (``net/delta.py``); a fixed timeout under it resends every interval
+    before its ack lands and never drains (``scripts/delta_timer.py``
+    shows both). The next chunk goes in once the last one's tickets have
+    completed and neither node holds an unacked interval; a chunk's drain
+    is held to 30 s."""
+    import torch
+    from patrol_tpu_torch.net.native_replication import NativeReplicator
     from patrol_tpu_torch.ops import _build
     from patrol_tpu_torch.ops.rate import Rate
+    from patrol_tpu_torch.utils import histogram as hist_mod
+    from patrol_tpu_torch.utils import profiling
 
     addrs = [f"127.0.0.1:{free_udp_port()}" for _ in range(2)]
     cfg = LimiterConfig(buckets=BUCKETS, nodes=LANES)
-    nodes = [
-        Node(Command(
+    nodes = []
+    for a in addrs:
+        nodes.append(Node(Command(
             api_addr="127.0.0.1:0", node_addr=a, peer_addrs=addrs,
             clock=Clock(1_700_000_000 * NANO), config=cfg, handle_signals=False,
             warmup=True, device="cuda", wire_mode="delta", shutdown_timeout_s=30,
-        ))
-        for a in addrs
-    ]
+            udp_backend=udp_backend,
+        )))
     polls = []
+    native = udp_backend == "native"
     try:
         cmds = [n.cmd for n in nodes]
+        reps = [c.replicator for c in cmds]
+        pinned = None
+        if native:
+            check(all(isinstance(r, NativeReplicator) for r in reps),
+                  f"the native backend was not taken: {[type(r).__name__ for r in reps]}")
+            pinned = [[torch.from_numpy(r._rx_ring.plane(i)).is_pinned()
+                       for i in range(r._rx_ring.n_planes)] for r in reps]
+            log(f"rx ring planes pinned: {pinned}")
+            check(all(all(p) for p in pinned), f"rx ring planes are not all pinned: {pinned}")
         # The wire-v2 capability handshake first: until a peer has
         # answered it, broadcasts to it go out in the classic form.
         deadline = time.perf_counter() + 30
@@ -1313,6 +1368,8 @@ def run_two_nodes(Command, LimiterConfig, rng):
         names = [f"c{i}" for i in range(TWO_NODE_NAMES)]
         pick = rng.integers(0, len(names), TWO_NODE_TAKES).tolist()
         rate = Rate(freq=50, per_ns=3600 * NANO)
+        counters0 = profiling.COUNTERS.snapshot()
+        planes0 = plane_counts(hist_mod)
         _build.reset_launches()
         t0 = time.perf_counter()
         admitted = http_takes = 0
@@ -1373,6 +1430,10 @@ def run_two_nodes(Command, LimiterConfig, rng):
             time.sleep(0.2)
         t_conv = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
+        planes = plane_histogram(planes0, plane_counts(hist_mod))
+        counters = {k: v - counters0.get(k, 0) for k, v in profiling.COUNTERS.snapshot().items()
+                    if k in ("fold_native_ticks", "ingest_raw_pinned_ships",
+                             "ingest_raw_device_dispatches")}
         stats = [c.replicator.stats() for c in cmds]
         # Frozen clocks grant no refill, so the converged taken lanes hold
         # exactly one token per admitted take, whichever node admitted it.
@@ -1385,7 +1446,28 @@ def run_two_nodes(Command, LimiterConfig, rng):
     rx = [s["wire_delta_rx_packets"] for s in stats]
     check(launches["decode_fold"] > 0, "decode_fold was not launched by the replicated nodes")
     check(all(r > 0 for r in rx), f"a node received no dv2 datagram: {rx}")
+    check(planes["launches"] == launches["decode_fold"],
+          f"P histogram holds {planes['launches']} launches, decode_fold made "
+          f"{launches['decode_fold']}")
+    ring = None
+    if native:
+        # Read once the nodes have stopped: each rx loop held a lease
+        # across every receive wait, and each batch shipped to the card
+        # held one until its copy finished; all must have come back.
+        ring = [r._rx_ring.stats() for r in reps]
+        for st in ring:
+            check(st["rx_ring_leases"] == st["rx_ring_commits"] > 0,
+                  f"rx ring leases and commits differ or are zero: {ring}")
+        check(planes["mean_p"] > 1,
+              f"decode_fold ran at a mean P of {planes['mean_p']} on the native backend")
+        check(counters["ingest_raw_pinned_ships"] > 0,
+              "no raw batch shipped straight from a pinned ring plane")
     return {
+        "udp_backend": udp_backend,
+        "rx_ring_pinned": pinned,
+        "rx_ring": ring,
+        "decode_fold_planes": planes,
+        "counters": counters,
         "takes": len(pick),
         "http_takes": http_takes,
         "admitted": int(admitted),
@@ -1404,6 +1486,56 @@ def run_two_nodes(Command, LimiterConfig, rng):
         "profile": profile,
         "polls": polls,
     }
+
+
+def log_two_nodes(label: str, two: dict) -> None:
+    prof = two["profile"]
+    log(f"{label}: converged in {two['converge_s']:.2f}s, paced takes {two['takes_s']:.2f}s, "
+        f"longest drain {two['drain_s_max']:.2f}s, dv2 rx {two['wire_delta_rx_packets']}, "
+        f"retransmits {two['wire_interval_retransmits']}, srtt ticks {two['srtt_ticks']}, "
+        f"launches decode_fold {two['launches']['decode_fold']} tick_join "
+        f"{two['launches']['tick_join']} take_n {two['launches']['take_n']}, "
+        f"P {json.dumps(two['decode_fold_planes'])}, counters {two['counters']}, "
+        f"rx ring {two['rx_ring']}, device busy share (chunks 4..9) "
+        f"{prof['device_busy_share']}")
+    log(f"{label} profiled window: {json.dumps(prof)}")
+
+
+def fold_timing(engine_mod, reps: int = 5) -> dict:
+    """The tick fold on one clustered batch, 131,072 deltas over 64 rows
+    and 64 lanes (the reference's motivating shape): host ns of the numpy
+    fold and of the native one (median of ``reps``), whose outputs must
+    be equal."""
+    rng = np.random.default_rng(17)
+    n = 131_072
+    rows = rng.choice(rng.choice(BUCKETS, 64, replace=False), n).astype(np.int64)
+    deltas = engine_mod.DeltaArrays(
+        rows, rng.integers(0, LANES, n).astype(np.int64),
+        *(rng.integers(0, 1 << 50, n).astype(np.int64) for _ in range(3)),
+        np.zeros(n, bool),
+    )
+    dense_min = max(4, LANES // 3)
+    times = {"numpy": [], "native": []}
+    outs = {}
+    for _ in range(reps):
+        for name, fn in (("numpy", engine_mod.fold_hybrid_numpy),
+                         ("native", engine_mod._fold_hybrid_native)):
+            t0 = time.perf_counter_ns()
+            outs[name] = fn(deltas, LANES, dense_min)
+            times[name].append(time.perf_counter_ns() - t0)
+    check(outs["native"] is not None, "the native fold refused the clustered batch")
+    def same(a, b):
+        if a is None or b is None:
+            return a is None and b is None
+        if isinstance(a, tuple):
+            return all(np.array_equal(x, y) for x, y in zip(a, b))
+        return np.array_equal(a, b)
+
+    check(all(same(x, y) for x, y in zip(outs["numpy"], outs["native"])),
+          "the native fold differs from the numpy fold")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    return {"deltas": n, "rows": 64, "numpy_ns": med["numpy"], "native_ns": med["native"],
+            "speedup": med["numpy"] / med["native"], "cpus": os.cpu_count()}
 
 
 def main() -> int:
@@ -1438,7 +1570,23 @@ def main() -> int:
     report["torch"] = [torch.__version__, torch.version.cuda]
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 1. Build.
+    # 1. Build: the native host library (C++ receive path, directory,
+    # tick fold; g++) beside the CUDA kernels (nvcc), both from the
+    # checkout's sources. A failed build raises.
+    from patrol_tpu_torch import native
+
+    host: dict = {}
+
+    def build_host() -> None:
+        t = time.perf_counter()
+        try:
+            native.load(required=True)
+        except BaseException as exc:  # re-raised on the main thread
+            host["error"] = exc
+        host["s"] = time.perf_counter() - t
+
+    host_thread = threading.Thread(target=build_host)
+    host_thread.start()
     t0 = time.perf_counter()
     so = _build.build()
     _build.lib()
@@ -1451,6 +1599,11 @@ def main() -> int:
         check(sass["atom"] == 0 and sass["red_max_s64"] > 0,
               f"join_kernel's 64-bit max updates are not all reductions: {sass}")
     log(f"kernels built in {report['build_s']:.1f}s: {so}")
+    host_thread.join()
+    if "error" in host:
+        raise host["error"]
+    report["host_build_s"] = host["s"]
+    log(f"host library built in {host['s']:.1f}s: {native.lib_path()}")
 
     # 2. Kernels against their plain versions.
     rng = np.random.default_rng(20261016)
@@ -1495,10 +1648,12 @@ def main() -> int:
     try:
         engine, repo = cmd.engine, cmd.repo
         split0 = commit_split(hist_mod, profiling)
+        native_folds0 = profiling.COUNTERS.get("fold_native_ticks")
         _build.reset_launches()
         outcomes, t_deltas, t_takes, join_profile = run_trace(
             engine, repo, trace, hold=True, profile=True
         )
+        native_folds = profiling.COUNTERS.get("fold_native_ticks") - native_folds0
         http_out = drive_http(cmd.api_port)
         check(engine.flush(120), "flush after HTTP timed out")
         launches = dict(_build.LAUNCHES)
@@ -1513,7 +1668,11 @@ def main() -> int:
         ticks = engine.ticks
     finally:
         node.close()
-    log(f"main path: launches {launches}, ticks {ticks}, commits {split}")
+    # How many ticks fold in C++ depends on how the hot-row burst falls
+    # into ticks (a tick of 1,024 deltas or more on few rows): printed,
+    # not held to a count. The fold itself is held to numpy below.
+    log(f"main path: launches {launches}, ticks {ticks}, commits {split}, "
+        f"fold_native_ticks {native_folds}")
     log(f"phase 3 deltas under the profiler: {json.dumps(join_profile)}")
     join_launches = launches["pair_join"] + launches["row_join"] + launches["tick_join"]
     check(join_launches > 0, "the join kernel was not launched on the main path")
@@ -1555,10 +1714,17 @@ def main() -> int:
         "launches": launches,
         "launches_per_tick": {name: n / ticks for name, n in launches.items()},
         "commits": split,
+        "fold_native_ticks": native_folds,
         "join_profile": join_profile,
         "stages": stages,
     }
     report["main_path"] = main
+    from patrol_tpu_torch.runtime import engine as engine_mod
+
+    main["fold_timing"] = fold_timing(engine_mod)
+    log(f"tick fold, 131,072 deltas over 64 rows: {json.dumps(main['fold_timing'])}")
+    print(f"fold_native_ticks {native_folds} fold_hybrid_ns numpy "
+          f"{main['fold_timing']['numpy_ns']:.0f} native {main['fold_timing']['native_ns']:.0f}")
     log(f"deltas/s {main['deltas_per_s']:.0f}  takes/s {main['takes_per_s']:.0f}")
     print(f"takes_per_s {main['takes_per_s']:.1f} deltas_per_s {main['deltas_per_s']:.1f}")
 
@@ -1603,14 +1769,20 @@ def main() -> int:
     log(f"raw ingest: {accepted} entries in {dt_g:.2f}s")
     print(f"raw_deltas_per_s {raw['raw_deltas_per_s']:.1f}")
 
-    # 3c. Two replicated nodes over loopback UDP.
-    two = run_two_nodes(Command, LimiterConfig, np.random.default_rng(13))
+    # 3c. Two replicated nodes over loopback UDP, asyncio backend; 3e. the
+    # same traffic on the native backend.
+    two = run_two_nodes(Command, LimiterConfig, np.random.default_rng(13), "asyncio")
     report["two_nodes"] = two
-    log(f"two nodes: converged in {two['converge_s']:.2f}s, dv2 rx {two['wire_delta_rx_packets']}, "
-        f"retransmits {two['wire_interval_retransmits']}, srtt ticks {two['srtt_ticks']}, "
-        f"longest drain {two['drain_s_max']:.2f}s, launches {two['launches']}")
-    log(f"profiled window: {json.dumps(two['profile'])}")
-    print(f"two_nodes_converge_s {two['converge_s']:.3f}")
+    log_two_nodes("3c asyncio", two)
+    torch.cuda.empty_cache()
+    two_n = run_two_nodes(Command, LimiterConfig, np.random.default_rng(13), "native")
+    report["two_nodes_native"] = two_n
+    log_two_nodes("3e native", two_n)
+    print(f"two_nodes_converge_s {two['converge_s']:.3f} (asyncio) "
+          f"{two_n['converge_s']:.3f} (native)")
+    print(f"native decode_fold launches {two_n['decode_fold_planes']['launches']} "
+          f"mean P {two_n['decode_fold_planes']['mean_p']:.3f} "
+          f"P histogram {json.dumps(two_n['decode_fold_planes']['by_p'])}")
 
     # 3d. The probe's entry point on the card: 1M x 256 lanes, K = 8192.
     from patrol_tpu_torch.scripts import probe_dma_scatter as probe_mod
@@ -1647,10 +1819,11 @@ def main() -> int:
         ("take_n", "patrol_tpu_torch/csrc/take.cu", "patrol_tpu/ops/take.py:171",
          take, launches["take_n"]),
         # Timed at the ring batch (P = 512); launches are those of the two
-        # replicated nodes (phase 3c, P = 1 each). The P = 1 numbers ride
-        # along under *_p1.
+        # replicated nodes on the native backend (phase 3e, the rx ring's
+        # batches); phase 3c's asyncio launches (P = 1 each) and the P = 1
+        # numbers ride along.
         ("decode_fold", "patrol_tpu_torch/csrc/decode_fold.cu", "patrol_tpu/ops/ingest.py:589",
-         dfold[512], two["launches"]["decode_fold"]),
+         dfold[512], two_n["launches"]["decode_fold"]),
         # Timed as pairmax (the join); bcast rides along under *_bcast.
         # Launches are those of the probe's entry point (phase 3d).
         ("row_rmw", "patrol_tpu_torch/csrc/row_rmw.cu", "scripts/probe_dma_scatter.py:86",
@@ -1684,6 +1857,9 @@ def main() -> int:
                 "ms_p1": m1["ms"], "plain_ms_p1": m1["plain_ms"], "bound_ms_p1": b1,
                 "bound_by_p1": by1, "library_ms_p1": m1["library_ms"],
                 "rejected_only_ms": m1["rejected_only_ms"],
+                "mean_p": two_n["decode_fold_planes"]["mean_p"],
+                "p_histogram": two_n["decode_fold_planes"]["by_p"],
+                "launches_asyncio": two["launches"]["decode_fold"],
             })
         if name in ("pair_join", "row_join", "tick_join"):
             entry["wrapper_launches"] = launches[name]

@@ -4,9 +4,11 @@ Flags mirror the JAX package's CLI: ``--api-addr``, ``--node-addr``,
 repeatable ``--peer-addr``, ``--clock-offset``, ``--log-env``,
 ``--buckets`` / ``--node-lanes`` (state shape), plus ``--device``
 (``cuda`` by default, ``cpu`` for the kernels' plain versions),
-``--wire-mode`` and ``--udp-backend``. Options whose parts are not
-ported yet (``--udp-backend native``, ``--http-front native``,
-``--mesh-replicas``, ``--checkpoint-dir``) exit with a clear error.
+``--wire-mode`` and ``--udp-backend`` (``native`` builds the C++ host
+library with g++ and fails if it cannot; ``auto`` takes it when it
+loads, else asyncio). Options whose parts are not ported yet
+(``--http-front native``, ``--mesh-replicas``, ``--checkpoint-dir``) exit
+with a clear error.
 
 Run as ``python -m patrol_tpu_torch [flags]``.
 """
@@ -46,8 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--udp-backend",
         choices=["auto", "native", "asyncio"],
         default="auto",
-        help="replication transport: asyncio ('auto' means asyncio; the "
-        "native recvmmsg backend is not yet ported)",
+        help="replication transport: 'native' (C++ recvmmsg batches into "
+        "a pinned rx ring; fails if its library does not build), 'asyncio', "
+        "or 'auto' (native when its library loads, else asyncio)",
     )
     p.add_argument(
         "--wire-mode",
@@ -110,6 +113,7 @@ def main(argv=None) -> int:
 
     from patrol_tpu_torch.command import Command, NotPortedError
     from patrol_tpu_torch.models.limiter import LimiterConfig
+    from patrol_tpu_torch.native import NativeBuildError
     from patrol_tpu_torch.ops.rate import parse_duration
     from patrol_tpu_torch.runtime.bucket import offset_clock, system_clock
     from patrol_tpu_torch.utils.logging import configure
@@ -152,6 +156,9 @@ def main(argv=None) -> int:
         asyncio.run(cmd.run())
     except KeyboardInterrupt:
         pass
+    except NativeBuildError as exc:
+        print(f"--udp-backend native: {exc}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -1,14 +1,14 @@
 """Process supervisor (reference: ``Command``, command.go:17-83).
 
-Wires storage (the device engine), replication (UDP, the asyncio
-``Replicator``) and the API (HTTP, asyncio front) into one process and
-supervises them: an asyncio task group with signal handling and a
-graceful-shutdown timeout. Used by the CLI and by in-process multi-node
-harnesses.
+Wires storage (the device engine), replication (UDP: the native
+recvmmsg ``NativeReplicator`` or the asyncio ``Replicator``) and the API
+(HTTP, asyncio front) into one process and supervises them: an asyncio
+task group with signal handling and a graceful-shutdown timeout. Used by
+the CLI and by in-process multi-node harnesses.
 
-The native C++ UDP backend and HTTP front, the multi-device mesh engine
-and checkpoints are not ported yet: asking for any of them raises
-:class:`NotPortedError` before anything starts.
+The native C++ HTTP front, the multi-device mesh engine and checkpoints
+are not ported yet: asking for any of them raises :class:`NotPortedError`
+before anything starts.
 """
 
 from __future__ import annotations
@@ -46,7 +46,9 @@ class Command:
     config: LimiterConfig = SMALL
     log: Optional[logging.Logger] = None
     handle_signals: bool = True
-    # "asyncio" is the only UDP backend of this package; "auto" means it.
+    # "native" (the C++ recvmmsg backend; raises if its library does not
+    # build), "asyncio", or "auto": native when the library loads, else
+    # asyncio.
     udp_backend: str = "auto"
     # Outgoing wire form: "delta" (batched wire-v2 delta-interval datagrams
     # to capability-advertising peers, aggregate full state to the rest),
@@ -65,7 +67,7 @@ class Command:
     # Populated by run() for tests/introspection.
     engine: Optional[DeviceEngine] = None
     repo: Optional[TPURepo] = None
-    replicator: Optional[Replicator] = None
+    replicator: Optional[object] = None  # Replicator or NativeReplicator
     # Set by run() once every socket is bound and the API is accepting
     # (cleared when run() begins and again after shutdown).
     started: asyncio.Event = dataclasses.field(default_factory=asyncio.Event)
@@ -75,11 +77,8 @@ class Command:
     def check_ported(self) -> None:
         """Raise :class:`NotPortedError` for a configuration this package
         cannot serve yet."""
-        if self.udp_backend not in ("auto", "asyncio"):
-            raise NotPortedError(
-                f"--udp-backend {self.udp_backend} is not yet ported "
-                "(only the asyncio backend is)"
-            )
+        if self.udp_backend not in ("auto", "asyncio", "native"):
+            raise ValueError(f"unknown udp backend {self.udp_backend!r}")
         if self.http_front not in ("auto", "python"):
             raise NotPortedError(
                 f"--http-front {self.http_front} is not yet ported "
@@ -111,8 +110,34 @@ class Command:
         engine = DeviceEngine(
             self.config, node_slot=slots.self_slot, clock=self.clock, device=self.device
         )
-        replicator = await Replicator.create(
-            self.node_addr, self.peer_addrs, slots, log=log, wire_mode=self.wire_mode
+        from patrol_tpu_torch.net import native_replication
+
+        use_native = self.udp_backend == "native" or (
+            self.udp_backend == "auto" and native_replication.available()
+        )
+        replicator = None
+        try:
+            if use_native:
+                replicator = native_replication.NativeReplicator(
+                    self.node_addr, self.peer_addrs, slots, log_=log,
+                    wire_mode=self.wire_mode,
+                )
+                if engine.device.type == "cuda":
+                    replicator.pin_rx_ring()
+            else:
+                replicator = await Replicator.create(
+                    self.node_addr, self.peer_addrs, slots, log=log,
+                    wire_mode=self.wire_mode,
+                )
+        except BaseException:
+            if replicator is not None:
+                replicator.close()
+            engine.stop()
+            raise
+        log.info(
+            "UDP backend",
+            extra={"requested": self.udp_backend,
+                   "backend": "native" if use_native else "asyncio"},
         )
         repo = TPURepo(engine, send_incast=replicator.send_incast_request)
         replicator.repo = repo

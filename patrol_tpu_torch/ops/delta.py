@@ -19,6 +19,7 @@ from patrol_tpu_torch.models.limiter import LimiterState
 from patrol_tpu_torch.ops.join_kernel import pair_join
 from patrol_tpu_torch.ops.merge import FOLD_PAD_ROW  # noqa: F401  (re-export: the
 # sentinel contract is shared with the tick fold and the commit ring)
+from patrol_tpu_torch.ops.merge import wrap_index
 
 
 class DeltaBatch(NamedTuple):
@@ -38,11 +39,13 @@ def delta_fold(state: LimiterState, batch: DeltaBatch) -> LimiterState:
     """Join one delta interval into state: scatter-max of K (row, slot)
     lane pairs plus the per-row elapsed max, in place. Duplicate keys are
     fine (max is commutative, associative and idempotent); sentinel rows
-    are dropped."""
-    rows = batch.rows.to(torch.int64).contiguous()
+    are dropped, and negative rows and slots wrap as in
+    :mod:`patrol_tpu_torch.ops.merge`."""
+    b, n, _ = state.pn.shape
+    rows = wrap_index(batch.rows, b)
     pair_join(
         state.pn, state.elapsed, rows,
-        batch.slots.to(torch.int64).contiguous(),
+        wrap_index(batch.slots, n),
         batch.added_nt.to(torch.int64).contiguous(),
         batch.taken_nt.to(torch.int64).contiguous(),
         rows,

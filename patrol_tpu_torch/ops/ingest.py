@@ -35,6 +35,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from patrol_tpu_torch.models.limiter import LimiterState
 from patrol_tpu_torch.ops import ingest_kernel
@@ -342,8 +343,12 @@ def decode_fold_raw(
     taken, elapsed)``, the reference's ``decode_fold_raw`` layout. The
     state is updated IN PLACE (the returned state is the same object);
     see :func:`patrol_tpu_torch.ops.ingest_kernel.decode_fold` for the
-    operand contract. On a CUDA state this launches the kernel or
+    operand contract. A plan row in ``[-B, 0)`` wraps to ``row + B``
+    first, as the reference's scatter wraps it (the kernel drops every
+    row outside ``[0, B)``). On a CUDA state this launches the kernel or
     raises."""
+    b = state.pn.shape[0]
+    rows = torch.where(rows < 0, rows + b, rows)
     out = ingest_kernel.decode_fold(
         state.pn, state.elapsed, planes, lengths, entry_off, rows, hosted
     )

@@ -11,6 +11,13 @@ torch ops, as they were plain XLA in the reference.
 
 State is updated IN PLACE (the reference donated its buffers); each
 function returns the same :class:`LimiterState`.
+
+Indices follow the reference's scatter and gather: a row in ``[-B, 0)``
+or a slot in ``[-N, 0)`` wraps (``+B``, ``+N``), numpy style; any other
+row or slot outside ``[0, B)`` / ``[0, N)`` is dropped by the joins and
+:func:`zero_rows`, and clamped into range by :func:`read_rows`. The
+kernel itself drops every out-of-range index (``FOLD_PAD_ROW`` padding
+relies on it), so the wrap happens here, in the wrappers.
 """
 
 from __future__ import annotations
@@ -66,11 +73,19 @@ def _c(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64).contiguous()
 
 
+def wrap_index(t: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 copy of an index tensor with ``[-n, 0)`` wrapped to ``+n``
+    (the reference's negative-index rule); everything else as it was."""
+    t = t.to(torch.int64)
+    return torch.where(t < 0, t + n, t).contiguous()
+
+
 def merge_batch(state: LimiterState, batch: MergeBatch) -> LimiterState:
     """Scatter-max K deltas into state (≙ bucket.go:240-263 per delta)."""
-    rows = _c(batch.rows)
+    b, n, _ = state.pn.shape
+    rows = wrap_index(batch.rows, b)
     pair_join(
-        state.pn, state.elapsed, rows, _c(batch.slots), _c(batch.added_nt),
+        state.pn, state.elapsed, rows, wrap_index(batch.slots, n), _c(batch.added_nt),
         _c(batch.taken_nt), rows, _c(batch.elapsed_ns),
     )
     return state
@@ -78,10 +93,11 @@ def merge_batch(state: LimiterState, batch: MergeBatch) -> LimiterState:
 
 def merge_batch_folded(state: LimiterState, batch: FoldedMergeBatch) -> LimiterState:
     """Scatter-max of a host-folded batch (sentinel rows dropped)."""
+    b, n, _ = state.pn.shape
     pair_join(
-        state.pn, state.elapsed, _c(batch.rows), _c(batch.slots),
-        _c(batch.added_nt), _c(batch.taken_nt), _c(batch.erows),
-        _c(batch.elapsed_ns),
+        state.pn, state.elapsed, wrap_index(batch.rows, b),
+        wrap_index(batch.slots, n), _c(batch.added_nt), _c(batch.taken_nt),
+        wrap_index(batch.erows, b), _c(batch.elapsed_ns),
     )
     return state
 
@@ -89,7 +105,8 @@ def merge_batch_folded(state: LimiterState, batch: FoldedMergeBatch) -> LimiterS
 def merge_rows_dense(state: LimiterState, batch: RowDenseBatch) -> LimiterState:
     """Scatter-max R full-row lane windows into state."""
     row_join(
-        state.pn, state.elapsed, _c(batch.rows), _c(batch.updates),
+        state.pn, state.elapsed, wrap_index(batch.rows, state.pn.shape[0]),
+        _c(batch.updates),
         _c(batch.elapsed_ns),
     )
     return state
@@ -104,13 +121,16 @@ def merge_scalar_batch(state: LimiterState, batch: MergeBatch) -> LimiterState:
         lane_slot  = max(lane_slot, attributed)
 
     Every row of the batch reads the pre-batch state (gather first), then
-    one join commits the attributed pairs."""
-    rows = _c(batch.rows)
-    slots = _c(batch.slots)
-    pn_rows = state.pn[rows]  # [K, N, 2] gather
+    one join commits the attributed pairs. The gather clamps its indices,
+    as the reference's does; an entry it clamped is dropped by the join."""
+    b, n, _ = state.pn.shape
+    rows = wrap_index(batch.rows, b)
+    slots = wrap_index(batch.slots, n)
+    pn_rows = state.pn[rows.clamp(0, b - 1)]  # [K, N, 2] gather
     ar = torch.arange(rows.numel(), device=rows.device)
-    lane_a = pn_rows[ar, slots, ADDED]
-    lane_t = pn_rows[ar, slots, TAKEN]
+    gs = slots.clamp(0, n - 1)
+    lane_a = pn_rows[ar, gs, ADDED]
+    lane_t = pn_rows[ar, gs, TAKEN]
     other_a = pn_rows[:, :, ADDED].sum(dim=-1) - lane_a
     other_t = pn_rows[:, :, TAKEN].sum(dim=-1) - lane_t
     attr_a = torch.clamp(_c(batch.added_nt) - other_a, min=0).contiguous()
@@ -140,8 +160,11 @@ def merge_dense(state: LimiterState, other: LimiterState) -> LimiterState:
 
 
 def zero_rows(state: LimiterState, rows: torch.Tensor) -> LimiterState:
-    """Clear bucket rows (slot recycling / eviction). Duplicates are fine."""
-    rows = _c(rows)
+    """Clear bucket rows (slot recycling / eviction). Duplicates are fine;
+    rows out of range after the wrap are dropped."""
+    b = state.pn.shape[0]
+    rows = wrap_index(rows, b)
+    rows = rows[(rows >= 0) & (rows < b)]
     state.pn[rows] = 0
     state.elapsed[rows] = 0
     return state
@@ -153,6 +176,8 @@ class RowState(NamedTuple):
 
 
 def read_rows(state: LimiterState, rows: torch.Tensor) -> RowState:
-    """Gather full per-bucket state for the given rows (a copy)."""
-    rows = _c(rows)
+    """Gather full per-bucket state for the given rows (a copy); rows out
+    of range after the wrap are clamped to ``[0, B)``."""
+    b = state.pn.shape[0]
+    rows = wrap_index(rows, b).clamp(0, b - 1)
     return RowState(pn=state.pn[rows], elapsed=state.elapsed[rows])

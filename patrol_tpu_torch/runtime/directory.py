@@ -138,12 +138,20 @@ class BucketDirectory:
         self._name_words = self.name_bytes.view(np.uint64)
         self.name_len = np.zeros(capacity, dtype=np.int32)
         self.name_hash = np.zeros(capacity, dtype=np.uint64)
-        # The (hash → row) table: numpy open addressing. The C++ table of
-        # the native host (pt_dir) is not part of this package yet, so the
-        # native handle stays unset and every path below takes numpy.
+        # The (hash → row) table: C++ (native/patrol_host.cpp pt_dir —
+        # reads name_bytes/name_len through shared pointers, resolves a
+        # whole batch per call) with a pure-numpy open-addressing fallback
+        # when the native library does not load.
         self._ptlib = None
         self._ptdir = -1
         self._closed = False
+        from patrol_tpu_torch import native
+
+        lib = native.load()
+        if lib is not None:
+            hdl = lib.pt_dir_create(capacity, self.name_bytes, self.name_len)
+            if hdl >= 0:
+                self._ptlib, self._ptdir = lib, hdl
         if self._ptlib is None:
             # numpy open addressing, linear probing, ≤25% load.
             m = 64

@@ -13,8 +13,12 @@ queues — take tickets and replication deltas — into kernel launches:
 
 Wire-v2 replication ingests on the receiving thread instead:
 :meth:`DeviceEngine.ingest_raw_planes` launches the decode+fold kernel on
-raw datagram byte planes, and :meth:`DeviceEngine.ingest_interval` one
-join of a decoded interval. Every launch of the engine, from any thread,
+raw datagram byte planes (a batch of up to 512 from the native rx ring,
+shipped straight from its page-locked plane), and
+:meth:`DeviceEngine.ingest_interval` one join of a decoded interval. The
+native rx loop queues classic datagrams through
+:meth:`DeviceEngine.ingest_wire_batch` (one C++ classify pass over the
+decoded batch). Every launch of the engine, from any thread,
 goes to the device's default stream, so launches that mutate state run in
 the order they were issued (under ``_state_mu``); a row recycled by
 eviction is zeroed behind any fold already queued for it.
@@ -34,11 +38,13 @@ Hot buckets are coalesced algebraically (see ops/take.py): identical
 bucket appearing with a different rate/count in the same tick is deferred
 one tick to preserve the unique-rows kernel invariant.
 
+The tick fold runs in C++ (``pt_fold_hybrid``) for large clustered
+batches and in numpy otherwise (:func:`fold_hybrid`).
+
 Not part of this package yet, and absent here: the host fast path (host
 lanes, promotion, demotion), lifecycle GC and the memory budget (so no
-tombstone re-seeds), the native C++ fold, the certified GCRA / concurrency
-/ quota families (their entry points raise ``NotImplementedError``), and
-the bulk ingest paths of the native receive loop.
+tombstone re-seeds), and the certified GCRA / concurrency / quota
+families (their entry points raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from patrol_tpu_torch.ops import _build
 from patrol_tpu_torch.ops import commit as commit_mod
 from patrol_tpu_torch.ops import delta as delta_ops
 from patrol_tpu_torch.ops import ingest as ingest_ops
+from patrol_tpu_torch.ops import ingest_kernel
 from patrol_tpu_torch.ops import join_kernel
 from patrol_tpu_torch.ops import merge as merge_mod
 from patrol_tpu_torch.ops import wire
@@ -519,12 +526,118 @@ def _live(rows: np.ndarray) -> int:
     return int(np.count_nonzero(rows < _FOLD_PAD_ROW))
 
 
+# Distinct-row bound for the native fold: past this the per-row lane
+# blocks stop paying for themselves (the uniform shape is scatter-bound
+# anyway) and the numpy fold takes over.
+FOLD_NATIVE_MAX_DISTINCT = 4096
+
+# Per-thread reusable output buffers for the native fold (the feeder is
+# the caller; two engines in one process each fold on their own feeder,
+# so thread-local keeps them from sharing).
+_fold_tls = threading.local()
+
+
+def _fold_buffers(nodes: int, cap_pairs: int):
+    cached = getattr(_fold_tls, "bufs", None)
+    if cached is not None and cached[0][0] == nodes and cached[0][1] >= cap_pairs:
+        return cached[1]
+    cap_pairs = 1 << max(cap_pairs - 1, 1).bit_length()  # grow-once sizes
+    cap_rows = min(cap_pairs, FOLD_NATIVE_MAX_DISTINCT)
+    bufs = (
+        np.empty(MAX_ROW_DENSE, np.int64),
+        np.empty((MAX_ROW_DENSE, nodes, 2), np.int64),
+        np.empty(MAX_ROW_DENSE, np.int64),
+        np.empty(cap_pairs, np.int64),
+        np.empty(cap_pairs, np.int64),
+        np.empty(cap_pairs, np.int64),
+        np.empty(cap_pairs, np.int64),
+        np.empty(cap_rows, np.int64),
+        np.empty(cap_rows, np.int64),
+        np.zeros(3, np.int64),
+    )
+    _fold_tls.bufs = ((nodes, cap_pairs), bufs)
+    return bufs
+
+
+def _fold_hybrid_native(deltas: DeltaArrays, nodes: int, row_dense_min: int):
+    """C++ fold (pt_fold_hybrid): one hash pass into per-row lane blocks,
+    threaded across cores for large batches, in place of the numpy
+    lexsort + reduceat fold. Returns :func:`fold_hybrid`'s exact result,
+    or None to fall back to numpy (library unavailable, a batch under
+    1024 deltas, or a distinct-row set past the bound)."""
+    n = len(deltas.rows)
+    if n < 1024:
+        return None  # per-call buffers beat numpy only at batch scale
+    # Cheap shape probe before any native work: a mostly-distinct sample
+    # means the uniform shape, where the native fold would only discover
+    # it must bail. A clustered batch's sample cannot trip it: its unique
+    # count is bounded by the true distinct-row count.
+    sample = deltas.rows[:: max(1, n // 2048)][:2048]
+    if len(np.unique(sample)) >= 0.85 * len(sample):
+        return None
+    from patrol_tpu_torch import native as native_mod
+
+    lib = native_mod.load()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(deltas.rows, np.int64)
+    slots = np.ascontiguousarray(deltas.slots, np.int64)
+    added = np.ascontiguousarray(deltas.added_nt, np.int64)
+    taken = np.ascontiguousarray(deltas.taken_nt, np.int64)
+    elapsed = np.ascontiguousarray(deltas.elapsed_ns, np.int64)
+    bufs = _fold_buffers(nodes, min(n, FOLD_NATIVE_MAX_DISTINCT * nodes))
+    (d_rows, d_upd, d_el, sp_rows, sp_slots, sp_a, sp_t, sp_er, sp_e,
+     counts) = bufs
+    counts[:] = 0
+    rc = lib.pt_fold_hybrid(
+        rows, slots, added, taken, elapsed, n, nodes, row_dense_min,
+        FOLD_NATIVE_MAX_DISTINCT, d_rows, d_upd, d_el, MAX_ROW_DENSE,
+        sp_rows, sp_slots, sp_a, sp_t, sp_er, sp_e, counts,
+    )
+    if rc != 0:
+        return None
+    n_pairs, n_rows, n_dense = int(counts[0]), int(counts[1]), int(counts[2])
+    packed = pack_folded(
+        sp_rows[:n_pairs], sp_slots[:n_pairs], sp_a[:n_pairs],
+        sp_t[:n_pairs], sp_er[:n_rows], sp_e[:n_rows],
+    )
+    if n_dense == 0:
+        return packed, None
+    return packed, _pad_dense(d_rows[:n_dense], d_upd[:n_dense], d_el[:n_dense], nodes)
+
+
+def _pad_dense(d_rows, upd, el, nodes: int):
+    """The dense half at its padded shape: ``FOLD_PAD_ROW`` sentinel rows
+    (out of range, unique) and zero updates past the live ``len(d_rows)``."""
+    r = len(d_rows)
+    rp = _pad_size(r, lo=8, hi=MAX_ROW_DENSE)
+    rows_p = np.empty(rp, dtype=np.int64)
+    rows_p[:r] = d_rows
+    rows_p[r:] = _FOLD_PAD_ROW + np.arange(rp - r)
+    upd_p = np.zeros((rp, nodes, 2), dtype=np.int64)
+    upd_p[:r] = upd
+    el_p = np.zeros(rp, dtype=np.int64)
+    el_p[:r] = el
+    return rows_p, upd_p, el_p
+
+
 def fold_hybrid(deltas: DeltaArrays, nodes: int, row_dense_min: int):
     """Fold-to-dense hybrid split: rows whose tick touches ≥
     ``row_dense_min`` lanes commit their FULL lane plane as one row-window
     join; the sparse remainder rides the pair join. Returns
-    (packed|None, (rows, updates, elapsed)|None). The numpy fold of the
-    reference (its C++ fold is not part of this package)."""
+    (packed|None, (rows, updates, elapsed)|None). Large clustered batches
+    fold in C++ (:func:`_fold_hybrid_native`, counted in
+    ``fold_native_ticks``); the numpy fold below is the reference
+    implementation and the uniform-shape path."""
+    native_res = _fold_hybrid_native(deltas, nodes, row_dense_min)
+    if native_res is not None:
+        profiling.COUNTERS.inc("fold_native_ticks")
+        return native_res
+    return fold_hybrid_numpy(deltas, nodes, row_dense_min)
+
+
+def fold_hybrid_numpy(deltas: DeltaArrays, nodes: int, row_dense_min: int):
+    """:func:`fold_hybrid` by numpy alone (lexsort + reduceat)."""
     ur, us, ua, ut, er, e = fold_core(deltas)
     nrow = np.empty(len(ur), bool)
     nrow[0] = True
@@ -552,15 +665,7 @@ def fold_hybrid(deltas: DeltaArrays, nodes: int, row_dense_min: int):
         ur[sparse], us[sparse], ua[sparse], ut[sparse],
         er[~dense_sel], e[~dense_sel],
     )
-    rp = _pad_size(R, lo=8, hi=MAX_ROW_DENSE)
-    rows_p = np.empty(rp, dtype=np.int64)
-    rows_p[:R] = d_rows
-    rows_p[R:] = _FOLD_PAD_ROW + np.arange(rp - R)  # out of range, unique
-    upd_p = np.zeros((rp, nodes, 2), dtype=np.int64)
-    upd_p[:R] = upd
-    el_p = np.zeros(rp, dtype=np.int64)
-    el_p[:R] = e[dense_sel]
-    return packed, (rows_p, upd_p, el_p)
+    return packed, _pad_dense(d_rows, upd, e[dense_sel], nodes)
 
 
 class DeviceEngine:
@@ -635,10 +740,12 @@ class DeviceEngine:
         self._completing = False
         self._feeder_done = False
         self._staging = StagingPool(pin=self._cuda)
-        # One all-false ``hosted`` operand per (P, E) raw-ingest shape on
-        # the device (under _state_mu): the kernel only reads it, so it is
-        # made once instead of zeroed (one more launch) per datagram.
-        self._no_hosted: Dict[Tuple[int, int], torch.Tensor] = {}
+        # One all-false ``hosted`` operand per raw-ingest entry width E on
+        # the device (under _state_mu), as many planes deep as the widest
+        # batch yet; a launch reads its [:P] prefix. The kernel only reads
+        # it, so it is made once instead of zeroed (one more launch) per
+        # batch.
+        self._no_hosted: Dict[int, torch.Tensor] = {}
         self._dispatch_ahead = DISPATCH_AHEAD
         self._commit_row_ns_ewma = 0.0
         self._commit_blocks = COMMIT_BLOCKS
@@ -983,6 +1090,153 @@ class DeviceEngine:
             self._cond.notify()
         return chunk.n
 
+    def ingest_deltas_batch_raw(
+        self,
+        n: int,
+        name_buf: np.ndarray,
+        name_lens: np.ndarray,
+        name_hashes: np.ndarray,
+        slots: np.ndarray,
+        added_nt: np.ndarray,
+        taken_nt: np.ndarray,
+        elapsed_ns: np.ndarray,
+        caps_nt: np.ndarray,
+        lane_added_nt: np.ndarray,
+        lane_taken_nt: np.ndarray,
+        scalar: np.ndarray,
+    ) -> int:
+        """Zero-materialization bulk ingest (the native rx loop's path
+        when the directory has no native table). Names arrive as raw
+        zero-padded byte rows + FNV hashes (native.decode_batch_raw);
+        known buckets resolve through the directory's vectorized hash
+        table without creating a Python string, and only directory misses
+        (new buckets, once per bucket lifetime) materialize names and take
+        the evicting assign path. Wire-semantics classification is shared
+        with :meth:`ingest_deltas_batch`."""
+        now = self.clock()
+        keep = (
+            (slots[:n] >= 0)
+            & (slots[:n] < self.config.nodes)
+            & (name_lens[:n] >= 0)
+        )
+        idx_all = np.flatnonzero(keep)
+        # Gather names as u64 words, not bytes: fancy-indexing cost scales
+        # with element count, and the directory verifies on the word view.
+        name_words = np.ascontiguousarray(name_buf).view(np.uint64)
+        accepted = 0
+        for lo in range(0, len(idx_all), MAX_MERGE_ROWS):
+            idx = idx_all[lo : lo + MAX_MERGE_ROWS]
+            rows = self.directory.lookup_hashed_pinned(
+                name_hashes[idx], name_words[idx], name_lens[idx], now
+            )
+            miss = np.flatnonzero(rows < 0)
+            if miss.size:
+                miss_rows = self._bind_wire_misses_pinned(
+                    name_buf, name_lens, name_hashes, idx[miss], now
+                )
+                if miss_rows is None:
+                    hit = rows >= 0
+                    idx, rows = idx[hit], rows[hit]
+                    if not idx.size:
+                        continue
+                else:
+                    rows[miss] = miss_rows
+            accepted += self._classify_queue_chunk(
+                rows,
+                slots[idx].astype(np.int64),
+                added_nt[idx],
+                taken_nt[idx],
+                elapsed_ns[idx],
+                caps_nt[idx],
+                lane_added_nt[idx],
+                lane_taken_nt[idx],
+                scalar[idx],
+            )
+        return accepted
+
+    def ingest_wire_batch(
+        self,
+        dbuf,
+        n: int,
+        slots: np.ndarray,
+        no_trailer: np.ndarray,
+    ) -> int:
+        """The native rx loop's fused path: raw decode buffers
+        (native.DecodeBuffers: float64 wire headers, zero-padded name
+        rows, FNV hashes) → classified delta queue in ONE native call
+        (pt_rx_classify: resolve + sanitize + wire-semantics classify +
+        per-batch (row, slot) dedup). Python touches only the leftovers:
+        directory misses (bound via the wire bind path, classified by the
+        numpy tail) and v1 deltas whose row capacity was unknown at native
+        classify time. Falls back to :meth:`ingest_deltas_batch_raw` when
+        the directory has no native table. Returns deltas queued."""
+        now = self.clock()
+        slots = np.ascontiguousarray(slots[:n], np.int64)
+        res = self.directory.rx_classify(
+            n, dbuf.hashes, dbuf.names, dbuf.name_lens, dbuf.added,
+            dbuf.taken, dbuf.elapsed, slots, self.config.nodes,
+            dbuf.caps, dbuf.lane_a, dbuf.lane_t, no_trailer, now,
+        )
+        if res is None:
+            return self.ingest_deltas_batch_raw(
+                n, dbuf.names, dbuf.name_lens, dbuf.hashes, slots,
+                wire.sanitize_nt_array(dbuf.added[:n]),
+                wire.sanitize_nt_array(dbuf.taken[:n]),
+                np.maximum(dbuf.elapsed[:n].astype(np.int64), 0),
+                dbuf.caps[:n], dbuf.lane_a[:n], dbuf.lane_t[:n],
+                no_trailer[:n].astype(bool),
+            )
+        rows, out_a, out_t, out_e, out_s = res
+        accepted = 0
+        miss = rows == -1
+        if miss.any():
+            # First sight of these buckets (once per bucket lifetime):
+            # bind, then classify through the numpy tail.
+            mi = np.flatnonzero(miss)
+            miss_rows = self._bind_wire_misses_pinned(
+                dbuf.names, dbuf.name_lens, dbuf.hashes, mi, now
+            )
+            if miss_rows is not None:
+                accepted += self._classify_queue_chunk(
+                    miss_rows,
+                    slots[mi],
+                    wire.sanitize_nt_array(dbuf.added[mi]),
+                    wire.sanitize_nt_array(dbuf.taken[mi]),
+                    np.maximum(dbuf.elapsed[mi].astype(np.int64), 0),
+                    dbuf.caps[mi],
+                    dbuf.lane_a[mi],
+                    dbuf.lane_t[mi],
+                    no_trailer[mi].astype(bool),
+                )
+        live = rows >= 0
+        recheck = live & (out_s == 2)
+        if recheck.any():
+            # v1 deltas on rows whose capacity was 0 during the native
+            # pass; the miss binds above may have adopted caps since.
+            idx2 = np.flatnonzero(recheck)
+            base = self.directory.cap_base_nt[rows[idx2]]
+            known = base > 0
+            ki = idx2[known]
+            out_a[ki] = np.maximum(out_a[ki] - base[known], 0)
+            out_s[ki] = 1
+            drop = idx2[~known]
+            if drop.size:
+                self._scalar_dropped += int(drop.size)
+                self.directory.unpin_rows(rows[drop])
+                live[drop] = False
+        idx = np.flatnonzero(live)
+        for lo in range(0, len(idx), MAX_MERGE_ROWS):
+            sl = idx[lo : lo + MAX_MERGE_ROWS]
+            chunk = _DeltaChunk(
+                rows[sl], slots[sl], out_a[sl], out_t[sl], out_e[sl],
+                out_s[sl] == 1,
+            )
+            with self._cond:
+                self._deltas.append(chunk)
+                self._cond.notify()
+            accepted += chunk.n
+        return accepted
+
     def ingest_interval(
         self,
         names: Sequence[str],
@@ -1083,9 +1337,13 @@ class DeviceEngine:
         copy to the device has finished — or inline if nothing is
         launched. Returns deltas accepted (folded).
 
-        On CUDA the planes are copied into a pinned staging lease and
-        shipped with a non-blocking copy; the calling (rx) thread never
-        synchronises with the device."""
+        On CUDA, planes in page-locked memory (the native rx ring's, see
+        ``native.RxRing.pin``) ship as they lie with one non-blocking
+        copy; other planes are first copied into a pinned staging lease.
+        Either way ``release`` runs only once that copy has finished, and
+        the calling (rx) thread never synchronises with the device. Each
+        launch records its plane count P in the ``ingest_raw_planes``
+        histogram."""
         released = release is None
 
         def _release_inline() -> None:
@@ -1161,11 +1419,20 @@ class DeviceEngine:
             entry_off = np.maximum(walk.name_off - 1, 0)
             t0 = time.perf_counter_ns()
             if self._cuda:
-                buf = self._staging.lease((P, row_w), torch.uint8)
-                buf.numpy()[...] = planes
-                planes_dev = buf.to(self.device, non_blocking=True)
-                copied = self._device_event()
-                self._staging.release(buf, copied)
+                src = None
+                if planes.flags.c_contiguous and planes.flags.writeable:
+                    src = torch.from_numpy(planes)
+                if src is not None and src.is_pinned():
+                    # Straight from the caller's page-locked plane.
+                    planes_dev = src.to(self.device, non_blocking=True)
+                    copied = self._device_event()
+                    profiling.COUNTERS.inc("ingest_raw_pinned_ships")
+                else:
+                    buf = self._staging.lease((P, row_w), torch.uint8)
+                    buf.numpy()[...] = planes
+                    planes_dev = buf.to(self.device, non_blocking=True)
+                    copied = self._device_event()
+                    self._staging.release(buf, copied)
                 plan = self._staging.lease((2 * P * E + P,), torch.int32)
                 flat = plan.numpy()
                 flat[: P * E] = entry_off.reshape(-1)
@@ -1184,18 +1451,24 @@ class DeviceEngine:
             _obs_stage(hist.STAGE_H2D, t0, trace_mod.EV_H2D_PUT, int(pi.size))
             t0 = time.perf_counter_ns()
             with self._state_mu:
-                hosted_dev = self._no_hosted.get((P, E))
-                if hosted_dev is None:
+                hosted_dev = self._no_hosted.get(E)
+                if hosted_dev is None or hosted_dev.shape[0] < P:
                     hosted_dev = torch.zeros((P, E), dtype=torch.bool, device=self.device)
-                    self._no_hosted[(P, E)] = hosted_dev
-                ingest_ops.decode_fold_raw(
-                    self.state, planes_dev, lengths_dev, eoff_dev, rows_dev, hosted_dev
+                    self._no_hosted[E] = hosted_dev
+                hosted_dev = hosted_dev[:P]
+                # The kernel's wrapper as is: the host plan holds
+                # directory rows and FOLD_PAD_ROW, never a negative row
+                # for decode_fold_raw to wrap.
+                ingest_kernel.decode_fold(
+                    self.state.pn, self.state.elapsed, planes_dev, lengths_dev,
+                    eoff_dev, rows_dev, hosted_dev,
                 )
             _obs_stage(
                 hist.STAGE_DISPATCH, t0, trace_mod.EV_COMMIT_DISPATCH, int(pi.size)
             )
             self._observe_device_commit("decode_fold_raw", t0, max(int(pi.size), 1))
             self._ticks += 1
+            hist.RAW_PLANES.record(P)
             profiling.COUNTERS.inc("ingest_raw_device_dispatches")
             profiling.COUNTERS.inc(
                 "ingest_raw_bytes_on_device", int(lengths[walk.ok].sum())
@@ -1436,9 +1709,9 @@ class DeviceEngine:
         with self._state_mu:
             take_n_batch(self.state, take, self.node_slot)
             join_kernel.tick_join(self.state.pn, self.state.elapsed, dense, pairs)
-            ingest_ops.decode_fold_raw(
-                self.state, plane, plan[:, 0].contiguous(), plan, plan,
-                torch.zeros((1, e), dtype=torch.bool, device=self.device),
+            ingest_kernel.decode_fold(
+                self.state.pn, self.state.elapsed, plane, plan[:, 0].contiguous(),
+                plan, plan, torch.zeros((1, e), dtype=torch.bool, device=self.device),
             )
         torch.cuda.synchronize(self.device)
 

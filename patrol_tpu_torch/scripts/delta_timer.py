@@ -5,7 +5,8 @@
         [--lanes 64] [--takes 20000] [--out rows.jsonl]
 
 For each timer named, two port nodes (``Command`` in this process, each
-on its own event-loop thread, wire mode ``delta``, frozen clocks) are
+on its own event-loop thread, the asyncio UDP backend, wire mode
+``delta``, frozen clocks) are
 peered over loopback, and takes over 2,000 names, split across them, go
 in chunks of 500 through ``submit_take``: a chunk waits for its tickets
 and then for both delta planes to hold no unacked interval (at most
@@ -161,7 +162,7 @@ def run_timer(args, timer: str, emit) -> Dict:
                 api_addr="127.0.0.1:0", node_addr=a, peer_addrs=addrs,
                 clock=lambda: 1_700_000_000 * NANO, config=cfg,
                 handle_signals=False, warmup=True, device=args.device,
-                wire_mode="delta",
+                wire_mode="delta", udp_backend="asyncio",
             )))
         planes = [n.cmd.replicator.delta for n in nodes]
         deadline = time.perf_counter() + 30

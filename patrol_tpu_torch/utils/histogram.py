@@ -226,6 +226,10 @@ STAGE_RX_DECODE = HISTOGRAMS.get("ingest_rx_decode_ns")
 STAGE_FOLD = HISTOGRAMS.get("ingest_fold_ns")
 TAKE_SERVICE = HISTOGRAMS.get("take_service_ns")
 RX_APPLY = HISTOGRAMS.get("replication_rx_apply_ns")
+# Datagram planes per raw decode+fold launch (runtime/engine.py
+# ingest_raw_planes): 1 on the asyncio backend, up to the rx ring's
+# batch (512) on the native one.
+RAW_PLANES = HISTOGRAMS.get("ingest_raw_planes", unit="planes")
 AE_JOB = HISTOGRAMS.get("ae_job_ns")
 FRONT_WAIT = HISTOGRAMS.get("http_front_wait_ns")
 # Device-side stage histograms (patrol-fleet, ROADMAP item 1's r06

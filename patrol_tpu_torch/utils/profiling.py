@@ -331,6 +331,11 @@ class CounterRegistry:
         "take_rows_coalesced",
         "take_tickets_folded",
         "take_partial_grants",
+        # Merge ticks whose host fold ran in C++ (pt_fold_hybrid,
+        # runtime/engine.py) instead of the numpy fold, and raw-ingest
+        # batches shipped straight from page-locked rx ring planes.
+        "fold_native_ticks",
+        "ingest_raw_pinned_ships",
     )
 
     def __init__(self):

@@ -153,7 +153,7 @@ def test_http_script_matches_reference(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"udp_backend": "native"},
+        {"udp_backend": "native", "http_front": "native"},
         {"http_front": "native"},
         {"mesh_replicas": 2},
         {"checkpoint_dir": "ckpt"},

@@ -2,7 +2,9 @@
 pulls in neither ``jax`` nor ``patrol_tpu``, and no port file imports
 either (an AST walk, so a lazy import inside a function is caught too).
 The CLI starts a replicating node from ``--peer-addr`` and refuses what is
-not ported yet (``--udp-backend native``) with exit code 2.
+not ported yet (``--http-front native``) with exit code 2; the native UDP
+backend is ported, and its C++ sources are the port's own copies: no port
+file reads a path under ``patrol_tpu/``.
 
 The import check runs in a subprocess, because this test process has
 already imported jax (``tests/conftest.py``)."""
@@ -10,6 +12,7 @@ already imported jax (``tests/conftest.py``)."""
 import ast
 import json
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -72,6 +75,36 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert offenders == {}
 
 
+def _string_constants(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.value
+
+
+def test_no_port_file_reads_a_path_under_the_jax_package():
+    # The native library builds from patrol_tpu_torch/native/*.cpp: no port
+    # file names a path inside patrol_tpu/ (its sources, its build) as a
+    # string, nor joins one from the package's directory name. A
+    # ``file.py:line`` citation of a TPU kernel (chip_smoke.py's
+    # "replaces" fields) names a line, not a path to read.
+    citation = re.compile(r"patrol_tpu/[\w/]+\.py:\d+")
+    files = sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = {}
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        bad = [
+            v for v in _string_constants(tree)
+            if (v == "patrol_tpu" or v.startswith("patrol_tpu/") or "/patrol_tpu/" in v)
+            and not citation.fullmatch(v)
+        ]
+        if bad:
+            offenders[str(path.relative_to(REPO))] = bad
+    assert offenders == {}
+    assert {p.name for p in (PKG_DIR / "native").glob("*.cpp")} == {
+        "patrol_host.cpp", "patrol_http.cpp",
+    }
+
+
 def test_package_import_leaves_cuda_uninitialised():
     # Importing the port must not build kernels or touch a card: the
     # tests import every module on hosts without nvcc or a GPU.
@@ -91,7 +124,8 @@ def test_replication_modules_are_part_of_the_port():
     mods = set(_modules())
     for m in ("net.replication", "net.delta", "net.antientropy", "net.membership",
               "net.faultnet", "net.fleet", "net.audit", "net.v1node", "utils.slo",
-              "ops.ingest", "ops.ingest_kernel", "ops.delta"):
+              "ops.ingest", "ops.ingest_kernel", "ops.delta", "native",
+              "net.native_replication"):
         assert f"patrol_tpu_torch.{m}" in mods, m
     assert (PKG_DIR / "csrc" / "decode_fold.cu").is_file()
 
@@ -105,13 +139,15 @@ def _free_port(kind):
 
 
 def test_cli_refuses_the_native_udp_backend():
+    # The native UDP backend is ported; beside it the native HTTP front is
+    # not, and the pair is refused before anything starts.
     res = subprocess.run(
         [sys.executable, "-m", "patrol_tpu_torch", "--udp-backend", "native",
-         "--device", "cpu", "--no-warmup"],
+         "--http-front", "native", "--device", "cpu", "--no-warmup"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 2
-    assert "not yet ported" in res.stderr and "udp-backend native" in res.stderr
+    assert "not yet ported" in res.stderr and "http-front native" in res.stderr
 
 
 def test_cli_starts_a_node_with_peers():

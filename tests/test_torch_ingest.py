@@ -193,6 +193,31 @@ def test_decode_fold_plain_matches_reference(impl):
     assert (tst.pn.numpy() > 0).sum() > 50
 
 
+def test_decode_fold_wraps_negative_plan_rows_like_the_reference():
+    # The reference's scatter wraps a plan row in [-B, 0) (ROADMAP C1);
+    # the kernel drops every row outside [0, B), so the wrapper wraps.
+    raw, planes, lengths, eoff, rows, hosted, _ = _corpus_inputs(77, 32)
+    rng = np.random.default_rng(78)
+    pick = rng.random(rows.shape)
+    rows = np.where(pick < 0.3, rows - BUCKETS, rows)  # wraps back to itself
+    rows = np.where(pick > 0.95, -BUCKETS - 1 - rows, rows).astype(np.int32)  # dropped
+    jargs = (jnp.asarray(planes), jnp.asarray(lengths), jnp.asarray(eoff),
+             jnp.asarray(rows), jnp.asarray(hosted))
+    want = jingest.decode_fold_raw_jit(jinit(JConfig(buckets=BUCKETS, nodes=NODES)), *jargs)
+    tst = tinit(TConfig(buckets=BUCKETS, nodes=NODES), device="cpu")
+    got = tingest.decode_fold_raw(
+        tst, *(torch.from_numpy(x) for x in (planes, lengths, eoff, rows, hosted))
+    )
+    np.testing.assert_array_equal(tst.pn.numpy(), np.asarray(want[0].pn))
+    np.testing.assert_array_equal(tst.elapsed.numpy(), np.asarray(want[0].elapsed))
+    for i in (1, 2, 3):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]), err_msg=str(i))
+    # Non-vacuous: folded entries sat under wrapped rows.
+    eok = np.asarray(want[2]) & ~hosted
+    assert (eok & (rows < 0) & (rows >= -BUCKETS)).sum() > 10
+    assert (eok & (rows < -BUCKETS)).sum() > 0
+
+
 def _entry(rng, name_len, wire=twire):
     return wire.DeltaEntry(
         "".join(chr(97 + int(c)) for c in rng.integers(0, 26, name_len)),
@@ -416,14 +441,20 @@ def test_engine_raw_seam_matches_interval_path_and_reference(monkeypatch):
 
 def test_raw_ingest_reuses_one_hosted_operand_per_shape():
     # Host lanes are not ported, so ``hosted`` is all false: one tensor
-    # per (P, E) shape is made once and reused by every later launch.
+    # per entry width E, as deep as the widest batch yet, is made once and
+    # its [:P] prefix serves every later launch of that width.
     eng = tengine_mod.DeviceEngine(TConfig(BUCKETS, NODES), device="cpu")
     try:
         rng = np.random.default_rng(4)
         for _ in range(3):
             _feed_raw(eng, [mk_packet(rng, 5)])
+        first = eng._no_hosted[E]
         _feed_raw(eng, [mk_packet(rng, 5), mk_packet(rng, 5)])
-        assert sorted(eng._no_hosted) == [(1, E), (2, E)]
+        deep = eng._no_hosted[E]
+        _feed_raw(eng, [mk_packet(rng, 5)])
+        assert sorted(eng._no_hosted) == [E]
+        assert tuple(first.shape) == (1, E) and tuple(deep.shape) == (2, E)
+        assert eng._no_hosted[E] is deep
         assert not any(t.any() for t in eng._no_hosted.values())
     finally:
         eng.stop()

@@ -407,3 +407,102 @@ def test_tick_join_rejects_bad_operands(case):
     st = state_from_numpy(np.zeros((4, 2, 2), np.int64), np.zeros(4, np.int64), "cpu")
     with pytest.raises(err):
         join_kernel.tick_join(st.pn, st.elapsed, dense, pairs)
+
+
+# Negative and out-of-range indices (ROADMAP C1): a JAX scatter wraps a
+# row in [-B, 0) and a slot in [-N, 0), numpy style, and drops the rest;
+# its gather wraps, then clamps. Every (row, slot) pair of these sets
+# goes through each wrapper against the JAX function of the same name.
+EDGE_ROWS = [-B - 1, -1, 0, B - 1, B, tmerge.FOLD_PAD_ROW]
+EDGE_SLOTS = [-N - 1, -1, 0, N - 1, N]
+EDGE_PAIRS = [(r, s) for r in EDGE_ROWS for s in EDGE_SLOTS]
+
+
+def _edge_values(rng, k):
+    return (rng.integers(1, 2 * BIG, k).astype(np.int64) for _ in range(3))
+
+
+def _j32(a):
+    return jnp.asarray(np.asarray(a), jnp.int32)
+
+
+@pytest.mark.parametrize("zero_base", [True, False])
+@pytest.mark.parametrize("fn", ["merge_batch", "merge_scalar_batch", "delta_fold"])
+def test_negative_indices_wrap_like_the_reference(fn, zero_base):
+    from patrol_tpu.ops import delta as jdelta
+    from patrol_tpu_torch.ops import delta as tdelta
+
+    rng = np.random.default_rng(40 + zero_base)
+    pn, el = base_state(rng, zero_base)
+    rows = np.array([r for r, _ in EDGE_PAIRS], np.int64)
+    slots = np.array([s for _, s in EDGE_PAIRS], np.int64)
+    a, tk, e = _edge_values(rng, len(rows))
+    if fn == "merge_scalar_batch":
+        a = a * 4  # big aggregates, so attribution is often positive
+    jargs = (_j32(rows), _j32(slots), jnp.asarray(a), jnp.asarray(tk), jnp.asarray(e))
+    targs = (t(rows), t(slots), t(a), t(tk), t(e))
+    if fn == "delta_fold":
+        want = jdelta.delta_fold(jstate(pn, el), jdelta.DeltaBatch(*jargs))
+        got = tdelta.delta_fold(state_from_numpy(pn, el, "cpu"), tdelta.DeltaBatch(*targs))
+    else:
+        want = getattr(jmerge, fn)(jstate(pn, el), jmerge.MergeBatch(*jargs))
+        got = getattr(tmerge, fn)(state_from_numpy(pn, el, "cpu"), tmerge.MergeBatch(*targs))
+    assert_planes(got, want)
+    if zero_base and fn != "merge_scalar_batch":
+        # Non-vacuous: the wrapped entries landed where the reference put
+        # them (row -1 is row B - 1, slot -1 is slot N - 1).
+        tpn, tel = state_to_numpy(got)
+        assert tpn[B - 1, N - 1].any() and tel[B - 1] > 0
+
+
+@pytest.mark.parametrize("row,slot", EDGE_PAIRS)
+def test_merge_batch_folded_negative_indices(row, slot):
+    # One live entry a call: the reference promises unique, sorted keys.
+    rng = np.random.default_rng(50)
+    pn, el = base_state(rng)
+    a, tk, e = _edge_values(rng, 1)
+    packed = np.array([[row, tmerge.FOLD_PAD_ROW], [slot, 1], [a[0], 0], [tk[0], 0],
+                       [row, tmerge.FOLD_PAD_ROW], [e[0], 0]], np.int64)
+    want = jmerge.merge_batch_folded(
+        jstate(pn, el),
+        jmerge.FoldedMergeBatch(
+            _j32(packed[0]), _j32(packed[1]), jnp.asarray(packed[2]),
+            jnp.asarray(packed[3]), _j32(packed[4]), jnp.asarray(packed[5]),
+        ),
+    )
+    got = tmerge.merge_batch_folded(
+        state_from_numpy(pn, el, "cpu"), tmerge.FoldedMergeBatch(*t(packed).unbind(0))
+    )
+    assert_planes(got, want)
+
+
+@pytest.mark.parametrize("row", EDGE_ROWS)
+def test_merge_rows_dense_negative_rows(row):
+    rng = np.random.default_rng(51)
+    pn, el = base_state(rng)
+    upd = rng.integers(0, 2 * BIG, size=(1, N, 2), dtype=np.int64)
+    e = rng.integers(0, 2 * BIG, size=1, dtype=np.int64)
+    want = jmerge.merge_rows_dense(
+        jstate(pn, el), jmerge.RowDenseBatch(_j32([row]), jnp.asarray(upd), jnp.asarray(e))
+    )
+    got = tmerge.merge_rows_dense(
+        state_from_numpy(pn, el, "cpu"), tmerge.RowDenseBatch(t([row]), t(upd), t(e))
+    )
+    assert_planes(got, want)
+
+
+def test_zero_rows_drops_and_read_rows_clamps_like_the_reference():
+    rng = np.random.default_rng(52)
+    pn, el = base_state(rng)
+    rows = np.array(EDGE_ROWS, np.int64)
+    jr = jmerge.read_rows(jstate(pn, el), _j32(rows))
+    tr = tmerge.read_rows(state_from_numpy(pn, el, "cpu"), t(rows))
+    np.testing.assert_array_equal(tr.pn.numpy(), np.asarray(jr.pn))
+    np.testing.assert_array_equal(tr.elapsed.numpy(), np.asarray(jr.elapsed))
+    # Row B clamps to B - 1 and -B - 1 to 0, as the reference's gather does.
+    np.testing.assert_array_equal(tr.pn.numpy()[4], pn[B - 1])
+    want = jmerge.zero_rows(jstate(pn, el), _j32(rows))
+    got = tmerge.zero_rows(state_from_numpy(pn, el, "cpu"), t(rows))
+    assert_planes(got, want)
+    tpn, _ = state_to_numpy(got)
+    assert not tpn[B - 1].any() and not tpn[0].any() and tpn[1:B - 1].any()

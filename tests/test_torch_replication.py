@@ -93,6 +93,10 @@ class Node:
 
 
 def port_cmd(addr, addrs, **kw):
+    # These cases run the asyncio backend (``auto`` now takes the native
+    # one when its library loads; tests/test_torch_native_replication.py
+    # runs that).
+    kw.setdefault("udp_backend", "asyncio")
     return TCommand(
         api_addr="127.0.0.1:0", node_addr=addr, peer_addrs=addrs,
         clock=lambda: FROZEN, config=TConfig(BUCKETS, NODES),
