@@ -45,6 +45,7 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    version and the library call, timed also with cold rows and, for
    ``pairmax``, beside ``pair_join`` on the same updates.
 3. The main path: the port's ``Command`` serving on the asyncio front
+   (host fast path off, see 3f)
    (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
    lane trailers from lanes 1..63 through ``TPURepo.apply_delta``, 50k takes
    (uniform keys plus a Zipf(1.25) hot-key crowd) through ``submit_take``,
@@ -85,6 +86,36 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    a mean P above 1, some batch straight from a pinned plane, and the
    nodes must converge as in 3c. The P histogram, launches, retransmits,
    ack srtt and the profiled window go beside 3c's.
+3f. One node at the defaults (``Command()`` as the CLI makes it: the
+   native C++ front, the native host-lane store, the host fast path on),
+   1M x 64 on the card. Phases 3, 3b, 3c and 3e run the asyncio front
+   with ``engine.HOST_FASTPATH = False``, as before host lanes became the
+   default, so their numbers stay comparable. A residency leg drives
+   ``pt_http_blast`` (h1 keep-alive, 16 x 8 in flight) over 200,000
+   names (half uniform, half Zipf(1.25) over 1,000 hot names) for
+   windows of 3 s: cold (each bucket's first take crosses the Python
+   pump), warm (the buckets the cold window bound; every take is
+   answered in C++ in the front), and warm again over one connection
+   with one request in flight (unloaded latency). Per window: rps,
+   p50/p99 latency, the
+   200/429 split, in-front, Python-host and device takes, promotions and
+   launches. A promotion leg lowers ``HOST_PROMOTE_TAKES`` and
+   ``NATIVE_PROMOTE_TAKES`` to 32 and steps the clock: 64 hot names are
+   bound, burst in front (the C++ take path at an explicit clock) past
+   the threshold, promoted (the drain must launch the join), taken on the
+   device (take-n must launch), idle a demote window and are demoted
+   (gather, zero) by the take that ends it, then served in front again.
+   Each row must be promoted and demoted exactly once, and every take
+   outcome and final per-name state (``snapshot``, host lanes) must equal
+   a replay on a CPU engine with the fast path off.
+3g. Two nodes at the defaults on the native UDP backend: every one of
+   phase 3c's 2,000 names taken on both nodes first (so both host it),
+   then 6,000 paced takes as in 3c. Hosted rows' dv2 entries reach
+   ``decode_fold`` marked hosted; the kernel's ``hosted_mask`` and fields
+   come back in one copy and are absorbed into host lanes. At least one
+   launch must carry a hosted entry, the nodes must converge as in 3c,
+   and every admitted take must be in a lane; the launches with and
+   without a hosted entry and the entries absorbed are printed.
 3d. The probe's entry point (``patrol_tpu_torch.scripts.probe_dma_scatter``,
    ``--device cuda``) at 1M × 256 lanes, K = 8192: ``row_rmw`` must have
    launched exactly once per call the probe made, and ``pairmax`` through
@@ -1227,6 +1258,7 @@ def free_udp_port() -> int:
 
 
 TWO_NODE_NAMES, TWO_NODE_TAKES, TWO_NODE_CHUNK = 2000, 20_000, 500
+DEFAULTS_TAKES = 6_000  # phase 3g's paced takes (after 2 x 2,000 priming takes)
 PROFILE_CHUNKS = range(4, 10)  # the paced takes' chunks traced by the profiler
 PROFILE_KERNELS = ("take_n_kernel", "decode_fold_kernel")
 JOIN_PROFILE_KERNELS = ("join_kernel",)  # phase 3's deltas
@@ -1308,7 +1340,7 @@ def plane_histogram(before, after) -> dict:
             "mean_p": planes / launches if launches else None, "by_p": hist}
 
 
-def run_two_nodes(Command, LimiterConfig, rng, udp_backend):
+def run_two_nodes(Command, LimiterConfig, rng, udp_backend, defaults=False):
     """Two port nodes on the card, each 1M x 64, on the UDP backend named,
     peered over loopback in wire mode ``delta`` with frozen clocks: 20,000
     takes over 2,000 names split across them, in chunks of 500 (the first
@@ -1328,7 +1360,14 @@ def run_two_nodes(Command, LimiterConfig, rng, udp_backend):
     before its ack lands and never drains (``scripts/delta_timer.py``
     shows both). The next chunk goes in once the last one's tickets have
     completed and neither node holds an unacked interval; a chunk's drain
-    is held to 30 s."""
+    is held to 30 s.
+
+    Without ``defaults`` the nodes run the asyncio front with the host
+    fast path off (phases 3c, 3e). With it (phase 3g) they run at the
+    defaults — native front, native host store, fast path on — every
+    name is first taken on both nodes, so each node hosts it and its
+    peer's dv2 entries for it reach ``decode_fold`` marked hosted, and
+    the paced takes are 6,000 instead of 20,000."""
     import torch
     from patrol_tpu_torch.net.native_replication import NativeReplicator
     from patrol_tpu_torch.ops import _build
@@ -1344,7 +1383,7 @@ def run_two_nodes(Command, LimiterConfig, rng, udp_backend):
             api_addr="127.0.0.1:0", node_addr=a, peer_addrs=addrs,
             clock=Clock(1_700_000_000 * NANO), config=cfg, handle_signals=False,
             warmup=True, device="cuda", wire_mode="delta", shutdown_timeout_s=30,
-            udp_backend=udp_backend,
+            udp_backend=udp_backend, http_front="native" if defaults else "python",
         )))
     polls = []
     native = udp_backend == "native"
@@ -1366,13 +1405,32 @@ def run_two_nodes(Command, LimiterConfig, rng, udp_backend):
             check(time.perf_counter() < deadline, "the dv2 capability handshake did not complete")
             time.sleep(0.05)
         names = [f"c{i}" for i in range(TWO_NODE_NAMES)]
-        pick = rng.integers(0, len(names), TWO_NODE_TAKES).tolist()
+        # At the defaults a take is served in Python on the calling thread,
+        # and every state it emits rides the delta plane: the phase is
+        # host-bound, so it runs fewer paced takes over the same names.
+        pick = rng.integers(0, len(names), DEFAULTS_TAKES if defaults else TWO_NODE_TAKES).tolist()
         rate = Rate(freq=50, per_ns=3600 * NANO)
         counters0 = profiling.COUNTERS.snapshot()
         planes0 = plane_counts(hist_mod)
         _build.reset_launches()
         t0 = time.perf_counter()
         admitted = http_takes = 0
+        if defaults:
+            check(all(c.native_front is not None and c.engine._native_store is not None
+                      for c in cmds), "the native front and host store were not taken")
+            # Every name taken on both nodes, a few names at a time, one
+            # node right after the other: each binds them fresh, so hosts
+            # them, unless its peer's delta for one lands in between (the
+            # delta plane ships every 20 ms).
+            for lo in range(0, len(names), 8):
+                chunk = names[lo:lo + 8]
+                for c in cmds:
+                    for t, _ in c.repo.submit_takes_batch(chunk, [rate] * len(chunk),
+                                                          [1] * len(chunk)):
+                        check(t.wait(60), "a take ticket never completed")
+                        admitted += t.ok
+            hosted0 = [c.engine.hosted_buckets for c in cmds]
+            prime_s = time.perf_counter() - t0
         drains = []
         window = None
         for ci, lo in enumerate(range(0, len(pick), TWO_NODE_CHUNK)):
@@ -1433,10 +1491,24 @@ def run_two_nodes(Command, LimiterConfig, rng, udp_backend):
         planes = plane_histogram(planes0, plane_counts(hist_mod))
         counters = {k: v - counters0.get(k, 0) for k, v in profiling.COUNTERS.snapshot().items()
                     if k in ("fold_native_ticks", "ingest_raw_pinned_ships",
-                             "ingest_raw_device_dispatches")}
+                             "ingest_raw_device_dispatches", "ingest_raw_hosted_dispatches",
+                             "ingest_raw_hosted_absorbed")}
         stats = [c.replicator.stats() for c in cmds]
-        # Frozen clocks grant no refill, so the converged taken lanes hold
-        # exactly one token per admitted take, whichever node admitted it.
+        hosting = None
+        if defaults:
+            hosting = {
+                "priming_s": prime_s,
+                "hosted_after_priming": hosted0,
+                "hosted_buckets": [c.engine.hosted_buckets for c in cmds],
+                "in_front_takes": [c.engine._native_store.native_takes for c in cmds],
+                "host_takes": [c.engine.host_takes for c in cmds],
+                "promotions": [c.engine.promotions for c in cmds],
+                "demotions": [c.engine.demotions for c in cmds],
+            }
+        # The converged taken lanes hold exactly one token per admitted
+        # take, whichever node admitted it: frozen clocks grant no refill
+        # (an in-front take reads the wall clock, so its refill lands in
+        # the added lanes only).
         taken = sum(st.lane_taken_nt for s in snaps[0] for st in s)
         check(taken == admitted * NANO,
               f"converged taken {taken / NANO} tokens, admitted {admitted} takes")
@@ -1462,8 +1534,13 @@ def run_two_nodes(Command, LimiterConfig, rng, udp_backend):
               f"decode_fold ran at a mean P of {planes['mean_p']} on the native backend")
         check(counters["ingest_raw_pinned_ships"] > 0,
               "no raw batch shipped straight from a pinned ring plane")
+    if defaults:
+        check(counters.get("ingest_raw_hosted_dispatches", 0) > 0,
+              "no decode_fold launch carried a hosted entry")
     return {
         "udp_backend": udp_backend,
+        "defaults": defaults,
+        "hosting": hosting,
         "rx_ring_pinned": pinned,
         "rx_ring": ring,
         "decode_fold_planes": planes,
@@ -1477,6 +1554,10 @@ def run_two_nodes(Command, LimiterConfig, rng, udp_backend):
         "wire_delta_rx_deltas": [s["wire_delta_rx_deltas"] for s in stats],
         "wire_delta_packets_tx": [s["wire_delta_packets_tx"] for s in stats],
         "wire_interval_retransmits": [s["wire_interval_retransmits"] for s in stats],
+        # Interval logs dropped for a peer that fell 64 intervals behind on
+        # acks (the plane then repairs through anti-entropy).
+        "wire_fullstate_fallbacks": [s["wire_fullstate_fallbacks"] for s in stats],
+        "ae_fetches_tx": [s["ae_fetches_tx"] for s in stats],
         "srtt_ticks": [t["srtt_ticks"] for t in timers],
         "retransmit_timeout_ticks": [t["retransmit_timeout_ticks"] for t in timers],
         "drain_s_max": max(drains),
@@ -1492,13 +1573,262 @@ def log_two_nodes(label: str, two: dict) -> None:
     prof = two["profile"]
     log(f"{label}: converged in {two['converge_s']:.2f}s, paced takes {two['takes_s']:.2f}s, "
         f"longest drain {two['drain_s_max']:.2f}s, dv2 rx {two['wire_delta_rx_packets']}, "
-        f"retransmits {two['wire_interval_retransmits']}, srtt ticks {two['srtt_ticks']}, "
+        f"retransmits {two['wire_interval_retransmits']}, fallbacks "
+        f"{two['wire_fullstate_fallbacks']}, srtt ticks {two['srtt_ticks']}, "
         f"launches decode_fold {two['launches']['decode_fold']} tick_join "
         f"{two['launches']['tick_join']} take_n {two['launches']['take_n']}, "
         f"P {json.dumps(two['decode_fold_planes'])}, counters {two['counters']}, "
         f"rx ring {two['rx_ring']}, device busy share (chunks 4..9) "
         f"{prof['device_busy_share']}")
     log(f"{label} profiled window: {json.dumps(prof)}")
+
+
+# -- phase 3f: one node at the defaults (native front, host lanes) ----------
+
+RESIDENCY_NAMES, RESIDENCY_S = 200_000, 3.0
+PROMO_NAMES, PROMO_BURST, PROMO_THRESHOLD = 64, 48, 32
+PROMO_RATE = (40, NANO)  # 40 tokens a second: the burst ends in 429s
+
+
+def residency_paths(rng) -> list:
+    """200,000 ``/take`` paths for ``pt_http_blast`` (which cycles through
+    them in order): half uniform over 200,000 names, half a Zipf(1.25)
+    crowd over 1,000 hot names, interleaved, as phase 3's takes."""
+    ranks = np.arange(1, 1001)
+    pz = ranks ** -1.25
+    pz /= pz.sum()
+    half = RESIDENCY_NAMES // 2
+    uni = rng.integers(0, RESIDENCY_NAMES, half).tolist()
+    hot = rng.choice(1000, half, p=pz).tolist()
+    paths = []
+    for a, b in zip(uni, hot):
+        paths.append(f"/take/f{a}?rate=1000:1s")
+        paths.append(f"/take/f{b}?rate=1000:1s")
+    return paths
+
+
+def run_residency_leg(Command, LimiterConfig, engine_mod, rng) -> dict:
+    """3f, first leg: one node at the defaults — native front, native host
+    store, host fast path on, 1M x 64 on the card — driven by
+    ``pt_http_blast`` (h1 keep-alive, 16 connections x 8 in flight) over
+    :func:`residency_paths`, in two windows of about 3 s:
+
+    * ``cold``: the paths from the first. A bucket's first take crosses the
+      Python pump (and is served from fresh host lanes); a hosted bucket's
+      takes are answered in C++ on the front's epoll thread; only promoted
+      rows would reach take-n.
+    * ``warm``: the paths the cold window answered, again from the first:
+      every bucket is hosted, so this is the front's steady state.
+    * ``warm_1x1``: the same paths over one connection with one request
+      in flight: the latency of an unloaded take (the closed loop's
+      latency above is mostly queueing behind 128 requests in flight).
+
+    → per window: rps, p50/p99 latency, statuses, the take split by path,
+    promotions and launches."""
+    from patrol_tpu_torch import native
+    from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.utils import profiling
+
+    lib = native.load(required=True)
+    paths = residency_paths(rng)
+    node = Node(Command(
+        api_addr="127.0.0.1:0", node_addr=f"127.0.0.1:{free_udp_port()}",
+        config=LimiterConfig(buckets=BUCKETS, nodes=LANES), handle_signals=False,
+        warmup=True, device="cuda",
+    ))
+    out = {}
+    try:
+        cmd = node.cmd
+        eng = cmd.engine
+        check(cmd.native_front is not None, "the native front was not taken by default")
+        check(eng._native_store is not None, "the native host store was not taken by default")
+        check(engine_mod.HOST_FASTPATH, "the host fast path is off")
+        warm = np.zeros(5, np.uint64)
+        lib.pt_http_blast(b"127.0.0.1", cmd.api_port, b"/take/warm?rate=5:1s", 2, 1, 200, warm)
+        targets = "\n".join(paths).encode()
+        for window, conns, depth in (("cold", 16, 8), ("warm", 16, 8), ("warm_1x1", 1, 1)):
+            native0, host0, prom0 = eng._native_store.native_takes, eng._host_takes, eng.promotions
+            dev0 = profiling.COUNTERS.get("take_device_tickets")
+            _build.reset_launches()
+            res5 = np.zeros(5, np.uint64)
+            t0 = time.perf_counter()
+            rc = lib.pt_http_blast(b"127.0.0.1", cmd.api_port, targets, conns, depth,
+                                   int(RESIDENCY_S * 1000), res5)
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"pt_http_blast failed: {rc}")
+            check(eng.flush(60), "flush after the blast timed out")
+            done = int(res5[0])
+            out[window] = {
+                "paths": len(targets.split(b"\n")), "connections": conns, "in_flight": depth,
+                "seconds": wall, "requests": done,
+                "rps": done / wall, "p50_us": int(res5[1]) / 1e3, "p99_us": int(res5[2]) / 1e3,
+                "ok_200": int(res5[3]), "limited_429": int(res5[4]),
+                # The takes the node served, by path (the blast counts only
+                # the answers that came back inside its window).
+                "in_front_takes": eng._native_store.native_takes - native0,
+                "python_host_takes": eng._host_takes - host0,
+                "device_takes": profiling.COUNTERS.get("take_device_tickets") - dev0,
+                "promotions": eng.promotions - prom0, "hosted_buckets": eng.hosted_buckets,
+                "launches": dict(_build.LAUNCHES),
+            }
+            check(done > 0 and out[window]["ok_200"] + out[window]["limited_429"] == done,
+                  f"the blast's answers are not all 200 or 429: {out[window]}")
+            if window == "cold":
+                # The warm windows cycle over the paths the cold one
+                # answered: each was issued, and its bucket bound, in order.
+                targets = "\n".join(paths[:done]).encode()
+        out["front"] = cmd.native_front.stats()
+        out["h2_mode"] = cmd.native_front.h2_mode
+    finally:
+        node.close()
+    check(out["warm"]["in_front_takes"] > 0, "no take was answered in the front")
+    return out
+
+
+def probe_take(eng, name: str, rate, count: int, now: int):
+    """The C++ in-front take path (resolve, residency, ``hls_take_locked``)
+    at an explicit clock; → (remaining, ok), or None when the bucket is not
+    served in front."""
+    import ctypes
+
+    st = eng._native_store
+    raw = name.encode()
+    buf = np.zeros(256, np.uint8)
+    buf[:len(raw)] = np.frombuffer(raw, np.uint8)
+    rem = ctypes.c_int64(0)
+    rc = st.lib.pt_hls_take_probe(st.h, eng.directory._ptdir, buf, len(raw), rate.freq,
+                                  rate.per_ns, count, now, ctypes.byref(rem))
+    return None if rc < 0 else (rem.value, bool(rc))
+
+
+def promotion_sequence(eng, clock, names, rate, record, demote_window_ns):
+    """The promotion/demotion leg's takes, phase by phase at one stepped
+    clock value each (so a replay may batch a phase): bind and host, an
+    in-front burst that crosses the native promote threshold, device takes,
+    an idle window, the take that ends it, then in-front takes again.
+    ``record(phase, name, outcome, path)`` sees every take. → the clock
+    value of each phase."""
+    from patrol_tpu_torch.utils import profiling
+
+    def batch(phase, now):
+        res = eng.submit_takes_batch(names, [rate] * len(names), [1] * len(names), now_ns=now)
+        check(res is not None, "the pool is spent")
+        for name, (t, _) in zip(names, res):
+            check(t.wait(60), "a take ticket never completed")
+            record(phase, name, (t.remaining, t.ok), "pump")
+
+    t0 = clock.now
+    batch("bind", t0)  # fresh rows: served from new host lanes
+    for name in names:
+        for _ in range(PROMO_BURST):
+            got = probe_take(eng, name, rate, 1, t0)
+            path = "front"
+            if got is None:  # promoted mid-burst: the take rides the device
+                t = eng.submit_take(name, rate, 1, now_ns=t0)[0]
+                check(t.wait(60), "a take ticket never completed")
+                got, path = (t.remaining, t.ok), "engine"
+            record("burst", name, got, path)
+    eng.drain_native_promotions()  # the pump does this too; either is fine
+    check(eng.flush(60), "the promotion drain did not finish")
+    t1 = t0 + NANO // 1000
+    clock.now = t1
+    batch("device", t1)  # promoted rows: take-n
+    t2 = t1 + demote_window_ns + 1
+    clock.now = t2
+    batch("wake", t2)  # the feeder demotes first, then serves from the lanes
+    check(eng.flush(60), "flush after the demotion timed out")
+    t3 = t2 + NANO // 1000
+    clock.now = t3
+    for name in names:
+        got = probe_take(eng, name, rate, 1, t3)
+        check(got is not None, f"{name} is not served in front after its demotion")
+        record("front-again", name, got, "front")
+    return [t0, t1, t2, t3]
+
+
+def run_promotion_leg(Command, LimiterConfig, engine_mod) -> dict:
+    """3f, second leg: one node at the defaults but with the promote knobs
+    lowered to a few dozen (``HOST_PROMOTE_TAKES`` on the engine module,
+    ``NATIVE_PROMOTE_TAKES`` on the store, both read when used or made),
+    a stepped clock, and 64 hot names (:func:`promotion_sequence`). Each
+    row must be promoted once (the drain launches the join), take device
+    takes through take-n, be demoted once by the idle window (gather and
+    zero) and be served in front again; the take outcomes and final
+    per-name states (``snapshot``, which reads host lanes) must equal a
+    replay of the same takes on a CPU engine with the fast path off."""
+    from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.ops.rate import Rate
+    from patrol_tpu_torch.runtime import hoststore
+    from patrol_tpu_torch.runtime.engine import DeviceEngine
+
+    names = [f"promo{i}" for i in range(PROMO_NAMES)]
+    rate = Rate(freq=PROMO_RATE[0], per_ns=PROMO_RATE[1])
+    saved = engine_mod.HOST_PROMOTE_TAKES, hoststore.NATIVE_PROMOTE_TAKES
+    engine_mod.HOST_PROMOTE_TAKES = hoststore.NATIVE_PROMOTE_TAKES = PROMO_THRESHOLD
+    clock = Clock(1_700_000_000 * NANO)
+    outcomes = []
+    paths = {}
+    try:
+        node = Node(Command(
+            api_addr="127.0.0.1:0", node_addr=f"127.0.0.1:{free_udp_port()}",
+            config=LimiterConfig(buckets=BUCKETS, nodes=LANES), clock=clock,
+            handle_signals=False, warmup=True, device="cuda",
+        ))
+        try:
+            eng = node.cmd.engine
+            check(eng._native_store is not None, "the native host store was not taken")
+            _build.reset_launches()
+
+            def record(phase, name, got, path):
+                outcomes.append((phase, name, got))
+                paths[path] = paths.get(path, 0) + 1
+
+            steps = promotion_sequence(eng, clock, names, rate, record,
+                                       engine_mod.HOST_DEMOTE_WINDOW_NS)
+            launches = dict(_build.LAUNCHES)
+            counts = {"promotions": eng.promotions, "demotions": eng.demotions,
+                      "promoted_rows_left": len(eng._promoted_rows),
+                      "hosted_buckets": eng.hosted_buckets}
+            gpu_states = [eng.snapshot(n) for n in names]
+        finally:
+            node.close()
+    finally:
+        engine_mod.HOST_PROMOTE_TAKES, hoststore.NATIVE_PROMOTE_TAKES = saved
+    join = launches["pair_join"] + launches["row_join"] + launches["tick_join"]
+    check(counts["promotions"] == PROMO_NAMES,
+          f"{counts['promotions']} promotions for {PROMO_NAMES} hot rows")
+    check(counts["demotions"] == PROMO_NAMES,
+          f"{counts['demotions']} demotions for {PROMO_NAMES} hot rows")
+    check(counts["promoted_rows_left"] == 0, "a promoted row was never demoted")
+    check(join > 0, "the promotion drain launched no join")
+    check(launches["take_n"] > 0, "no take on a promoted row launched take-n")
+    # The replay: the same takes, phase by phase, on a CPU engine with the
+    # host fast path off (every take through take-n's plain version).
+    engine_mod.HOST_FASTPATH = False
+    ceng = DeviceEngine(LimiterConfig(buckets=BUCKETS, nodes=LANES), node_slot=0,
+                        clock=Clock(steps[0]), device="cpu")
+    try:
+        want = []
+        for phase in ("bind", "burst", "device", "wake", "front-again"):
+            now = steps[{"bind": 0, "burst": 0, "device": 1, "wake": 2, "front-again": 3}[phase]]
+            ceng.clock.now = now
+            items = [(n, got) for ph, n, got in outcomes if ph == phase]
+            tickets = [ceng.submit_take(n, rate, 1, now_ns=now)[0] for n, _ in items]
+            for (n, _), t in zip(items, tickets):
+                check(t.wait(60), "a replay ticket never completed")
+                want.append((phase, n, (t.remaining, t.ok)))
+        check(ceng.flush(60), "the replay's flush timed out")
+        cpu_states = [ceng.snapshot(n) for n in names]
+    finally:
+        ceng.stop()
+        engine_mod.HOST_FASTPATH = True
+    bad = sum(a != b for a, b in zip(outcomes, want))
+    check(len(outcomes) == len(want) and bad == 0,
+          f"{bad} of {len(outcomes)} take outcomes differ from the CPU replay")
+    check(gpu_states == cpu_states, "final per-name states differ from the CPU replay")
+    return {"names": PROMO_NAMES, "threshold": PROMO_THRESHOLD, "takes": len(outcomes),
+            "admitted": sum(ok for _, _, (_, ok) in outcomes), "paths": paths,
+            "launches": launches, **counts}
 
 
 def fold_timing(engine_mod, reps: int = 5) -> dict:
@@ -1553,6 +1883,7 @@ def main() -> int:
     from patrol_tpu_torch.ops import join_kernel as jk
     from patrol_tpu_torch.ops import row_rmw_kernel as rk
     from patrol_tpu_torch.ops import take_kernel as tk
+    from patrol_tpu_torch.runtime import engine as engine_mod
     from patrol_tpu_torch.runtime.engine import DeviceEngine
     from patrol_tpu_torch.runtime.repo import TPURepo
     from patrol_tpu_torch.utils import histogram as hist_mod
@@ -1635,14 +1966,19 @@ def main() -> int:
         "row_rmw_bcast": rmw["bcast"], "row_rmw_pairmax": rmw["pairmax"],
     }
 
-    # 3. The main path.
+    # 3. The main path. Phases 3, 3b, 3c and 3e run the asyncio front with
+    # the host fast path off (the engine module's switch, as the tests set
+    # it), as they did before host lanes and the native front became the
+    # defaults, so their numbers stay comparable; 3f and 3g run the
+    # defaults.
+    engine_mod.HOST_FASTPATH = False
     trace = make_trace(np.random.default_rng(7))
     clock_now = 1_700_000_000 * NANO
     cfg = LimiterConfig(buckets=BUCKETS, nodes=LANES)
     cmd = Command(
         api_addr="127.0.0.1:0", node_addr=f"127.0.0.1:{free_udp_port()}",
         clock=Clock(clock_now), config=cfg, handle_signals=False, warmup=True,
-        device="cuda",
+        device="cuda", http_front="python",
     )
     node = Node(cmd)
     try:
@@ -1719,8 +2055,6 @@ def main() -> int:
         "stages": stages,
     }
     report["main_path"] = main
-    from patrol_tpu_torch.runtime import engine as engine_mod
-
     main["fold_timing"] = fold_timing(engine_mod)
     log(f"tick fold, 131,072 deltas over 64 rows: {json.dumps(main['fold_timing'])}")
     print(f"fold_native_ticks {native_folds} fold_hybrid_ns numpy "
@@ -1783,6 +2117,44 @@ def main() -> int:
     print(f"native decode_fold launches {two_n['decode_fold_planes']['launches']} "
           f"mean P {two_n['decode_fold_planes']['mean_p']:.3f} "
           f"P histogram {json.dumps(two_n['decode_fold_planes']['by_p'])}")
+    torch.cuda.empty_cache()
+
+    # 3f. One node at the defaults: the native front, the native host
+    # store, the host fast path on.
+    engine_mod.HOST_FASTPATH = True
+    res_leg = run_residency_leg(Command, LimiterConfig, engine_mod, np.random.default_rng(17))
+    report["residency"] = res_leg
+    log(f"3f residency: {json.dumps(res_leg)}")
+    for window in ("cold", "warm", "warm_1x1"):
+        w = res_leg[window]
+        print(f"native_front {window} rps {w['rps']:.1f} p50_us {w['p50_us']:.1f} p99_us "
+              f"{w['p99_us']:.1f} 200 {w['ok_200']} 429 {w['limited_429']} in_front "
+              f"{w['in_front_takes']} python_host {w['python_host_takes']} device "
+              f"{w['device_takes']} promotions {w['promotions']} take_n "
+              f"{w['launches']['take_n']} join "
+              f"{w['launches']['pair_join'] + w['launches']['row_join'] + w['launches']['tick_join']}")
+    torch.cuda.empty_cache()
+    promo = run_promotion_leg(Command, LimiterConfig, engine_mod)
+    report["promotion"] = promo
+    log(f"3f promotion/demotion: {json.dumps(promo)}")
+    print(f"promotion leg: {promo['promotions']} promoted, {promo['demotions']} demoted, "
+          f"launches {json.dumps(promo['launches'])}, paths {json.dumps(promo['paths'])}, "
+          f"outcomes and states equal the CPU replay")
+    torch.cuda.empty_cache()
+
+    # 3g. Two nodes at the defaults: phase 3c's traffic with every name
+    # hosted on both nodes, on the native UDP backend.
+    two_d = run_two_nodes(Command, LimiterConfig, np.random.default_rng(13), "native",
+                          defaults=True)
+    report["two_nodes_defaults"] = two_d
+    log_two_nodes("3g defaults", two_d)
+    log(f"3g hosting: {json.dumps(two_d['hosting'])}")
+    hosted_launches = two_d["counters"].get("ingest_raw_hosted_dispatches", 0)
+    print(f"defaults two_nodes_converge_s {two_d['converge_s']:.3f} decode_fold launches "
+          f"{two_d['launches']['decode_fold']} ({hosted_launches} with a hosted entry, "
+          f"{two_d['launches']['decode_fold'] - hosted_launches} without), entries absorbed "
+          f"through hosted_mask {two_d['counters'].get('ingest_raw_hosted_absorbed', 0)}")
+    torch.cuda.empty_cache()
 
     # 3d. The probe's entry point on the card: 1M x 256 lanes, K = 8192.
     from patrol_tpu_torch.scripts import probe_dma_scatter as probe_mod
@@ -1861,6 +2233,20 @@ def main() -> int:
                 "p_histogram": two_n["decode_fold_planes"]["by_p"],
                 "launches_asyncio": two["launches"]["decode_fold"],
             })
+        # This slice's paths, each counted from zero around its own run:
+        # the residency leg (3f, defaults), the promotion leg (3f) and the
+        # two nodes at the defaults (3g).
+        for path, counts in (("3f_cold", res_leg["cold"]["launches"]),
+                             ("3f_warm", res_leg["warm"]["launches"]),
+                             ("3f_warm_1x1", res_leg["warm_1x1"]["launches"]),
+                             ("3f_promotion", promo["launches"]),
+                             ("3g", two_d["launches"])):
+            if name in ("pair_join", "row_join", "tick_join"):
+                entry[f"launches_{path}"] = sum(counts[k] for k in ("pair_join", "row_join", "tick_join"))
+            elif name != "row_rmw":
+                entry[f"launches_{path}"] = counts[name]
+        if name == "decode_fold":
+            entry["hosted_launches_3g"] = two_d["counters"].get("ingest_raw_hosted_dispatches", 0)
         if name in ("pair_join", "row_join", "tick_join"):
             entry["wrapper_launches"] = launches[name]
             entry.update({key: m[key] for key in m if key.startswith(("floor_ms", "ms_", "two_"))})

@@ -4,11 +4,11 @@ Flags mirror the JAX package's CLI: ``--api-addr``, ``--node-addr``,
 repeatable ``--peer-addr``, ``--clock-offset``, ``--log-env``,
 ``--buckets`` / ``--node-lanes`` (state shape), plus ``--device``
 (``cuda`` by default, ``cpu`` for the kernels' plain versions),
-``--wire-mode`` and ``--udp-backend`` (``native`` builds the C++ host
-library with g++ and fails if it cannot; ``auto`` takes it when it
-loads, else asyncio). Options whose parts are not ported yet
-(``--http-front native``, ``--mesh-replicas``, ``--checkpoint-dir``) exit
-with a clear error.
+``--wire-mode``, ``--udp-backend`` and ``--http-front`` (``native``
+builds the C++ host library with g++ and exits 1 if it cannot; ``auto``,
+the default, takes it when it loads, else the asyncio path). Options
+whose parts are not ported yet (``--mesh-replicas``,
+``--checkpoint-dir``) exit 2 with a clear error.
 
 Run as ``python -m patrol_tpu_torch [flags]``.
 """
@@ -86,7 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--http-front",
         choices=["auto", "python", "native"],
         default="auto",
-        help="API server: the asyncio front (native is not yet ported)",
+        help="API server: 'native' (the C++ epoll front; answers takes of "
+        "host-resident buckets in C++ and speaks h2c; fails if its library "
+        "does not build), 'python' (asyncio, the protocol reference, also "
+        "the h1 to h2c Upgrade), or 'auto' (native when its library loads)",
     )
     p.add_argument(
         "--shutdown-timeout",
@@ -157,7 +160,7 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         pass
     except NativeBuildError as exc:
-        print(f"--udp-backend native: {exc}", file=sys.stderr)
+        print(f"native host library: {exc}", file=sys.stderr)
         return 1
     return 0
 

@@ -2,13 +2,13 @@
 
 Wires storage (the device engine), replication (UDP: the native
 recvmmsg ``NativeReplicator`` or the asyncio ``Replicator``) and the API
-(HTTP, asyncio front) into one process and supervises them: an asyncio
-task group with signal handling and a graceful-shutdown timeout. Used by
-the CLI and by in-process multi-node harnesses.
+(HTTP: the C++ epoll front of ``net/native_http.py`` or the asyncio one)
+into one process and supervises them: an asyncio task group with signal
+handling and a graceful-shutdown timeout. Used by the CLI and by
+in-process multi-node harnesses.
 
-The native C++ HTTP front, the multi-device mesh engine and checkpoints
-are not ported yet: asking for any of them raises :class:`NotPortedError`
-before anything starts.
+The multi-device mesh engine and checkpoints are not ported yet: asking
+for either raises :class:`NotPortedError` before anything starts.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from patrol_tpu_torch.models.limiter import SMALL, LimiterConfig
 from patrol_tpu_torch.net.api import API, serve
 from patrol_tpu_torch.net.replication import Replicator, SlotTable
 from patrol_tpu_torch.runtime.bucket import ClockFn, system_clock
+from patrol_tpu_torch.runtime import engine as engine_mod
 from patrol_tpu_torch.runtime.engine import DeviceEngine
 from patrol_tpu_torch.runtime.repo import TPURepo
 
@@ -55,7 +56,12 @@ class Command:
     # "full"/"aggregate" (per-take full state) or "compat" (raw own-lane
     # headers for rolling upgrades). See ops/wire.py and net/delta.py.
     wire_mode: str = "delta"
-    # "python" (asyncio) is the only front of this package; "auto" means it.
+    # HTTP front: "native" = the C++ epoll front (net/native_http.py), which
+    # answers takes of host-resident buckets in C++ from the engine's native
+    # host-lane store and speaks h2c (natively with libnghttp2, else spliced
+    # to a loopback asyncio h2 server); raises if the host library does not
+    # build. "python" = the asyncio front, the protocol reference (also the
+    # h1 -> h2c Upgrade). "auto" = native when the library loads, else python.
     http_front: str = "auto"
     checkpoint_dir: Optional[str] = None
     # Build the kernels and launch each once at boot.
@@ -68,6 +74,7 @@ class Command:
     engine: Optional[DeviceEngine] = None
     repo: Optional[TPURepo] = None
     replicator: Optional[object] = None  # Replicator or NativeReplicator
+    native_front: Optional[object] = None  # NativeHTTPFront on the native front
     # Set by run() once every socket is bound and the API is accepting
     # (cleared when run() begins and again after shutdown).
     started: asyncio.Event = dataclasses.field(default_factory=asyncio.Event)
@@ -79,11 +86,8 @@ class Command:
         cannot serve yet."""
         if self.udp_backend not in ("auto", "asyncio", "native"):
             raise ValueError(f"unknown udp backend {self.udp_backend!r}")
-        if self.http_front not in ("auto", "python"):
-            raise NotPortedError(
-                f"--http-front {self.http_front} is not yet ported "
-                "(only the asyncio front is)"
-            )
+        if self.http_front not in ("auto", "native", "python"):
+            raise ValueError(f"unknown http front {self.http_front!r}")
         if self.mesh_replicas > 0:
             raise NotPortedError("--mesh-replicas > 0 is not yet ported")
         if self.checkpoint_dir:
@@ -107,8 +111,20 @@ class Command:
         slots = SlotTable(self.node_addr, self.peer_addrs, max_slots=self.config.nodes)
         node_name = self.node_name or self.node_addr
         hist_mod.set_node_identity(slots.self_slot, node_name)
+        from patrol_tpu_torch.net import native_http
+
+        http_front = self.http_front
+        if http_front == "native":
+            from patrol_tpu_torch import native
+
+            native.load(required=True)  # raises with g++'s error
+        elif http_front == "auto":
+            http_front = "native" if native_http.available() else "python"
         engine = DeviceEngine(
-            self.config, node_slot=slots.self_slot, clock=self.clock, device=self.device
+            self.config, node_slot=slots.self_slot, clock=self.clock, device=self.device,
+            # The native front serves host-resident takes from the C++
+            # store; the asyncio front keeps the Python host lanes.
+            native_host=(http_front == "native"),
         )
         from patrol_tpu_torch.net import native_replication
 
@@ -164,6 +180,10 @@ class Command:
                 "engine_evictions": engine.evictions,
                 "engine_scalar_dropped": engine.scalar_dropped,
                 "engine_pending_completions": engine.pending_completions,
+                "engine_hosted_buckets": engine.hosted_buckets,
+                "engine_host_takes": engine.host_takes,
+                "engine_promotions": engine.promotions,
+                "engine_demotions": engine.demotions,
                 "buckets": len(engine.directory),
                 "node_slot": slots.self_slot,
                 "device": str(engine.device),
@@ -179,9 +199,43 @@ class Command:
         api.audit = replicator.audit
         api.membership = replicator.membership
         host, _, port = self.api_addr.rpartition(":")
-        server = await serve(api, host or "127.0.0.1", int(port))
-        self.api_port = server.sockets[0].getsockname()[1]
+        native_front = None
+        try:
+            if http_front == "native":
+                native_front = native_http.NativeHTTPFront(api, host or "127.0.0.1", int(port))
+                # h2c: the C++ front answers it itself when libnghttp2
+                # loads; otherwise it splices preface-bearing connections
+                # to this loopback asyncio server over the same API.
+                server = await serve(api, "127.0.0.1", 0)
+                h2_port = server.sockets[0].getsockname()[1]
+                native_front.set_h2_backend(h2_port)
+                self.api_port = native_front.port
+                base_stats = stats
+
+                def stats_with_http() -> dict:  # /debug/vars includes the front
+                    return {**base_stats(), **native_front.stats(), "h2_backend_port": h2_port}
+
+                api.stats = stats_with_http
+            else:
+                server = await serve(api, host or "127.0.0.1", int(port))
+                self.api_port = server.sockets[0].getsockname()[1]
+        except BaseException:
+            if native_front is not None:
+                native_front.close()
+            replicator.close()
+            engine.stop()
+            raise
+        log.info(
+            "HTTP front",
+            extra={
+                "requested": self.http_front, "front": http_front,
+                "h2": native_front.h2_mode if native_front else "python",
+                "host_lanes": "native" if engine._native_store is not None
+                else ("python" if engine_mod.HOST_FASTPATH else "off"),
+            },
+        )
         self.engine, self.repo, self.replicator = engine, repo, replicator
+        self.native_front = native_front
 
         if self.handle_signals:
             loop = asyncio.get_running_loop()
@@ -215,6 +269,10 @@ class Command:
                 await asyncio.wait_for(
                     server.wait_closed(), timeout=self.shutdown_timeout_s
                 )
+            # The native front detaches from the host store before the
+            # engine frees it.
+            if native_front is not None:
+                await asyncio.get_running_loop().run_in_executor(None, native_front.close)
             replicator.close()
             engine.stop()
             for handler in (self.log.handlers if self.log else []):

@@ -1500,9 +1500,13 @@ void serve_loop(Server* s) {
             // a transit buffer cleared every event (large h2 bodies are
             // legitimate); its backpressure is the peer-wbuf cap below.
             // Native-h2 conns drain frame-by-frame per event with a 1 MB
-            // frame sanity bound of their own.
+            // frame sanity bound of their own. A conn that opened with the
+            // h2 preface is an h2 conn before its handoff: a client may
+            // send a whole 64 KiB stream window of DATA behind the preface,
+            // and one read can hold all of it.
             if (!c.proxy && c.h2 == nullptr &&
-                c.rbuf.size() > (size_t)kRbufMax * 4) {
+                c.rbuf.size() > (size_t)kRbufMax * 4 &&
+                c.rbuf.compare(0, 16, "PRI * HTTP/2.0\r\n") != 0) {
               closed = true;
               break;
             }

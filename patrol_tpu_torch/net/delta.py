@@ -173,7 +173,8 @@ class DeltaPlane:
         self.max_dirty = max_dirty
         self.advert_ticks = advert_ticks
         self._mu = threading.Lock()
-        # (name, slot) -> wire.DeltaEntry: newest join-decomposition wins.
+        # (name, slot) -> wire.DeltaEntry: the join of the states offered
+        # since the last flush (lanes are monotone).
         self._dirty: Dict[Tuple[str, int], wire.DeltaEntry] = {}
         self._peers: Dict[Addr, _PeerDelta] = {}
         # Raw-ingest plane pool (asyncio backend / P=1 packets): reusable
@@ -340,13 +341,25 @@ class DeltaPlane:
                 if not self.eligible(st):
                     leftover.append(st)
                     continue
-                self._dirty[(st.name, st.origin_slot)] = wire.DeltaEntry(
+                key = (st.name, st.origin_slot)
+                prev = self._dirty.get(key)
+                added, taken = st.lane_added_nt, st.lane_taken_nt
+                elapsed, cap = max(st.elapsed_ns, 0), st.cap_nt
+                if prev is not None:
+                    # Lanes are monotone: keep the join of every state
+                    # offered since the last flush. Emitters may offer out
+                    # of order (a host-lane take and the native front's
+                    # drain each emit after releasing the lanes' lock), and
+                    # an older state must not replace a newer one.
+                    added, taken = max(added, prev.added_nt), max(taken, prev.taken_nt)
+                    elapsed, cap = max(elapsed, prev.elapsed_ns), max(cap, prev.cap_nt)
+                self._dirty[key] = wire.DeltaEntry(
                     name=st.name,
                     slot=st.origin_slot,
-                    cap_nt=st.cap_nt,
-                    added_nt=st.lane_added_nt,
-                    taken_nt=st.lane_taken_nt,
-                    elapsed_ns=max(st.elapsed_ns, 0),
+                    cap_nt=cap,
+                    added_nt=added,
+                    taken_nt=taken,
+                    elapsed_ns=elapsed,
                 )
             overflow = len(self._dirty) >= self.max_dirty
         if overflow:

@@ -18,7 +18,7 @@ them; :mod:`patrol_tpu_torch.ops.ingest` (the host half) imports them.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -150,6 +150,33 @@ def check_bulk_copy(planes: torch.Tensor) -> None:
         )
 
 
+def output_bytes(P: int, E: int) -> int:
+    """Size of the one uint8 buffer that holds a launch's outputs: the
+    five decoded fields (int64[5, P, E]) first, then the two masks
+    (bool[2, P, E]: ``entry_ok``, ``hosted_mask``), then ``ok`` (bool[P]).
+    Its first ``42 * P * E`` bytes, fields and masks, come back to the
+    host with one copy."""
+    return 42 * P * E + P
+
+
+def split_outputs(buf, P: int, E: int):
+    """→ ``(ok[P], masks[2, P, E], fields[5, P, E])``: views into a buffer
+    of :func:`output_bytes` laid out as that function says (a uint8 tensor
+    or numpy array)."""
+    f, m = 40 * P * E, 42 * P * E
+    if isinstance(buf, torch.Tensor):
+        return (
+            buf[m:m + P].view(torch.bool),
+            buf[f:m].view(torch.bool).view(2, P, E),
+            buf[:f].view(torch.int64).view(5, P, E),
+        )
+    return (
+        buf[m:m + P].view(bool),
+        buf[f:m].view(bool).reshape(2, P, E),
+        buf[:f].view("int64").reshape(5, P, E),
+    )
+
+
 def decode_fold(
     pn: torch.Tensor,
     elapsed: torch.Tensor,
@@ -158,6 +185,7 @@ def decode_fold(
     entry_off: torch.Tensor,
     rows: torch.Tensor,
     hosted: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
 ) -> Outputs:
     """Decode P raw dv2 datagrams and fold them into state, in place.
 
@@ -177,7 +205,12 @@ def decode_fold(
     entry_ok ∧ hosted``. The five decoded fields are int64[P, E] and are
     defined only where ``entry_ok`` holds (elsewhere they are scratch).
     Every ``entry_ok ∧ ¬hosted`` entry max-joins ``(added, taken)`` into
-    ``pn[row, slot]`` and ``max(elapsed_e, 0)`` into ``elapsed[row]``."""
+    ``pn[row, slot]`` and ``max(elapsed_e, 0)`` into ``elapsed[row]``.
+
+    ``out``, when given, is a uint8 buffer of :func:`output_bytes` on the
+    state's device: the outputs are written there and returned as views
+    of it (see :func:`split_outputs`), so a caller reads the masks and
+    fields back with one copy."""
     dev = _check_state(pn, elapsed)
     _build.check_operand("planes", planes, torch.uint8, dev)
     _build.check_operand("lengths", lengths, torch.int32, dev)
@@ -195,12 +228,27 @@ def decode_fold(
             raise ValueError(f"{name} must be [{P}, {E}], got {tuple(t.shape)}")
     if tuple(lengths.shape) != (P,):
         raise ValueError(f"lengths must be [{P}], got {tuple(lengths.shape)}")
+    if out is not None and (
+        out.dtype != torch.uint8 or out.device != dev or not out.is_contiguous()
+        or tuple(out.shape) != (output_bytes(P, E),)
+    ):
+        raise ValueError(
+            f"out must be contiguous uint8[{output_bytes(P, E)}] on {dev}, got "
+            f"{out.dtype}{tuple(out.shape)} on {out.device}"
+        )
     if dev.type == "cpu":
-        return decode_fold_plain(pn, elapsed, planes, lengths, entry_off, rows, hosted)
+        res = decode_fold_plain(pn, elapsed, planes, lengths, entry_off, rows, hosted)
+        if out is None:
+            return res
+        ok, masks, fields = split_outputs(out, P, E)
+        views = (ok, masks[0], masks[1], *fields.unbind(0))
+        for dst, src in zip(views, res):
+            dst.copy_(src)
+        return views
     check_bulk_copy(planes)
-    ok = torch.empty(P, dtype=torch.bool, device=dev)
-    masks = torch.empty((2, P, E), dtype=torch.bool, device=dev)
-    fields = torch.empty((5, P, E), dtype=torch.int64, device=dev)
+    if out is None:
+        out = torch.empty(output_bytes(P, E), dtype=torch.uint8, device=dev)
+    ok, masks, fields = split_outputs(out, P, E)
     if P == 0:
         return (ok, masks[0], masks[1], *fields.unbind(0))
     b, n, _ = pn.shape

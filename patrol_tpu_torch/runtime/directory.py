@@ -104,6 +104,9 @@ class BucketDirectory:
         self._names: list = [None] * capacity
         self._next_fresh = 0  # bump allocator; recycling kicks in when spent
         self._free: list = []  # explicitly released rows
+        # The native host-lane store keeps pointers to these three arrays
+        # (pt_hls_create) for its in-front takes: they are allocated once,
+        # at capacity, and never rebound.
         self.created_ns = np.zeros(capacity, dtype=np.int64)
         self.cap_base_nt = np.zeros(capacity, dtype=np.int64)
         self.last_used_ns = np.zeros(capacity, dtype=np.int64)

@@ -23,7 +23,8 @@ goes to the device's default stream, so launches that mutate state run in
 the order they were issued (under ``_state_mu``); a row recycled by
 eviction is zeroed behind any fold already queued for it.
 
-The feeder never synchronises with the device. Each take tick enqueues
+The feeder never synchronises with the device (but for the one gather of
+an idle demotion, see below). Each take tick enqueues
 ONE non-blocking device→host copy of its ``[7, K]`` result matrix into
 pinned memory right behind the kernel and records a CUDA event; the
 completer waits on that event, reads the results and fans them out, so
@@ -41,15 +42,30 @@ one tick to preserve the unique-rows kernel invariant.
 The tick fold runs in C++ (``pt_fold_hybrid``) for large clustered
 batches and in numpy otherwise (:func:`fold_hybrid`).
 
-Not part of this package yet, and absent here: the host fast path (host
-lanes, promotion, demotion), lifecycle GC and the memory budget (so no
-tombstone re-seeds), and the certified GCRA / concurrency / quota
-families (their entry points raise ``NotImplementedError``).
+Host fast path (``HOST_FASTPATH``, on unless ``PATROL_HOST_FASTPATH=0``):
+a fresh or host-resident bucket is served in-process from its
+:class:`HostLanes` (numpy and integer arithmetic, step for step the
+take-n kernel), with no launch at all. Rx deltas for a hosted row
+max-join into its lanes (on the raw path, driven by the ``decode_fold``
+kernel's ``hosted_mask``). A bucket past ``HOST_PROMOTE_TAKES`` takes or
+absorbed rx deltas per window, or hit by a scalar (v1) delta, is promoted:
+the feeder joins its lanes into the device planes through the join
+kernel before the same tick's take-n launch. A promoted row that stays
+quiet for a demote window moves back (one gather seeds its lanes, then
+its device row is zeroed). With ``native_host=True`` the lanes live in
+the C++ store of ``runtime/hoststore.py``, which the native HTTP front
+serves takes from without entering Python.
+
+Not part of this package yet, and absent here: lifecycle GC and the
+memory budget (so no tombstone re-seeds), and the certified GCRA /
+concurrency / quota families (their entry points raise
+``NotImplementedError``).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 import threading
 import time
@@ -80,6 +96,7 @@ from patrol_tpu_torch.ops.rate import Rate
 from patrol_tpu_torch.ops.take import (
     TAKE_PACK_ROWS,
     TAKE_RESULT_ROWS,
+    remaining_for_request,
     split_grant,
     take_n_batch,
 )
@@ -124,6 +141,30 @@ DEVICE_TIMING = os.environ.get("PATROL_DEVICE_TIMING", "1") != "0"
 # patrol-audit (net/audit.py): the admitted-token audit window. 0 = manual
 # windows (tests close them via roll(force=True)).
 AUDIT_WINDOW_NS = int(float(os.environ.get("PATROL_AUDIT_WINDOW_MS", 5000)) * 1e6)
+
+# Host fast path: serve cold and low-QPS buckets from an in-process lane
+# model (HostLanes), with no device launch, and promote a bucket to the
+# device path when it gets hot. Module globals, read at call time, so
+# tests monkeypatch them.
+HOST_FASTPATH = os.environ.get("PATROL_HOST_FASTPATH", "1") != "0"
+# Promote when a bucket sees more than this many host takes (or absorbed
+# rx deltas) inside one window: below that rate one bucket's takes are
+# cheaper in-process than through a device tick.
+HOST_PROMOTE_TAKES = int(os.environ.get("PATROL_HOST_PROMOTE_TAKES", 4096))
+HOST_PROMOTE_WINDOW_NS = int(
+    float(os.environ.get("PATROL_HOST_PROMOTE_WINDOW_MS", 100)) * 1e6
+)
+# Idle demotion: a promoted bucket whose device-path takes fall below this
+# count per demote window moves back to host residency (exact: gather the
+# row, seed host lanes, zero the device row). The demote rate sits ~8x
+# below the promote rate (a quarter of the takes over twice the window),
+# so residency cannot flap on a steady workload.
+HOST_DEMOTE_TAKES = int(
+    os.environ.get("PATROL_HOST_DEMOTE_TAKES", max(HOST_PROMOTE_TAKES // 4, 1))
+)
+HOST_DEMOTE_WINDOW_NS = int(
+    float(os.environ.get("PATROL_HOST_DEMOTE_WINDOW_MS", 200)) * 1e6
+)
 
 BroadcastFn = Callable[[List[wire.WireState]], None]
 
@@ -289,6 +330,83 @@ class AuditLedger:
                     )
                 )
             return self._window, out
+
+
+class HostLanes:
+    """Host-resident PN lanes of one bucket row: the fast-path twin of one
+    row of ``LimiterState`` (int64 nanotoken lanes and the elapsed
+    G-counter), plus the promotion window's counters. All mutation happens
+    under the engine's ``_host_mu``.
+
+    :meth:`take` is the take-n kernel's step for one row with ``nreq=1``,
+    step for step: lazy capacity base, monotonic-time guard, float64
+    refill grant, floor, capacity clamp (possibly negative, booked as a
+    forfeit), conditional commit. So a bucket answers the same whether it
+    is served here or on the device, and the promotion join (lanes are
+    monotone, max-merged) is exact."""
+
+    __slots__ = (
+        "added", "taken", "elapsed_ns", "win_start_ns", "win_takes", "win_rx"
+    )
+
+    def __init__(self, nodes: int):
+        self.added = np.zeros(nodes, np.int64)
+        self.taken = np.zeros(nodes, np.int64)
+        self.elapsed_ns = 0
+        self.win_start_ns = 0
+        self.win_takes = 0
+        self.win_rx = 0  # rx deltas absorbed this window (promotion signal)
+
+    def roll_window(self, now_ns: int) -> None:
+        """Reset the promotion window when it lapsed. Both counters roll
+        together: an rx count that survived take-window rolls would count
+        one peer echo per take and promote every replicated bucket after
+        HOST_PROMOTE_TAKES takes in total, at any rate."""
+        if now_ns - self.win_start_ns > HOST_PROMOTE_WINDOW_NS:
+            self.win_start_ns = now_ns
+            self.win_takes = 0
+            self.win_rx = 0
+
+    def take(
+        self,
+        cap_base_nt: int,
+        created_ns: int,
+        now_ns: int,
+        rate: Rate,
+        count: int,
+        node_slot: int,
+    ) -> Tuple[int, bool]:
+        """One take; → (remaining_tokens, ok), as take-n with nreq=1."""
+        cap_now_nt = rate.freq * NANO
+        sum_a = int(self.added.sum())
+        sum_t = int(self.taken.sum())
+        tokens_nt = cap_base_nt + sum_a - sum_t
+
+        last = min(created_ns + self.elapsed_ns, now_ns)
+        delta = now_ns - last
+
+        interval = rate.per_ns // rate.freq if rate.freq else 0
+        if rate.freq == 0 or rate.per_ns == 0 or interval == 0:
+            grant_nt = 0
+        else:
+            # float64(delta)/float64(interval) tokens, then x1e9, floored:
+            # the kernel's expression in the kernel's order.
+            grant_f = (float(delta) / float(interval)) * float(NANO)
+            grant_nt = math.floor(min(max(grant_f, 0.0), float(2**62)))
+        grant_nt = min(grant_nt, cap_now_nt - tokens_nt)
+
+        have_nt = tokens_nt + grant_nt
+        count_nt = count * NANO
+        if count_nt > 0:
+            k = min(max(have_nt // count_nt, 0), 1)
+        else:
+            k = 0
+        if k >= 1:
+            forfeit = max(-grant_nt, 0)
+            self.added[node_slot] += max(grant_nt, 0)
+            self.taken[node_slot] += count_nt + forfeit
+            self.elapsed_ns += delta
+        return remaining_for_request(have_nt, k, count_nt, 0)
 
 
 class TakeTicket:
@@ -675,7 +793,9 @@ class DeviceEngine:
 
     ``device`` defaults to ``"cuda"``; pass ``"cpu"`` to run the plain
     versions of the kernels on the host (the tests do). Asking for CUDA
-    without a card raises."""
+    without a card raises. ``native_host=True`` keeps the host lanes in
+    the C++ store (``runtime/hoststore.py``) when the host library loads,
+    so the native HTTP front serves host-resident takes in C++."""
 
     # Raw-plane ingest (ops/ingest.py; the delta plane routes wire-v2
     # datagrams to ingest_raw_planes when set) and the inline interval
@@ -692,6 +812,7 @@ class DeviceEngine:
         clock: ClockFn = system_clock,
         on_broadcast: Optional[BroadcastFn] = None,
         device="cuda",
+        native_host: bool = False,
     ):
         self.config = config
         self.node_slot = node_slot
@@ -742,10 +863,51 @@ class DeviceEngine:
         self._staging = StagingPool(pin=self._cuda)
         # One all-false ``hosted`` operand per raw-ingest entry width E on
         # the device (under _state_mu), as many planes deep as the widest
-        # batch yet; a launch reads its [:P] prefix. The kernel only reads
-        # it, so it is made once instead of zeroed (one more launch) per
-        # batch.
+        # batch yet; a launch with no host-resident entry reads its [:P]
+        # prefix. The kernel only reads it, so it is made once instead of
+        # zeroed (one more launch) per batch.
         self._no_hosted: Dict[int, torch.Tensor] = {}
+        # Host fast path: row → HostLanes of the buckets served in-process.
+        # The flag array is the vectorized residency probe of the rx paths;
+        # dict and flags change together, under _host_mu, as do
+        # _promote_pending (rows the feeder's next tick promotes) and
+        # _promoting (lanes popped by a promotion drain whose device join
+        # has not landed yet: readers join them, so the spend is never in
+        # neither place).
+        self._hosted: Dict[int, HostLanes] = {}
+        self._hosted_flag = np.zeros(config.buckets, dtype=bool)
+        self._promote_pending: set = set()
+        self._promoting: Dict[int, HostLanes] = {}
+        self._host_mu = threading.Lock()
+        # Native host-lane store: the lanes live in C++ blocks the native
+        # HTTP front serves takes from without entering Python; the engine
+        # sees the same bytes through numpy views, and _host_mu becomes
+        # the store's mutex, so both sides serialize on one lock.
+        self._native_store = None
+        if native_host and HOST_FASTPATH:
+            from patrol_tpu_torch.runtime import hoststore
+
+            # The epoll thread's clock is CLOCK_REALTIME plus the injected
+            # clock's offset at init (exact for the CLI's offset clocks).
+            self._native_store = hoststore.NativeHostStore.create(
+                nodes=config.nodes,
+                node_slot=node_slot,
+                directory=self.directory,
+                clock_offset_ns=int(self.clock()) - time.time_ns(),
+                window_ns=HOST_PROMOTE_WINDOW_NS,
+            )
+            if self._native_store is not None:
+                self._host_mu = self._native_store.mutex()
+        self._host_takes = 0  # takes served by the Python host path
+        self._promotions = 0  # host → device residency transitions
+        self._demotions = 0  # device → host residency transitions (idle)
+        # Idle demotion (feeder): promoted rows still bound, their promotion
+        # clock time, device-path takes per row in the current demote
+        # window, and the window's start.
+        self._promoted_rows: set = set()
+        self._promoted_at: Dict[int, int] = {}
+        self._dev_window: Dict[int, int] = {}
+        self._demote_win_start: Optional[int] = None
         self._dispatch_ahead = DISPATCH_AHEAD
         self._commit_row_ns_ewma = 0.0
         self._commit_blocks = COMMIT_BLOCKS
@@ -766,6 +928,7 @@ class DeviceEngine:
         victims = self.directory.pick_victims(max(need, swath))
         if victims.size == 0:
             return 0
+        self._drop_hosted_rows(victims)
         rows = torch.from_numpy(victims.astype(np.int64)).to(self.device)
         with self._state_mu:
             merge_mod.zero_rows(self.state, rows)
@@ -835,7 +998,9 @@ class DeviceEngine:
         self, name: str, rate: Rate, count: int, now_ns: Optional[int] = None
     ) -> Tuple[TakeTicket, bool]:
         """Queue a take; returns (ticket, created). ``created`` is the
-        get-or-create miss signal that triggers incast."""
+        get-or-create miss signal that triggers incast. A fresh or
+        host-resident bucket is served in-process and the ticket comes back
+        completed."""
         now = self.clock() if now_ns is None else now_ns
         row, fresh = self._assign_pinned(name, now)
         # First *local* take on the row (capacity still unset) counts as a
@@ -843,11 +1008,467 @@ class DeviceEngine:
         created = fresh or int(self.directory.cap_base_nt[row]) == 0
         self.directory.init_cap_base(row, rate.freq * NANO)
         self.directory.note_rate(row, rate.per_ns)
+        if HOST_FASTPATH and (fresh or self._hosted_flag[row]):
+            ticket = self._try_host_take(name, row, rate, count, now, fresh)
+            if ticket is not None:
+                return ticket, created
         ticket = TakeTicket(name, row, rate, count, now)
         with self._cond:
             self._enqueue_take_locked(ticket)
             self._cond.notify()
         return ticket, created
+
+    # -- host fast path -----------------------------------------------------
+
+    def _try_host_take(
+        self,
+        name: str,
+        row: int,
+        rate: Rate,
+        count: int,
+        now: int,
+        fresh: bool,
+        out_broadcasts: Optional[List[wire.WireState]] = None,
+    ) -> Optional[TakeTicket]:
+        """Serve one take from the host lanes; → the completed ticket, or
+        None when the row is (or just became) device-resident and the
+        caller takes the device path."""
+        ticket = TakeTicket(name, row, rate, count, now)
+        served = self._host_serve_ticket(ticket, fresh, out_broadcasts)
+        return ticket if served else None
+
+    def _host_serve_ticket(
+        self,
+        ticket: TakeTicket,
+        fresh: bool,
+        out_broadcasts: Optional[List[wire.WireState]] = None,
+    ) -> bool:
+        """Complete a ticket from the host lanes; False ⇒ the row is
+        device-resident and the caller keeps the device path. A bucket
+        whose window passes HOST_PROMOTE_TAKES is marked for promotion
+        here. Batch callers pass ``out_broadcasts`` so a whole batch fans
+        out through one ``on_broadcast`` call.
+
+        Known creation race, accepted as in the reference: between the
+        directory bind and the flag flip, a concurrent rx delta or take on
+        the same brand-new name can route to the device row, which the
+        host lanes do not read; the promotion max-join then keeps the
+        larger of the two own-lane debits. Closing it would need bind and
+        host atomic across the directory and host locks, whose order would
+        deadlock against eviction (_evict_mu, then _host_mu)."""
+        row, rate, now = ticket.row, ticket.rate, ticket.now_ns
+        with self._host_mu:
+            lanes = self._hosted.get(row)
+            if lanes is None:
+                if not fresh:
+                    return False  # promoted by a concurrent rx or take
+                if self._native_store is not None:
+                    # A C++ block (we hold _host_mu, the store's mutex):
+                    # from here the epoll thread serves this row in front.
+                    lanes = self._native_store.host_locked(row)
+                else:
+                    lanes = HostLanes(self.config.nodes)
+                self._hosted[row] = lanes
+                self._hosted_flag[row] = True
+            lanes.roll_window(now)
+            lanes.win_takes += 1
+            # The cap is read while the caller's pin still holds the row:
+            # after the unpin below an eviction could re-bind it.
+            cap = int(self.directory.cap_base_nt[row])
+            remaining, ok = lanes.take(
+                cap, int(self.directory.created_ns[row]), now, rate,
+                ticket.count, self.node_slot,
+            )
+            self._host_takes += 1
+            own_a = int(lanes.added[self.node_slot])
+            own_t = int(lanes.taken[self.node_slot])
+            sum_a = int(lanes.added.sum())
+            sum_t = int(lanes.taken.sum())
+            elapsed = lanes.elapsed_ns
+            if lanes.win_takes > HOST_PROMOTE_TAKES:
+                self._promote_locked(row)
+        if ticket.complete(remaining, ok):
+            self.directory.unpin_rows([row])
+        done_ns = time.perf_counter_ns()
+        hist.TAKE_SERVICE.record(done_ns - ticket.t0_ns)
+        if ok:
+            # patrol-audit: the admitted tokens go into the open window.
+            self._audit.note(ticket.name, ticket.count * NANO, cap, rate.per_ns, now)
+        if ticket.trace_id:
+            trace_mod.SPANS.add(
+                ticket.trace_id, self.node_slot, "take", ticket.name,
+                ticket.t0_ns, done_ns - ticket.t0_ns,
+            )
+            tr = trace_mod.TRACE
+            if tr.enabled:
+                tr.record(trace_mod.EV_TAKE, done_ns - ticket.t0_ns, 1)
+        # Replicate as the device completion does (an all-zero state is the
+        # incast request marker and never broadcasts).
+        if (own_a or own_t or elapsed or cap) and self.on_broadcast is not None:
+            ws = wire.from_nanotokens(
+                ticket.name, cap + sum_a, sum_t, elapsed,
+                origin_slot=self.node_slot, cap_nt=cap,
+                lane_added_nt=own_a, lane_taken_nt=own_t,
+                trace_id=ticket.trace_id,
+            )
+            if out_broadcasts is not None:
+                out_broadcasts.append(ws)
+            else:
+                self._emit_broadcasts([ws])
+        return True
+
+    def _promote_locked(self, row: int) -> None:
+        """Mark a bucket for promotion (caller holds ``_host_mu``). The row
+        keeps serving host-side until the feeder's next tick joins every
+        pending row's lanes in one batched launch (:meth:`_drain_promotions`)
+        before that tick's own launches, so no device round trip runs
+        under ``_host_mu`` and a take routed device-ward after the flag
+        flips always runs against the joined planes."""
+        if row in self._hosted:
+            self._promote_pending.add(row)
+            with self._cond:
+                self._cond.notify()
+
+    def _drain_promotions(self) -> None:
+        """Complete pending promotions: pop the lanes and flip the flags
+        under ``_host_mu``, then join them into the device planes under
+        ``_state_mu``. Callers: the feeder at tick start (before _apply, so
+        the tick's take-n launch follows the join on the same stream) and
+        :meth:`flush_hosted` on a stopped engine. The pop → join window
+        runs under ``_evict_mu``: an eviction in between would zero and
+        recycle the row, and the join would then resurrect the dead
+        bucket's lanes into the next bucket bound there."""
+        with self._host_mu:
+            if not self._promote_pending:
+                return
+        with self._evict_mu:
+            self._drain_promotions_locked()
+
+    def _drain_promotions_locked(self) -> None:
+        """Body of :meth:`_drain_promotions`; caller holds ``_evict_mu``."""
+        with self._host_mu:
+            if not self._promote_pending:
+                return
+            popped: List[Tuple[int, HostLanes]] = []
+            for row in self._promote_pending:
+                lanes = self._hosted.pop(row, None)
+                self._hosted_flag[row] = False
+                if self._native_store is not None:
+                    # Stop in-front serving in the same critical section
+                    # (the block's data stays valid for the join below).
+                    self._native_store.unhost_locked(row)
+                if lanes is not None:
+                    self._promotions += 1
+                    popped.append((row, lanes))
+                    self._promoted_rows.add(row)  # idle-demotion candidate
+                    self._promoted_at[row] = self.clock()
+                    self._promoting[row] = lanes
+            self._promote_pending.clear()
+        if not popped:
+            return
+        rows_l: List[int] = []
+        slots_l: List[int] = []
+        added_l: List[int] = []
+        taken_l: List[int] = []
+        elapsed_l: List[int] = []
+        for row, lanes in popped:
+            slots = np.flatnonzero(lanes.added | lanes.taken)
+            if slots.size == 0 and not lanes.elapsed_ns:
+                continue
+            if slots.size == 0:
+                slots = np.array([self.node_slot])
+            for slot in slots:
+                rows_l.append(row)
+                slots_l.append(int(slot))
+                added_l.append(int(lanes.added[slot]))
+                taken_l.append(int(lanes.taken[slot]))
+                elapsed_l.append(lanes.elapsed_ns)
+        for lo in range(0, len(rows_l), MAX_MERGE_ROWS):
+            hi = lo + MAX_MERGE_ROWS
+            n = len(rows_l[lo:hi])
+            buf = self._staging.lease((5, _pad_size(n)))
+            packed = buf.numpy()
+            packed[:] = 0  # padding: (row 0, slot 0, zeros) is a no-op max
+            packed[0, :n] = rows_l[lo:hi]
+            packed[1, :n] = slots_l[lo:hi]
+            packed[2, :n] = added_l[lo:hi]
+            packed[3, :n] = taken_l[lo:hi]
+            packed[4, :n] = elapsed_l[lo:hi]
+            dev = self._ship(buf)
+            with self._state_mu:
+                merge_batch(self.state, MergeBatch(*dev.unbind(0)))
+            self._ticks += 1
+        # Every join is queued on the stream ahead of any later read, so
+        # the staged lanes may go (pop: an eviction may have dropped some).
+        with self._host_mu:
+            for row, _lanes in popped:
+                self._promoting.pop(row, None)
+
+    def _host_absorb_ingest(
+        self,
+        rows: np.ndarray,
+        slots: np.ndarray,
+        added: np.ndarray,
+        taken: np.ndarray,
+        elapsed: np.ndarray,
+        scalar,
+    ) -> Optional[np.ndarray]:
+        """Fold rx deltas addressed to host-resident rows into their lanes
+        (the elementwise max-join the device computes, so exact). → a
+        keep-mask for the caller's chunk (False ⇒ absorbed here; the caller
+        unpins those rows), or None when nothing in the chunk is hosted.
+
+        Absorb, not promote: in a cluster a bucket's own state is echoed
+        back within one round trip, so promoting on any rx would end every
+        hosted bucket after its first take. A scalar (v1) delta, which
+        needs the device's deficit attribution, promotes the row and rides
+        the tick; so does rx pressure past HOST_PROMOTE_TAKES a window."""
+        if not self._hosted:
+            return None
+        keep = np.ones(len(rows), dtype=bool)
+        now = self.clock()
+        with self._host_mu:
+            # The residency mask is read under the lock: an idle demotion
+            # flips flags inside its own _host_mu section after checking
+            # pins, and our caller pinned these rows first, so a row is
+            # either seen hosted here or skipped by the demotion.
+            mask = self._hosted_flag[rows]
+            if not mask.any():
+                return None
+            for i in np.flatnonzero(mask):
+                row = int(rows[i])
+                lanes = self._hosted.get(row)
+                if lanes is None:
+                    continue  # promoted since the mask was read: keep
+                if scalar is not None and scalar[i]:
+                    # The delta rides the tick; the feeder joins the lanes
+                    # (_drain_promotions) before applying it.
+                    self._promote_locked(row)
+                    continue
+                slot = int(slots[i])
+                if lanes.added[slot] < added[i]:
+                    lanes.added[slot] = added[i]
+                if lanes.taken[slot] < taken[i]:
+                    lanes.taken[slot] = taken[i]
+                if lanes.elapsed_ns < elapsed[i]:
+                    lanes.elapsed_ns = int(elapsed[i])
+                keep[i] = False
+                lanes.roll_window(now)
+                lanes.win_rx += 1
+                if lanes.win_rx > HOST_PROMOTE_TAKES:
+                    self._promote_locked(row)
+        return keep
+
+    def _drop_hosted_rows(self, rows) -> None:
+        """Forget host-side state of rows leaving service (eviction,
+        release): after the unbind and before the recycle, or a later bind
+        of the row would inherit a dead bucket's lanes."""
+        if not self._hosted and not self._promoted_rows and not self._promoting:
+            return
+        with self._host_mu:
+            for row in rows:
+                row = int(row)
+                self._promoted_rows.discard(row)
+                self._promoted_at.pop(row, None)
+                if self._hosted_flag[row]:
+                    self._hosted.pop(row, None)
+                    self._hosted_flag[row] = False
+                    if self._native_store is not None:
+                        self._native_store.unhost_locked(row)
+                # A stale pending entry would promote the next bucket bound
+                # here; a staged one would show the dead bucket's lanes.
+                self._promote_pending.discard(row)
+                self._promoting.pop(row, None)
+
+    def _maybe_demote(self, tickets, deltas) -> None:
+        """Feeder only: at the demote window's rollover, move quiet
+        promoted rows back to host residency. Exact: the rows' device
+        state is gathered into fresh lanes, the flags flip, then the device
+        rows are zeroed (a read in between max-joins equal values).
+
+        Safety against concurrent work: rows with deltas in this tick's
+        hands are skipped; any other queued or in-flight work holds a
+        directory pin, so a row qualifies only while its pins equal those
+        of this tick's own tickets (which the re-route then serves from
+        the host). The pin re-check runs under ``_host_mu``, where every rx
+        path reads residency; the gather → flip → zero runs under
+        ``_evict_mu``, so no eviction or release recycles a row
+        mid-demotion."""
+        if not HOST_FASTPATH:
+            return
+        now = self.clock()
+        if self._demote_win_start is None:
+            self._demote_win_start = now
+            return
+        if now - self._demote_win_start <= HOST_DEMOTE_WINDOW_NS:
+            return
+        counts, self._dev_window = self._dev_window, {}
+        self._demote_win_start = now
+        with self._host_mu:
+            # A row must have been device-resident for one whole window: a
+            # row promoted mid-window has only a truncated count.
+            cands = [
+                r for r in self._promoted_rows
+                if counts.get(r, 0) < HOST_DEMOTE_TAKES
+                and now - self._promoted_at.get(r, now) >= HOST_DEMOTE_WINDOW_NS
+            ]
+        if not cands:
+            return
+        own_pins: Dict[int, int] = {}
+        for t in tickets:
+            own_pins[t.row] = own_pins.get(t.row, 0) + 1
+        delta_rows = set(int(r) for r in deltas.rows) if deltas is not None else set()
+        with self._evict_mu:
+            elig = []
+            for row in cands:
+                if row in delta_rows:
+                    continue
+                if not self.directory._bound[row]:
+                    self._promoted_rows.discard(row)
+                    self._promoted_at.pop(row, None)
+                    continue
+                if int(self.directory.pins[row]) != own_pins.get(row, 0):
+                    continue  # queued work beyond this tick pins the row
+                elig.append(row)
+            if not elig:
+                return
+            pn, el = self.read_rows(elig)  # one gather
+            demoted: List[int] = []
+            with self._host_mu:
+                for i, row in enumerate(elig):
+                    if int(self.directory.pins[row]) != own_pins.get(row, 0):
+                        continue  # pinned since the outer check
+                    if self._hosted_flag[row]:
+                        continue
+                    if self._native_store is not None:
+                        lanes = self._native_store.host_locked(row)
+                    else:
+                        lanes = HostLanes(self.config.nodes)
+                    lanes.added[:] = pn[i][:, 0]
+                    lanes.taken[:] = pn[i][:, 1]
+                    lanes.elapsed_ns = int(el[i])
+                    lanes.win_start_ns = now
+                    self._hosted[row] = lanes
+                    self._hosted_flag[row] = True
+                    self._promoted_rows.discard(row)
+                    self._promoted_at.pop(row, None)
+                    demoted.append(row)
+            if demoted:
+                rows_t = torch.as_tensor(np.asarray(demoted, np.int64), device=self.device)
+                with self._state_mu:
+                    merge_mod.zero_rows(self.state, rows_t)
+                self._demotions += len(demoted)
+                log.debug("demoted %d idle buckets to host residency", len(demoted))
+
+    def flush_hosted(self, timeout: float = 10.0) -> int:
+        """Promote every host-resident bucket to the device path (an exact
+        batched join). → rows promoted; raises ``TimeoutError`` when the
+        feeder's join has not landed within ``timeout`` (a silent partial
+        flush would let the caller read planes without the lanes). The
+        drain runs on the feeder (here we only mark and wait), because only
+        the feeder orders the flag flip, the join and the tick's launches."""
+        with self._host_mu:
+            rows = list(self._hosted.keys())
+            self._promote_pending.update(rows)
+        if not rows:
+            return 0
+        if self._stopped:
+            # No feeder, and no traffic can race a stopped engine.
+            self._drain_promotions()
+            return len(rows)
+        with self._cond:
+            self._cond.notify()
+        deadline = time.monotonic() + timeout
+        ours = set(rows)
+        while time.monotonic() < deadline:
+            with self._host_mu:
+                # A row leaves _promote_pending at the drain's pop and
+                # _promoting once its join is queued: absence from both is
+                # exactly "visible in the device planes". Scoped to our
+                # rows, since live traffic keeps promoting others.
+                if not (ours & self._promote_pending) and not (
+                    ours & self._promoting.keys()
+                ):
+                    return len(rows)
+            time.sleep(0.0005)
+        raise TimeoutError(
+            f"flush_hosted: promotion join for {len(rows)} rows did not "
+            f"land within {timeout}s"
+        )
+
+    def drain_native_promotions(self) -> None:
+        """Promotions-only drain of the native store: the front's pump
+        calls it when a poll wake finds the store's promotion-event counter
+        moved while the broadcast cadence gate is still closed, so a
+        take-pressure-hot bucket joins the device path promptly. Dirty rows
+        keep their queue entries for the cadence-gated drain."""
+        st = self._native_store
+        if st is None:
+            return
+        with self._host_mu:
+            for row in st.drain_promotes_locked():
+                if row in self._hosted:
+                    self._promote_locked(row)
+
+    def drain_native_broadcasts(self) -> None:
+        """Turn the C++ front's coalesced take effects into replication:
+        emit each dirty row's latest full state once (a later state
+        subsumes every earlier one) and mark take-pressure promotions.
+        Called by the native front's pump each cycle."""
+        st = self._native_store
+        if st is None:
+            return
+        if self.on_broadcast is None:
+            # Standalone node: drain both queues (promotion marks matter,
+            # dirty flags must clear) without building states.
+            with self._host_mu:
+                while True:
+                    dirty, _snap, promotes = st.drain_locked()
+                    for row in promotes:
+                        if row in self._hosted:
+                            self._promote_locked(row)
+                    if not dirty and not promotes:
+                        return
+        n = self.config.nodes
+        while True:
+            # The work under the lock is minimal (the epoll thread's takes
+            # block on it): the C++ drain copies each dirty row's lanes
+            # into a buffer, Python captures (index, name, cap) per row,
+            # and the states are built outside against the copies. Loop
+            # until both queues drain (one buffer's worth per call).
+            meta: List[Tuple[int, str, int]] = []
+            with self._host_mu:
+                dirty, lanes_snap, promotes = st.drain_locked()
+                for row in promotes:
+                    if row in self._hosted:
+                        self._promote_locked(row)
+                for i, row in enumerate(dirty):
+                    if not self._hosted_flag[row]:
+                        continue  # promoted or evicted since marked
+                    name = self.directory.name_of(row)
+                    if name is None:
+                        continue
+                    meta.append((i, name, int(self.directory.cap_base_nt[row])))
+            states: List[wire.WireState] = []
+            for i, name, cap in meta:
+                row_snap = lanes_snap[i]
+                own_a = int(row_snap[self.node_slot])
+                own_t = int(row_snap[n + self.node_slot])
+                elapsed = int(row_snap[2 * n])
+                if not (own_a or own_t or elapsed or cap):
+                    continue  # an all-zero state is the incast marker
+                states.append(
+                    wire.from_nanotokens(
+                        name, cap + int(row_snap[:n].sum()),
+                        int(row_snap[n : 2 * n].sum()), elapsed,
+                        origin_slot=self.node_slot, cap_nt=cap,
+                        lane_added_nt=own_a, lane_taken_nt=own_t,
+                    )
+                )
+            if states:
+                self._emit_broadcasts(states)
+            if not dirty and not promotes:
+                return
 
     def take(
         self, name: str, rate: Rate, count: int, now_ns: Optional[int] = None
@@ -864,16 +1485,17 @@ class DeviceEngine:
         counts: Sequence[int],
         now_ns: Optional[int] = None,
     ) -> Optional[List[Tuple[TakeTicket, bool]]]:
-        """Batched :meth:`submit_take`: ONE directory pass, one capacity
-        init, one queue append + wake-up. Returns [(ticket, created), ...]
-        in request order, or None when the pool is spent with every row
-        pinned."""
+        """Batched :meth:`submit_take` (the native HTTP pump's path): ONE
+        directory pass, one capacity init, host-resident and fresh rows
+        served in-process in batch order, one queue append + wake-up for
+        the rest. Returns [(ticket, created), ...] in request order, or
+        None when the pool is spent with every row pinned."""
         now = self.clock() if now_ns is None else now_ns
         names = list(names)
         res = self._assign_many_pinned(names, now, with_fresh=True)
         if res is None:
             return None
-        rows, _bind_fresh = res
+        rows, bind_fresh = res
         created_arr = self.directory.cap_base_nt[rows] == 0
         # Sequential parity: only the FIRST occurrence of a row in the
         # batch counts as the creating miss.
@@ -886,14 +1508,35 @@ class DeviceEngine:
         self.directory.note_rate_many(
             rows, np.asarray([r.per_ns for r in rates], np.int64)
         )
+        # Host fast path, in batch order. The flag is re-read per request:
+        # a fresh row hosted by its first occurrence must catch its later
+        # occurrences in this batch. Eligibility is the directory's
+        # bind-fresh signal (a cap == 0 proxy would host rows that already
+        # hold replicated device lanes).
+        host_served: Dict[int, TakeTicket] = {}
+        if HOST_FASTPATH:
+            fresh_first = bind_fresh & first
+            bc: List[wire.WireState] = []
+            for i in np.flatnonzero(self._hosted_flag[rows] | bind_fresh):
+                if self._hosted_flag[rows[i]] or fresh_first[i]:
+                    t = self._try_host_take(
+                        names[i], int(rows[i]), rates[i], int(counts[i]), now,
+                        bool(fresh_first[i]), out_broadcasts=bc,
+                    )
+                    if t is not None:
+                        host_served[int(i)] = t
+            self._emit_broadcasts(bc)
         tickets = [
-            TakeTicket(names[i], int(rows[i]), rates[i], int(counts[i]), now)
+            host_served.get(i)
+            or TakeTicket(names[i], int(rows[i]), rates[i], int(counts[i]), now)
             for i in range(len(names))
         ]
-        with self._cond:
-            for t in tickets:
-                self._enqueue_take_locked(t)
-            self._cond.notify()
+        queued = [t for i, t in enumerate(tickets) if i not in host_served]
+        if queued:
+            with self._cond:
+                for t in queued:
+                    self._enqueue_take_locked(t)
+                self._cond.notify()
         return list(zip(tickets, created))
 
     def ingest_delta(self, state: wire.WireState, slot: int, scalar: bool = False) -> bool:
@@ -938,6 +1581,35 @@ class DeviceEngine:
                 self._scalar_dropped += 1
                 return created
             added_nt = max(added_nt - base, 0)
+        if HOST_FASTPATH and self._hosted_flag[row]:
+            # The per-packet twin of _host_absorb_ingest: same join.
+            absorbed = False
+            with self._host_mu:
+                lanes = self._hosted.get(row)
+                if lanes is not None:
+                    if scalar:
+                        self._promote_locked(row)  # the delta rides the tick
+                    else:
+                        if lanes.added[slot] < added_nt:
+                            lanes.added[slot] = added_nt
+                        if lanes.taken[slot] < taken_nt:
+                            lanes.taken[slot] = taken_nt
+                        if lanes.elapsed_ns < state.elapsed_ns:
+                            lanes.elapsed_ns = state.elapsed_ns
+                        lanes.roll_window(now)
+                        lanes.win_rx += 1
+                        if lanes.win_rx > HOST_PROMOTE_TAKES:
+                            self._promote_locked(row)
+                        absorbed = True
+            if absorbed:
+                self.directory.unpin_rows([row])
+                if state.trace_id:
+                    # The merge span of a host-absorbed remote delta.
+                    trace_mod.SPANS.add(
+                        state.trace_id, self.node_slot, "merge", state.name,
+                        time.perf_counter_ns(), 0,
+                    )
+                return created
         delta = _Delta(row, slot, added_nt, taken_nt, state.elapsed_ns, scalar)
         if state.trace_id:
             delta.trace_id = state.trace_id
@@ -1084,11 +1756,26 @@ class DeviceEngine:
                 elapsed_c, scalar_c = elapsed_c[keep_c], scalar_c[keep_c]
                 if not len(rows):
                     return 0
+        absorbed_n = 0
+        if HOST_FASTPATH:
+            keep_h = self._host_absorb_ingest(
+                rows, slots_c, added_c, taken_c, elapsed_c, scalar_c
+            )
+            if keep_h is not None and not keep_h.all():
+                self.directory.unpin_rows(rows[~keep_h])
+                absorbed_n = int((~keep_h).sum())
+                rows, slots_c = rows[keep_h], slots_c[keep_h]
+                added_c, taken_c = added_c[keep_h], taken_c[keep_h]
+                elapsed_c = elapsed_c[keep_h]
+                if scalar_c is not None:
+                    scalar_c = scalar_c[keep_h]
+                if not len(rows):
+                    return absorbed_n
         chunk = _DeltaChunk(rows, slots_c, added_c, taken_c, elapsed_c, scalar_c)
         with self._cond:
             self._deltas.append(chunk)
             self._cond.notify()
-        return chunk.n
+        return chunk.n + absorbed_n
 
     def ingest_deltas_batch_raw(
         self,
@@ -1227,6 +1914,17 @@ class DeviceEngine:
         idx = np.flatnonzero(live)
         for lo in range(0, len(idx), MAX_MERGE_ROWS):
             sl = idx[lo : lo + MAX_MERGE_ROWS]
+            if HOST_FASTPATH:
+                keep_h = self._host_absorb_ingest(
+                    rows[sl], slots[sl], out_a[sl], out_t[sl], out_e[sl],
+                    out_s[sl] == 1,
+                )
+                if keep_h is not None and not keep_h.all():
+                    self.directory.unpin_rows(rows[sl][~keep_h])
+                    accepted += int((~keep_h).sum())
+                    sl = sl[keep_h]
+                    if not sl.size:
+                        continue
             chunk = _DeltaChunk(
                 rows[sl], slots[sl], out_a[sl], out_t[sl], out_e[sl],
                 out_s[sl] == 1,
@@ -1289,20 +1987,36 @@ class DeviceEngine:
             # patrol-audit staleness stamp: these rows just absorbed
             # remote-lane state (racy int64 write, sampler-only reader).
             self.directory.last_remote_ns[rows] = now
+            slots_c = slots_a[lo:hi]
             caps_c = np.maximum(caps_a[lo:hi], 0)
+            added_c = np.maximum(added_a[lo:hi], 0)
+            taken_c = np.maximum(taken_a[lo:hi], 0)
+            elapsed_c = np.maximum(elapsed_a[lo:hi], 0)
             pos = caps_c > 0
             if pos.any():
                 self.directory.init_cap_base_many(rows[pos], caps_c[pos])
+            if HOST_FASTPATH:
+                keep_h = self._host_absorb_ingest(
+                    rows, slots_c, added_c, taken_c, elapsed_c, None
+                )
+                if keep_h is not None and not keep_h.all():
+                    self.directory.unpin_rows(rows[~keep_h])
+                    accepted += int((~keep_h).sum())
+                    rows, slots_c = rows[keep_h], slots_c[keep_h]
+                    added_c, taken_c = added_c[keep_h], taken_c[keep_h]
+                    elapsed_c = elapsed_c[keep_h]
             n = len(rows)
+            if n == 0:
+                continue
             k = _pad_size(n)
             buf = self._staging.lease((5, k))
             packed = buf.numpy()
             packed[0, :n] = rows
             packed[0, n:] = _FOLD_PAD_ROW
-            packed[1, :n] = slots_a[lo:hi]
-            packed[2, :n] = np.maximum(added_a[lo:hi], 0)
-            packed[3, :n] = np.maximum(taken_a[lo:hi], 0)
-            packed[4, :n] = np.maximum(elapsed_a[lo:hi], 0)
+            packed[1, :n] = slots_c
+            packed[2, :n] = added_c
+            packed[3, :n] = taken_c
+            packed[4, :n] = elapsed_c
             packed[1:, n:] = 0
             dev = self._ship(buf)
             t0 = time.perf_counter_ns()
@@ -1327,23 +2041,28 @@ class DeviceEngine:
         decode+fold kernel (ops/ingest.py). Framing walk, entry
         extraction, checksum/validation verdicts, sentinel padding of
         invalid packets and the scatter-max fold all run in the kernel;
-        the host contributes only the directory pass that resolves entry
-        names to rows (vectorized, through the walk's name offsets and
-        hashes — Python strings materialize only for first-seen buckets).
+        the host contributes the directory pass that resolves entry names
+        to rows (vectorized, through the walk's name offsets and hashes —
+        Python strings materialize only for first-seen buckets) and the
+        host-lane split: entries of host-resident rows are marked
+        ``hosted``, the kernel leaves them out of the fold, and its
+        ``hosted_mask`` and decoded fields come back in one copy to be
+        absorbed into the host lanes.
 
         ``planes`` is uint8[P, ROW]; ``walk`` is the caller's
         :func:`ops.ingest.host_walk` result when it already ran one;
         ``release`` is invoked on the completion pipeline once the planes'
         copy to the device has finished — or inline if nothing is
-        launched. Returns deltas accepted (folded).
+        launched. Returns deltas accepted (folded and host-absorbed).
 
         On CUDA, planes in page-locked memory (the native rx ring's, see
         ``native.RxRing.pin``) ship as they lie with one non-blocking
         copy; other planes are first copied into a pinned staging lease.
-        Either way ``release`` runs only once that copy has finished, and
-        the calling (rx) thread never synchronises with the device. Each
-        launch records its plane count P in the ``ingest_raw_planes``
-        histogram."""
+        Either way ``release`` runs only once that copy has finished. The
+        calling (rx) thread synchronises with the device only for a batch
+        that holds a host-resident entry, to read the kernel's verdict on
+        it. Each launch records its plane count P in the
+        ``ingest_raw_planes`` histogram."""
         released = release is None
 
         def _release_inline() -> None:
@@ -1368,6 +2087,7 @@ class DeviceEngine:
             live = walk.ok[:, None] & (np.arange(E)[None, :] < walk.count[:, None])
             pi, ei = np.nonzero(live)
             rows_pe = np.full((P, E), _FOLD_PAD_ROW, np.int32)
+            hosted_pe = np.zeros((P, E), dtype=bool)
             pinned: Optional[np.ndarray] = None
             if pi.size:
                 # Entry filter the python rx path applies per entry:
@@ -1409,15 +2129,20 @@ class DeviceEngine:
                     if pos.any():
                         self.directory.init_cap_base_many(b_rows[pos], caps_b[pos])
                     rows_pe[pi[bound], ei[bound]] = b_rows
+                    if HOST_FASTPATH and self._hosted:
+                        # Residency is read under the lock, after the pins:
+                        # an idle demotion either flipped these rows first
+                        # (they read hosted) or sees the pins and skips them.
+                        with self._host_mu:
+                            hosted_pe[pi[bound], ei[bound]] = self._hosted_flag[b_rows]
+            any_hosted = bool(hosted_pe.any())
 
             # ONE launch for the whole batch. entry_off is the walk's
-            # framing proposal the kernel RE-VALIDATES; rows is the host
-            # plan. Host lanes are not part of this package yet, so no row
-            # is host-resident: ``hosted`` is all false and the reference's
-            # host-lane absorb tail (its _host_absorb_ingest of the
-            # kernel's hosted_mask) has nothing to do.
+            # framing proposal the kernel RE-VALIDATES; rows and hosted are
+            # the host plan.
             entry_off = np.maximum(walk.name_off - 1, 0)
             t0 = time.perf_counter_ns()
+            out_dev = None
             if self._cuda:
                 src = None
                 if planes.flags.c_contiguous and planes.flags.writeable:
@@ -1442,26 +2167,37 @@ class DeviceEngine:
                 eoff_dev = plan_dev[: P * E].view(P, E)
                 rows_dev = plan_dev[P * E : 2 * P * E].view(P, E)
                 lengths_dev = plan_dev[2 * P * E :]
+                hosted_dev = None
+                if any_hosted:
+                    hb = self._staging.lease((P, E), torch.uint8)
+                    hb.numpy()[...] = hosted_pe
+                    hosted_dev = self._ship(hb).view(torch.bool)
+                    out_dev = torch.empty(
+                        ingest_kernel.output_bytes(P, E), dtype=torch.uint8,
+                        device=self.device,
+                    )
             else:
                 copied = None
                 planes_dev = torch.from_numpy(np.ascontiguousarray(planes))
                 eoff_dev = torch.from_numpy(entry_off.astype(np.int32))
                 rows_dev = torch.from_numpy(rows_pe)
                 lengths_dev = torch.from_numpy(lengths)
+                hosted_dev = torch.from_numpy(hosted_pe) if any_hosted else None
             _obs_stage(hist.STAGE_H2D, t0, trace_mod.EV_H2D_PUT, int(pi.size))
             t0 = time.perf_counter_ns()
             with self._state_mu:
-                hosted_dev = self._no_hosted.get(E)
-                if hosted_dev is None or hosted_dev.shape[0] < P:
-                    hosted_dev = torch.zeros((P, E), dtype=torch.bool, device=self.device)
-                    self._no_hosted[E] = hosted_dev
-                hosted_dev = hosted_dev[:P]
+                if hosted_dev is None:
+                    hosted_dev = self._no_hosted.get(E)
+                    if hosted_dev is None or hosted_dev.shape[0] < P:
+                        hosted_dev = torch.zeros((P, E), dtype=torch.bool, device=self.device)
+                        self._no_hosted[E] = hosted_dev
+                    hosted_dev = hosted_dev[:P]
                 # The kernel's wrapper as is: the host plan holds
                 # directory rows and FOLD_PAD_ROW, never a negative row
                 # for decode_fold_raw to wrap.
-                ingest_kernel.decode_fold(
+                outs = ingest_kernel.decode_fold(
                     self.state.pn, self.state.elapsed, planes_dev, lengths_dev,
-                    eoff_dev, rows_dev, hosted_dev,
+                    eoff_dev, rows_dev, hosted_dev, out=out_dev,
                 )
             _obs_stage(
                 hist.STAGE_DISPATCH, t0, trace_mod.EV_COMMIT_DISPATCH, int(pi.size)
@@ -1485,13 +2221,80 @@ class DeviceEngine:
                     release()
 
                 self._enqueue_completion(_commit_plane, (), {})
-            # The launch is queued on the default stream ahead of any
-            # launch that could recycle these rows, so the pins may go now.
+            accepted = int(((rows_pe != _FOLD_PAD_ROW) & ~hosted_pe).sum())
+            requeued: Optional[np.ndarray] = None
+            if any_hosted:
+                profiling.COUNTERS.inc("ingest_raw_hosted_dispatches")
+                absorbed, requeued = self._absorb_raw_hosted(outs, out_dev, rows_pe, P, E)
+                accepted += absorbed
+            # Release this call's pins, except one per entry re-queued as a
+            # feeder chunk: the tick's finally releases those.
             if pinned is not None:
+                if requeued is not None and requeued.size:
+                    left = {}
+                    for r in requeued.tolist():
+                        left[r] = left.get(r, 0) + 1
+                    drop = np.zeros(len(pinned), dtype=bool)
+                    for i, r in enumerate(pinned.tolist()):
+                        if left.get(r, 0):
+                            left[r] -= 1
+                            drop[i] = True
+                    pinned = pinned[~drop]
+                # Every launch is queued on the default stream ahead of
+                # any launch that could recycle these rows.
                 self.directory.unpin_rows(pinned)
-            return int((rows_pe != _FOLD_PAD_ROW).sum())
+            return accepted
         finally:
             _release_inline()
+
+    def _absorb_raw_hosted(self, outs, out_dev, rows_pe, P: int, E: int):
+        """The host-lane tail of a raw launch whose plan marked hosted
+        entries: read back the kernel's ``hosted_mask`` (valid ∩ hosted)
+        and decoded fields — on CUDA one copy of the launch's output
+        buffer, on the stream behind the kernel, waited for here — and
+        join them into the host lanes. Entries whose row was promoted in
+        flight are queued for the feeder instead. → (entries absorbed,
+        rows of the queued entries or None); the caller's pins on these
+        rows are still held."""
+        if out_dev is not None:
+            nb = 42 * P * E  # the fields, then both masks
+            res = self._staging.lease((nb,), torch.uint8)
+            res.copy_(out_dev[:nb], non_blocking=True)
+            self._device_event().synchronize()
+            _ok, masks, fields = ingest_kernel.split_outputs(res.numpy(), P, E)
+            hm = masks[1]
+        else:
+            hm = outs[2].numpy()
+            fields = np.stack([t.numpy() for t in outs[3:]])
+        hpi, hei = np.nonzero(hm)
+        if not hpi.size:
+            if out_dev is not None:
+                self._staging.release(res)
+            return 0, None
+        h_rows = rows_pe[hpi, hei].astype(np.int64)
+        h_slots = fields[0][hpi, hei].copy()
+        h_added = fields[2][hpi, hei].copy()
+        h_taken = fields[3][hpi, hei].copy()
+        h_elapsed = np.maximum(fields[4][hpi, hei], 0)
+        if out_dev is not None:
+            self._staging.release(res)
+        keep_h = self._host_absorb_ingest(
+            h_rows, h_slots, h_added, h_taken, h_elapsed, None
+        )
+        if keep_h is None:
+            keep_h = np.ones(len(h_rows), dtype=bool)
+        absorbed = int((~keep_h).sum())
+        profiling.COUNTERS.inc("ingest_raw_hosted_absorbed", absorbed)
+        if not keep_h.any():
+            return absorbed, None
+        chunk = _DeltaChunk(
+            h_rows[keep_h], h_slots[keep_h], h_added[keep_h], h_taken[keep_h],
+            h_elapsed[keep_h],
+        )
+        with self._cond:
+            self._deltas.append(chunk)
+            self._cond.notify()
+        return absorbed + chunk.n, chunk.rows
 
     def _assign_many_pinned_wire(self, names, name_rows, name_lens, hashes, now):
         """Wire-decoded variant of :meth:`_assign_many_pinned` — fresh
@@ -1589,40 +2392,73 @@ class DeviceEngine:
         return pn.cpu().numpy(), el.cpu().numpy()
 
     def snapshot_planes(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Both planes as host numpy arrays (a copy)."""
-        with self._state_mu:
-            return state_to_numpy(self.state)
+        """Host copies of both planes with every host-resident bucket's
+        lanes max-joined in, mid-promotion ones (``_promoting``) too. Copy
+        and join run under ``_host_mu``, so a promotion is seen in exactly
+        one of the places read (a row in two of them max-joins equal
+        values). Residency is untouched."""
+        with self._host_mu:
+            with self._state_mu:
+                pn, elapsed = state_to_numpy(self.state)
+            for row, lanes in list(self._hosted.items()) + list(self._promoting.items()):
+                np.maximum(pn[row, :, 0], lanes.added, out=pn[row, :, 0])
+                np.maximum(pn[row, :, 1], lanes.taken, out=pn[row, :, 1])
+                if elapsed[row] < lanes.elapsed_ns:
+                    elapsed[row] = lanes.elapsed_ns
+        return pn, elapsed
+
+    def _row_states(self, rows: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """(pn[K, N, 2], elapsed[K]) of bucket rows wherever they live: the
+        lanes of a host-resident row, else one device gather for all the
+        others, max-joined with the staged lanes of a row mid-promotion.
+        The lanes are copied under ``_host_mu`` before the gather: a
+        promotion drain drops a staged entry only once its join is queued
+        ahead of that gather."""
+        rows = [int(r) for r in rows]
+        host: Dict[int, tuple] = {}
+        staged: Dict[int, tuple] = {}
+        with self._host_mu:
+            for i, r in enumerate(rows):
+                lanes = self._hosted.get(r)
+                into = host
+                if lanes is None:
+                    lanes, into = self._promoting.get(r), staged
+                if lanes is not None:
+                    into[i] = (lanes.added.copy(), lanes.taken.copy(), lanes.elapsed_ns)
+        pn = np.zeros((len(rows), self.config.nodes, 2), np.int64)
+        el = np.zeros(len(rows), np.int64)
+        dev = [i for i in range(len(rows)) if i not in host]
+        if dev:
+            pn[dev], el[dev] = self.read_rows([rows[i] for i in dev])
+        for i, (a, t, e) in host.items():
+            pn[i, :, 0], pn[i, :, 1], el[i] = a, t, e
+        for i, (a, t, e) in staged.items():
+            np.maximum(pn[i, :, 0], a, out=pn[i, :, 0])
+            np.maximum(pn[i, :, 1], t, out=pn[i, :, 1])
+            el[i] = max(int(el[i]), e)
+        return pn, el
 
     def row_view(self, row: int) -> Tuple[np.ndarray, int]:
-        """One bucket row's full PN state (a device gather)."""
-        pn_rows, elapsed_rows = self.read_rows([row])
+        """One bucket row's full PN state, wherever it lives."""
+        pn_rows, elapsed_rows = self._row_states([row])
         return pn_rows[0], int(elapsed_rows[0])
 
-    def snapshot(self, name: str) -> List[wire.WireState]:
-        """One bucket's full PN state as per-slot wire states — the incast
-        reply payload: one packet per non-zero node lane."""
-        row = self.directory.lookup(name)
-        if row is None:
-            return []
-        pn_rows, elapsed_rows = self.read_rows([row])
-        if self.directory.lookup(name) != row:
-            return []  # evicted mid-read
-        pn = pn_rows[0]
-        elapsed = int(elapsed_rows[0])
+    def _wire_states(self, name: str, row: int, pn: np.ndarray, elapsed: int):
+        """One bucket's state as per-slot wire states: one per non-zero
+        lane, or one zero-lane state when only the capacity or elapsed is
+        known."""
         cap = int(self.directory.cap_base_nt[row])
         sum_a = int(pn[:, 0].sum())
         sum_t = int(pn[:, 1].sum())
-        out = []
-        for slot in range(pn.shape[0]):
-            a, t = int(pn[slot, 0]), int(pn[slot, 1])
-            if a or t:
-                out.append(
-                    wire.from_nanotokens(
-                        name, cap + sum_a, sum_t, elapsed,
-                        origin_slot=slot, cap_nt=cap,
-                        lane_added_nt=a, lane_taken_nt=t,
-                    )
-                )
+        out = [
+            wire.from_nanotokens(
+                name, cap + sum_a, sum_t, elapsed,
+                origin_slot=s, cap_nt=cap,
+                lane_added_nt=int(pn[s, 0]), lane_taken_nt=int(pn[s, 1]),
+            )
+            for s in range(pn.shape[0])
+            if pn[s, 0] or pn[s, 1]
+        ]
         if not out and (elapsed or cap):
             out.append(
                 wire.from_nanotokens(
@@ -1632,39 +2468,31 @@ class DeviceEngine:
             )
         return out
 
+    def snapshot(self, name: str) -> List[wire.WireState]:
+        """One bucket's full PN state as per-slot wire states — the incast
+        reply payload: one packet per non-zero node lane."""
+        row = self.directory.lookup(name)
+        if row is None:
+            return []
+        pn_rows, elapsed_rows = self._row_states([row])
+        if self.directory.lookup(name) != row:
+            return []  # evicted mid-read
+        return self._wire_states(name, row, pn_rows[0], int(elapsed_rows[0]))
+
     def snapshot_many(self, names: Sequence[str]) -> Dict[str, List[wire.WireState]]:
         """Batched :meth:`snapshot`: one device gather for many buckets
-        (incast replies, anti-entropy and audit fan-ins)."""
+        (incast replies, anti-entropy and audit fan-ins); host-resident
+        rows answer from their lanes."""
         known = [(n, self.directory.lookup(n)) for n in names]
         known = [(n, r) for n, r in known if r is not None]
         if not known:
             return {}
-        pn_dev, el_dev = self.read_rows([r for _, r in known])
+        pn_rows, el_rows = self._row_states([r for _, r in known])
         out: Dict[str, List[wire.WireState]] = {}
         for i, (name, row) in enumerate(known):
             if self.directory.lookup(name) != row:
                 continue  # evicted mid-read: don't leak another bucket's state
-            pn = pn_dev[i]
-            elapsed = int(el_dev[i])
-            cap = int(self.directory.cap_base_nt[row])
-            sum_a = int(pn[:, 0].sum())
-            sum_t = int(pn[:, 1].sum())
-            states = [
-                wire.from_nanotokens(
-                    name, cap + sum_a, sum_t, elapsed,
-                    origin_slot=s, cap_nt=cap,
-                    lane_added_nt=int(pn[s, 0]), lane_taken_nt=int(pn[s, 1]),
-                )
-                for s in range(pn.shape[0])
-                if pn[s, 0] or pn[s, 1]
-            ]
-            if not states and (elapsed or cap):
-                states = [
-                    wire.from_nanotokens(
-                        name, cap, 0, elapsed, origin_slot=self.node_slot,
-                        cap_nt=cap, lane_added_nt=0, lane_taken_nt=0,
-                    )
-                ]
+            states = self._wire_states(name, row, pn_rows[i], int(el_rows[i]))
             if states:
                 out[name] = states
         return out
@@ -1679,13 +2507,38 @@ class DeviceEngine:
         row = self.directory.lookup(name)
         if row is None:
             return None
-        pn_rows, _ = self.read_rows([row])
+        pn_rows, _ = self._row_states([row])
         if self.directory.lookup(name) != row:
             return None
         pn = pn_rows[0]
         base = int(self.directory.cap_base_nt[row])
         nt = base + int(pn[:, 0].sum()) - int(pn[:, 1].sum())
         return max(nt, 0) // NANO
+
+    def release_bucket(self, name: str, timeout: float = 5.0) -> bool:
+        """Evict one bucket by name: unbind, drop its host lanes, zero its
+        device row, recycle. Its state survives on peers and comes back by
+        incast on next use. A pinned row (in-flight take or delta) is
+        waited out, never yanked. → False when the name is unknown or stays
+        pinned past ``timeout``."""
+        deadline = time.monotonic() + timeout
+        with self._evict_mu:
+            while True:
+                row, bound = self.directory.unbind_if_unpinned(name)
+                if row is not None:
+                    break
+                if not bound:
+                    return False
+                self.flush(timeout=max(0.0, deadline - time.monotonic()))
+                if time.monotonic() >= deadline:
+                    return False
+            self._drop_hosted_rows([row])
+            with self._state_mu:
+                merge_mod.zero_rows(
+                    self.state, torch.tensor([row], dtype=torch.int64, device=self.device)
+                )
+            self.directory.recycle([row])
+        return True
 
     def warmup(self) -> None:
         """Build (or load) the kernel library and launch each kernel once
@@ -1721,7 +2574,12 @@ class DeviceEngine:
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             with self._cond:
-                idle = not self._takes and not self._deltas and not self._busy
+                idle = (
+                    not self._takes
+                    and not self._deltas
+                    and not self._promote_pending
+                    and not self._busy
+                )
             if idle:
                 with self._pcond:
                     if not self._pending and not self._completing:
@@ -1737,6 +2595,22 @@ class DeviceEngine:
             self._pcond.notify_all()
         self._thread.join(timeout=5)
         self._completer.join(timeout=5)
+        if self._native_store is not None:
+            # The native front is detached by now (command.py closes it
+            # before engine.stop). Destroying the store frees every lane
+            # block, so every view is dropped first; afterwards the
+            # engine's reads see the device planes only.
+            with self._host_mu:
+                self._hosted.clear()
+                self._promoting.clear()
+                self._hosted_flag[:] = False
+            store, self._native_store = self._native_store, None
+            self._host_mu = threading.Lock()
+            if getattr(self, "_leak_native_store", False):
+                # A wedged front pump may still be inside the store.
+                log.error("leaking native host store (wedged http pump)")
+            else:
+                store.destroy()
         self.directory.close()
 
     # -- completion pipeline ------------------------------------------------
@@ -1799,6 +2673,31 @@ class DeviceEngine:
         return self._scalar_dropped
 
     @property
+    def hosted_buckets(self) -> int:
+        """Buckets currently served by the host fast path."""
+        return len(self._hosted)
+
+    @property
+    def host_takes(self) -> int:
+        """Takes answered in-process by the host fast path: served in
+        Python plus served in C++ by the native front."""
+        n = self._host_takes
+        store = self._native_store
+        if store is not None:
+            n += store.native_takes
+        return n
+
+    @property
+    def promotions(self) -> int:
+        """Host → device residency transitions."""
+        return self._promotions
+
+    @property
+    def demotions(self) -> int:
+        """Device → host residency transitions (idle rows)."""
+        return self._demotions
+
+    @property
     def audit_ledger(self) -> AuditLedger:
         """patrol-audit admitted-token window ledger (net/audit.py reads
         it on the audit plane's pace)."""
@@ -1838,7 +2737,9 @@ class DeviceEngine:
     def _run_loop(self) -> None:
         while True:
             with self._cond:
-                while not (self._takes or self._deltas or self._stopped):
+                while not (
+                    self._takes or self._deltas or self._promote_pending or self._stopped
+                ):
                     self._cond.wait()
                 if self._stopped and not (self._takes or self._deltas):
                     return
@@ -1849,8 +2750,33 @@ class DeviceEngine:
                 for t in tickets:
                     t.deferred = False
                 self._busy = True
+            # Idle demotion: count device-path takes on promoted rows and,
+            # at the window's rollover, move quiet rows back to host
+            # residency BEFORE the re-route, so the take that ends an idle
+            # window is already served from the host.
+            if HOST_FASTPATH and self._promoted_rows:
+                for t in tickets:
+                    if t.row in self._promoted_rows:
+                        self._dev_window[t.row] = self._dev_window.get(t.row, 0) + 1
+                self._maybe_demote(tickets, deltas)
+            # Residency re-route: a ticket that raced into the device queue
+            # while its row was (or became) host-resident is served from
+            # the lanes here, the one point every queued take passes, so a
+            # row is never served by both paths at once.
+            if HOST_FASTPATH and self._hosted and tickets:
+                bc: List[wire.WireState] = []
+                tickets = [
+                    t for t in tickets
+                    if not (self._hosted_flag[t.row] and self._host_serve_ticket(t, False, bc))
+                ]
+                self._emit_broadcasts(bc)
             t_tick0 = time.perf_counter_ns()
             try:
+                # Pending promotions join BEFORE the tick's launches, so a
+                # take routed device-ward after its row's flag flipped runs
+                # against the joined planes.
+                if HOST_FASTPATH and self._promote_pending:
+                    self._drain_promotions()
                 if deltas is not None or tickets:
                     self._apply(deltas, tickets)
                     tick_dur = time.perf_counter_ns() - t_tick0
@@ -2048,6 +2974,7 @@ class DeviceEngine:
                 )
         if unpin:
             self.directory.unpin_rows(unpin)
+        profiling.COUNTERS.inc("take_device_tickets", sum(len(groups[k]) for k in keys))
         self._emit_broadcasts(broadcasts)
 
     def _apply_merges(self, deltas: DeltaArrays) -> None:

@@ -72,18 +72,21 @@ _DECLARED: Tuple[Knob, ...] = (
          "Native-fold cutover: max distinct buckets per fold batch."),
     # --- runtime/engine.py + hoststore.py: host fastpath ---------------
     Knob("PATROL_HOST_FASTPATH", "1",
-         "Serve hot buckets from the host store between ticks (0 = off)."),
+         "Serve cold and low-QPS buckets from in-process host lanes, with "
+         "no device launch (0 = every take rides the device)."),
     Knob("PATROL_HOST_PROMOTE_TAKES", "4096",
-         "Takes per window that promote a bucket to the host fastpath."),
+         "Host takes (or absorbed rx deltas) per window past which a "
+         "bucket is promoted to the device path."),
     Knob("PATROL_HOST_PROMOTE_WINDOW_MS", "100",
          "Window for the host-promotion take counter."),
     Knob("PATROL_HOST_DEMOTE_TAKES", "1024",
-         "Takes per window below which a host bucket demotes (default: "
-         "PROMOTE_TAKES/4)."),
+         "Device takes per demote window below which a promoted bucket "
+         "moves back to host lanes (default: PROMOTE_TAKES/4)."),
     Knob("PATROL_HOST_DEMOTE_WINDOW_MS", "200",
          "Window for the host-demotion take counter."),
     Knob("PATROL_NATIVE_PROMOTE_TAKES", "0",
-         "Promotion threshold for the native (C++) host store (0 = off)."),
+         "In-front (C++) takes per window past which the native host store "
+         "promotes a bucket (0 = off)."),
     # --- runtime/engine.py: stats/debug scrape mirror ------------------
     Knob("PATROL_SCRAPE_MIRROR", "1",
          "Serve stats/debug reads (snapshot/tokens//debug/vars) from an "

@@ -8,6 +8,9 @@ so takes ride its device queue), the port's ``Command`` with
 with a hot-key crowd and per-entry errors, ``/tokens``, and the 400/404/405
 answers of the reference's routes; statuses and bodies must be identical.
 The debug routes are compared by status only (their bodies hold timings).
+The same script then runs against the port's native C++ front (host lanes
+in its native store) and the JAX node at its defaults (its own native
+front): again identical. Options not ported yet refuse to start.
 """
 
 import asyncio
@@ -25,6 +28,7 @@ from patrol_tpu_torch.command import Command as TCommand
 from patrol_tpu_torch.command import NotPortedError
 from patrol_tpu_torch.models.limiter import NANO
 from patrol_tpu_torch.models.limiter import LimiterConfig as TConfig
+from patrol_tpu_torch.runtime import engine as tengine_mod
 
 LONG = "a" * 232
 HOT = "&".join(["t=hot,3:1m,1"] * 6)
@@ -99,9 +103,15 @@ class Node:
         self.thread.join(30)
 
 
-def drive(port):
+# The script for the native fronts: their C++ takes read the wall clock
+# (plus the injected clock's offset at start), not the frozen one, so every
+# rate period becomes an hour, over which a run refills no whole token.
+NATIVE_SCRIPT = [(m, t.replace(":1m", ":1h").replace(":1s", ":1h")) for m, t in SCRIPT]
+
+
+def drive(port, script=SCRIPT):
     out = []
-    for method, target in SCRIPT + STATUS_ONLY:
+    for method, target in script + STATUS_ONLY:
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
         conn.request(method, target, headers={"Connection": "close"})
         resp = conn.getresponse()
@@ -113,6 +123,7 @@ def drive(port):
 
 def test_http_script_matches_reference(monkeypatch):
     monkeypatch.setattr(jengine_mod, "HOST_FASTPATH", False)
+    monkeypatch.setattr(tengine_mod, "HOST_FASTPATH", False)
     jport = _free_port()
     jnode = Node(
         JCommand(
@@ -137,6 +148,7 @@ def test_http_script_matches_reference(monkeypatch):
         config=TConfig(256, 8),
         handle_signals=False,
         device="cpu",
+        http_front="python",
     )
     tnode = Node(tcmd)
     try:
@@ -153,15 +165,59 @@ def test_http_script_matches_reference(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"udp_backend": "native", "http_front": "native"},
-        {"http_front": "native"},
+        {"udp_backend": "native", "http_front": "native", "checkpoint_dir": "ckpt"},
+        {"http_front": "native", "mesh_replicas": 2},
         {"mesh_replicas": 2},
         {"checkpoint_dir": "ckpt"},
     ],
 )
 def test_unported_options_refuse_to_start(kwargs):
+    # The native UDP backend and HTTP front are ported; beside them an
+    # option that is not still refuses the whole configuration.
     with pytest.raises(NotPortedError):
         TCommand(device="cpu", **kwargs).check_ported()
+
+
+@pytest.mark.parametrize("front", ["native", "auto"])
+def test_native_front_serves_the_script(monkeypatch, front):
+    """``--http-front native`` (and ``auto``, which takes it when the host
+    library loads) serves: the same script, on the C++ front over the
+    engine's native host-lane store, answers as the JAX node at its
+    defaults does (its native front, host lanes on)."""
+    from patrol_tpu import native as jnative
+    from patrol_tpu_torch import native
+    from patrol_tpu_torch.net.native_http import NativeHTTPFront
+
+    if native.load() is None or jnative.load() is None:
+        pytest.skip("a native host library does not build here")
+    jport = _free_port()
+    jcmd = JCommand(
+        api_addr=f"127.0.0.1:{jport}",
+        node_addr=f"127.0.0.1:{_free_port(socket.SOCK_DGRAM)}",
+        clock=Clock(), config=JConfig(256, 8), handle_signals=False,
+        udp_backend="asyncio",
+    )
+    jnode = Node(jcmd)
+    try:
+        assert jcmd.engine._native_store is not None  # its defaults
+        want = drive(jport, NATIVE_SCRIPT)
+    finally:
+        jnode.close()
+    tcmd = TCommand(
+        api_addr="127.0.0.1:0", node_addr=f"127.0.0.1:{_free_port(socket.SOCK_DGRAM)}",
+        clock=Clock(), config=TConfig(256, 8), handle_signals=False, device="cpu",
+        http_front=front, udp_backend="asyncio",
+    )
+    tnode = Node(tcmd)
+    try:
+        assert isinstance(tcmd.native_front, NativeHTTPFront)
+        assert tcmd.engine._native_store is not None
+        got = drive(tcmd.api_port, NATIVE_SCRIPT)
+        in_front = tcmd.engine._native_store.native_takes
+    finally:
+        tnode.close()
+    assert got == want
+    assert in_front > 0  # takes of hosted buckets answered in C++
 
 
 def test_port_only_answers_404_for_planes_not_ported():

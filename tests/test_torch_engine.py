@@ -154,6 +154,7 @@ def test_engine_trace_matches_reference(monkeypatch, take_fold, tick_fold, block
     monkeypatch.setenv("PATROL_TAKE_FOLD", take_fold)
     monkeypatch.setenv("PATROL_TICK_FOLD", tick_fold)
     monkeypatch.setattr(jengine_mod, "HOST_FASTPATH", False)
+    monkeypatch.setattr(tengine_mod, "HOST_FASTPATH", False)
     if block is not None:
         monkeypatch.setattr(jengine_mod, "MAX_MERGE_ROWS", block)
         monkeypatch.setattr(tengine_mod, "MAX_MERGE_ROWS", block)
@@ -241,6 +242,7 @@ def test_hybrid_tick_is_one_lease_and_one_launch(monkeypatch, seed, hold):
     halves in ONE lease and joins them with ONE tick_join call."""
     monkeypatch.setenv("PATROL_TICK_FOLD", "1")
     monkeypatch.setattr(jengine_mod, "HOST_FASTPATH", False)
+    monkeypatch.setattr(tengine_mod, "HOST_FASTPATH", False)
     phases = make_trace(seed=seed, hold=hold)
 
     jclock = Clock()

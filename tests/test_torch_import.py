@@ -1,10 +1,11 @@
 """The port stands alone: importing every module of ``patrol_tpu_torch``
 pulls in neither ``jax`` nor ``patrol_tpu``, and no port file imports
 either (an AST walk, so a lazy import inside a function is caught too).
-The CLI starts a replicating node from ``--peer-addr`` and refuses what is
-not ported yet (``--http-front native``) with exit code 2; the native UDP
-backend is ported, and its C++ sources are the port's own copies: no port
-file reads a path under ``patrol_tpu/``.
+The CLI starts a replicating node from ``--peer-addr``, serves on the
+native HTTP front, and refuses what is not ported yet (``--checkpoint-dir``)
+with exit code 2; the native UDP backend and HTTP front are ported, and
+their C++ sources are the port's own copies: no port file reads a path
+under ``patrol_tpu/``.
 
 The import check runs in a subprocess, because this test process has
 already imported jax (``tests/conftest.py``)."""
@@ -125,7 +126,7 @@ def test_replication_modules_are_part_of_the_port():
     for m in ("net.replication", "net.delta", "net.antientropy", "net.membership",
               "net.faultnet", "net.fleet", "net.audit", "net.v1node", "utils.slo",
               "ops.ingest", "ops.ingest_kernel", "ops.delta", "native",
-              "net.native_replication"):
+              "net.native_replication", "net.native_http", "runtime.hoststore"):
         assert f"patrol_tpu_torch.{m}" in mods, m
     assert (PKG_DIR / "csrc" / "decode_fold.cu").is_file()
 
@@ -139,15 +140,71 @@ def _free_port(kind):
 
 
 def test_cli_refuses_the_native_udp_backend():
-    # The native UDP backend is ported; beside it the native HTTP front is
-    # not, and the pair is refused before anything starts.
+    # The native UDP backend and HTTP front are ported; beside them
+    # checkpoints are not, and the whole set is refused before anything
+    # starts.
     res = subprocess.run(
         [sys.executable, "-m", "patrol_tpu_torch", "--udp-backend", "native",
-         "--http-front", "native", "--device", "cpu", "--no-warmup"],
+         "--http-front", "native", "--checkpoint-dir", "ckpt", "--device", "cpu",
+         "--no-warmup"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 2
-    assert "not yet ported" in res.stderr and "http-front native" in res.stderr
+    assert "not yet ported" in res.stderr and "checkpoint-dir" in res.stderr
+
+
+def test_cli_serves_on_the_native_http_front():
+    """``--http-front native`` serves: the C++ front answers takes (those
+    of the host-resident bucket in C++), /debug/vars reports the front and
+    the host lanes, and SIGINT shuts the node down cleanly."""
+    import http.client
+    import signal
+    import socket
+    import time
+
+    from patrol_tpu_torch import native
+
+    if native.load() is None:
+        import pytest
+
+        pytest.skip("the native host library does not build here")
+    api = _free_port(socket.SOCK_STREAM)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "patrol_tpu_torch", "--api-addr", f"127.0.0.1:{api}",
+         "--node-addr", f"127.0.0.1:{_free_port(socket.SOCK_DGRAM)}",
+         "--http-front", "native", "--udp-backend", "asyncio",
+         "--buckets", "64", "--node-lanes", "4", "--device", "cpu", "--no-warmup"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        deadline = time.monotonic() + 90
+        answers = []
+        while len(answers) < 3:
+            assert proc.poll() is None, proc.communicate()[1]
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", api, timeout=5)
+                conn.request("POST", "/take/cli?rate=2:1h")
+                resp = conn.getresponse()
+                answers.append((resp.status, resp.read()))
+                conn.close()
+            except OSError:
+                assert time.monotonic() < deadline, "the node did not start serving"
+                time.sleep(0.1)
+        conn = http.client.HTTPConnection("127.0.0.1", api, timeout=5)
+        conn.request("GET", "/debug/vars")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+        assert answers == [(200, b"1"), (200, b"0"), (429, b"0")]
+        assert stats["http_requests"] >= 4 and stats["engine_hosted_buckets"] == 1
+        assert stats["engine_host_takes"] == 3 and stats["engine_ticks"] == 0
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
 
 
 def test_cli_starts_a_node_with_peers():

@@ -389,6 +389,7 @@ def _view(eng, names):
 
 def test_engine_raw_seam_matches_interval_path_and_reference(monkeypatch):
     monkeypatch.setattr(jengine_mod, "HOST_FASTPATH", False)
+    monkeypatch.setattr(tengine_mod, "HOST_FASTPATH", False)
     rng = np.random.default_rng(12)
     raw = [mk_packet(rng, 30, name_pool=40) for _ in range(12)]
     raw += hostile_corpus(3, 16)  # invalid riders change nothing

@@ -112,7 +112,13 @@ def run_faults(cmds, faults, seed):
     return nets
 
 
-def heal(nets):
+def heal(nets, budget):
+    # Keep the faults on until they have acted on some traffic: takes
+    # served from host lanes return at once, and the delta plane ships
+    # their state on its next interval.
+    while nets and not sum(fn.dropped + fn.duplicated + fn.reordered for fn in nets):
+        assert time.monotonic() < budget, "no datagram crossed the faulty links"
+        time.sleep(0.01)
     for fn in nets:
         fn.heal()
         fn.link()  # clean links; held packets still release
@@ -140,7 +146,7 @@ def test_two_native_port_nodes_converge(faults, budget):
         admitted = 2 * len(names) + drive_takes(
             cmds, names, 60, lambda c: PORT_RATE, seed=3
         )
-        heal(nets)
+        heal(nets, budget)
         view = converge(cmds, names, budget, retrigger=faults)
         assert admitted == 2 * len(names) + 60
         assert taken_tokens(view) == admitted
@@ -166,6 +172,7 @@ def test_native_port_node_against_native_jax_node(monkeypatch, faults, budget):
     # Host fast path off on the JAX node: every take rides its device
     # queue, as on the port.
     monkeypatch.setattr(jengine_mod, "HOST_FASTPATH", False)
+    monkeypatch.setattr(tengine_mod, "HOST_FASTPATH", False)
     addrs = [f"127.0.0.1:{free_port()}" for _ in range(2)]
     nodes = []
     try:
@@ -186,7 +193,7 @@ def test_native_port_node_against_native_jax_node(monkeypatch, faults, budget):
         admitted = 2 * len(names) + drive_takes(
             cmds, names, 64, lambda c: rates[id(c)], seed=2
         )
-        heal(nets)
+        heal(nets, budget)
         view = converge(cmds, names, budget, retrigger=faults)
         assert admitted == 2 * len(names) + 64
         assert taken_tokens(view) == admitted

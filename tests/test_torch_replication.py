@@ -45,6 +45,7 @@ from patrol_tpu_torch.net.faultnet import FaultNet
 from patrol_tpu_torch.net.v1node import V1Node
 from patrol_tpu_torch.ops import wire
 from patrol_tpu_torch.ops.rate import Rate as TRate
+from patrol_tpu_torch.runtime import engine as tengine_mod
 from patrol_tpu_torch.utils import profiling
 
 BUCKETS, NODES = 128, 4
@@ -93,10 +94,12 @@ class Node:
 
 
 def port_cmd(addr, addrs, **kw):
-    # These cases run the asyncio backend (``auto`` now takes the native
-    # one when its library loads; tests/test_torch_native_replication.py
-    # runs that).
+    # These cases run the asyncio backend and the asyncio HTTP front
+    # (``auto`` takes the native ones when the host library loads;
+    # tests/test_torch_native_replication.py and
+    # tests/test_torch_native_http.py run those).
     kw.setdefault("udp_backend", "asyncio")
+    kw.setdefault("http_front", "python")
     return TCommand(
         api_addr="127.0.0.1:0", node_addr=addr, peer_addrs=addrs,
         clock=lambda: FROZEN, config=TConfig(BUCKETS, NODES),
@@ -291,6 +294,7 @@ def test_mixed_cluster_converges(monkeypatch, faults, budget):
     # Host fast path off on the JAX node: every take rides its device
     # queue, as on the port, so bucket creation races no host lanes.
     monkeypatch.setattr(jengine_mod, "HOST_FASTPATH", False)
+    monkeypatch.setattr(tengine_mod, "HOST_FASTPATH", False)
     addrs = [f"127.0.0.1:{free_port()}" for _ in range(2)]
     nodes = []
     try:

@@ -23,6 +23,7 @@ from patrol_tpu_torch.models.limiter import NANO
 from patrol_tpu_torch.models.limiter import LimiterConfig as TConfig
 from patrol_tpu_torch.ops import rate as trate
 from patrol_tpu_torch.ops import wire as twire
+from patrol_tpu_torch.runtime import engine as tengine_mod
 from patrol_tpu_torch.runtime.bucket import Bucket as TBucket
 from patrol_tpu_torch.runtime.engine import DeviceEngine as TEngine
 from patrol_tpu_torch.runtime.repo import TPURepo as TRepo
@@ -124,6 +125,7 @@ class Clock:
 
 def test_repo_seam_matches_reference(monkeypatch):
     monkeypatch.setattr(jengine_mod, "HOST_FASTPATH", False)
+    monkeypatch.setattr(tengine_mod, "HOST_FASTPATH", False)
 
     def drive(repo, bucket_cls, rate_cls):
         out = []
