@@ -43,7 +43,14 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    whole int32 range, 8192 unique rows (one out of range), ``w0`` of both
    residues mod 4, both inner functions bit for bit against the plain
    version and the library call, timed also with cold rows and, for
-   ``pairmax``, beside ``pair_join`` on the same updates.
+   ``pairmax``, beside ``pair_join`` on the same updates. Last, the
+   lifecycle probe at K = 8,192 (GC_SWEEP_MAX) candidates on the 1M × 64
+   state, over every verdict case (full, spent, over capacity, zero rate,
+   capacity-0 padding, ``now`` before ``created + elapsed``, int64-wrapping
+   sums, an fp64 corpus on the edge of the verdict, wrapped and clamped
+   rows) at ``node_slot`` 0, 31, 32 and 63, and at N = 1, 31, 33 lanes on
+   a small state; all four outputs bit for bit, timed beside its plain
+   version, its bound and its floor (one block of candidates).
 3. The main path: the port's ``Command`` serving on the asyncio front
    (host fast path off, see 3f)
    (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
@@ -116,6 +123,21 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    launch must carry a hosted entry, the nodes must converge as in 3c,
    and every admitted take must be in a lane; the launches with and
    without a hosted entry and the entries absorbed are printed.
+3h. The bucket lifecycle: one engine at 1M x 64 on the card at the
+   defaults (host lanes in the native store, GC at its default knobs),
+   at a stepped clock. (a) 200,000 device rows bound by raw dv2 ingest,
+   4,000 host-resident rows by takes (a quarter also spent through the
+   C++ take path), 64 rows promoted with own-lane spend; (b) the clock
+   past the refill and GC_IDLE, four sweeps at the feeder's cadence, then
+   forced sweeps until no candidate is left: every bucket must be
+   reclaimed, the probe kernel launched once for each sweep with device
+   candidates; (c) 1,000 reclaimed names taken again (each own lane must
+   resume at its tombstone) and 512 ingested again; (d) a bucket budget
+   just above the bound count, then 2,000 new names: sheds counted; (e)
+   the node saved to a temp directory and restored into a fresh engine on
+   the card (planes, directory and tombstones equal). (a)-(d) replay on a
+   CPU engine: outcomes, each sweep's reclaims, the bound set, tombstones
+   and final planes must be equal. Phases 3-3g pin the GC window to 0.
 3d. The probe's entry point (``patrol_tpu_torch.scripts.probe_dma_scatter``,
    ``--device cuda``) at 1M × 256 lanes, K = 8192: ``row_rmw`` must have
    launched exactly once per call the probe made, and ``pairmax`` through
@@ -530,6 +552,147 @@ def take_edge_checks(torch, tk, dev, rng):
                   check_equal(torch, f"{tag} pn", pk, pp),
                   check_equal(torch, f"{tag} elapsed", ek, ep))
         check(int((out_k[1] >= 1).sum()) > 50, f"{tag}: the corpus admits too little")
+    return {"cases": len(cases), "max_abs_err": err}
+
+
+# -- phase 2: the lifecycle probe against its plain version -------------------
+
+GC_K = 8192  # GC_SWEEP_MAX: the candidates one sweep probes
+
+
+def lifecycle_inputs(rng, buckets=BUCKETS, lanes=LANES, k=GC_K):
+    """State and K probe candidates over every verdict case, in equal
+    parts: full (spend refilled), spent (refill short), over capacity
+    (merged grants past it), zero rate (per 0, or a capacity under one
+    token), capacity-0 padding, ``now`` before ``created + elapsed``,
+    int64-wrapping lane sums, and an fp64 refill corpus whose grant lands
+    within a nanotoken of the distance to capacity. Rows are distinct and
+    a few lie in ``[-B, 0)`` (wrapped) or past ``B`` (clamped).
+    → (pn, el, cols int64[5, K]: rows, now, per, cap, created)."""
+    pn = np.zeros((buckets, lanes, 2), np.int64)
+    el = np.zeros(buckets, np.int64)
+    rows = rng.choice(np.arange(1, buckets), k, replace=False)
+    now = 1000 * NANO + rng.integers(0, 100 * NANO, k)
+    per = rng.choice([NANO, 3 * NANO + 1, 60 * NANO], k)
+    cap = rng.choice([1, 10, 1000], k) * NANO
+    created = rng.integers(0, 500 * NANO, k)
+    cases = np.arange(k) % 8
+    spend = rng.integers(1, 4 * NANO, (k, lanes))
+    pn[rows, :, 1] = np.where(cases[:, None] < 3, spend // lanes, 0)
+    el[rows] = rng.integers(0, 400 * NANO, k)
+    # 0 full: a whole period since the last refill covers the spend.
+    c = cases == 0
+    el[rows[c]] = 0
+    created[c] = now[c] - per[c] * 2
+    # 1 spent: no time since the last refill.
+    c = cases == 1
+    created[c] = now[c] - el[rows[c]]
+    # 2 over capacity: merged grants past the capacity.
+    c = cases == 2
+    pn[rows[c], :, 0] = rng.integers(NANO, 2 * NANO, (int(c.sum()), lanes))
+    # 3 zero rate: per 0, or a capacity under one token.
+    c = cases == 3
+    per[c] = np.where(rng.random(int(c.sum())) < 0.5, 0, per[c])
+    cap[c] = np.where(per[c] == 0, cap[c], rng.integers(1, NANO, int(c.sum())))
+    pn[rows[c], 0, 1] = 5
+    # 4 capacity-0 padding (the row's own values are still gathered).
+    c = cases == 4
+    cap[c] = 0
+    pn[rows[c]] = rng.integers(0, 4 * NANO, (int(c.sum()), lanes, 2))
+    # 5 now before created + elapsed: no refill at all.
+    c = cases == 5
+    created[c] = now[c] + rng.integers(1, 10 * NANO, int(c.sum()))
+    pn[rows[c], :, 1] = rng.integers(0, NANO // lanes, (int(c.sum()), lanes))
+    # 6 int64-wrapping sums.
+    c = cases == 6
+    pn[rows[c]] = rng.integers(1 << 60, 1 << 62, (int(c.sum()), lanes, 2))
+    # 7 fp64 corpus: grant = floor(delta / interval * 1e9) near missing.
+    c = np.flatnonzero(cases == 7)
+    intervals = rng.choice([1, 3, 7, 999_999_937, 10**12 + 39], c.size)
+    cap[c] = NANO  # freq 1, interval = per
+    per[c] = intervals
+    el[rows[c]] = 0
+    created[c] = 0
+    mult = rng.choice([1, 3, 10**6 + 1], c.size)
+    now[c] = np.clip(intervals * mult + rng.integers(-1, 2, c.size), 0, (1 << 62) - 1)
+    grant = np.floor(np.clip(now[c].astype(np.float64) / intervals.astype(np.float64)
+                             * float(NANO), 0, 2.0**62)).astype(np.int64)
+    missing = grant + rng.integers(-1, 2, c.size)  # taken = missing: verdict on the edge
+    pn[rows[c]] = 0
+    pn[rows[c], 0, 1] = missing
+    # A few rows by index semantics: wrapped negatives and clamped ones.
+    rows = rows.copy()
+    rows[1:33:8] = rows[1:33:8] - buckets
+    rows[2:34:8] = buckets + rng.integers(0, 5, 4)
+    return pn, el, np.stack([rows, now, per, cap, created]).astype(np.int64)
+
+
+def lifecycle_compare(torch, lops, pn_t, el_t, cols_t, slot, tag):
+    """Kernel against plain on one probe; → max_abs_err over the four
+    outputs, and the kernel's verdicts."""
+    state = lops.LimiterState(pn_t, el_t)
+    probe = lops.LifecycleProbe(*cols_t.unbind(0))
+    kv = lops.lifecycle_probe(state, probe, slot)
+    pv = lops.lifecycle_probe_plain(state, probe, slot)
+    torch.cuda.synchronize()
+    err = 0
+    for name, a, b in zip(kv._fields, kv, pv):
+        err = max(err, check_equal(torch, f"{tag} {name}", a.to(torch.int64), b.to(torch.int64)))
+    return err, kv.full
+
+
+def lifecycle_checks(torch, lk, lops, dev, rng):
+    pn, el, cols = lifecycle_inputs(rng)
+    pn_t, el_t = torch.from_numpy(pn).to(dev), torch.from_numpy(el).to(dev)
+    cols_t = torch.from_numpy(cols).to(dev)
+    err = 0
+    for slot in (0, 31, 32, 63):
+        e, full = lifecycle_compare(torch, lops, pn_t, el_t, cols_t, slot,
+                                    f"lifecycle_probe node_slot={slot}")
+        err = max(err, e)
+    nfull = int(full.sum())
+    check(GC_K // 8 < nfull < GC_K * 7 // 8, f"lifecycle corpus is one-sided: {nfull} full")
+    k = cols.shape[1]
+    out = torch.empty(lk.output_bytes(k), dtype=torch.uint8, device=dev)
+    args = (pn_t, el_t, *cols_t.unbind(0))
+    state = lops.LimiterState(pn_t, el_t)
+    probe = lops.LifecycleProbe(*cols_t.unbind(0))
+    # The floor: the same launch over one block of candidates.
+    small = [c[:8].contiguous() for c in cols_t.unbind(0)]
+    out8 = torch.empty(lk.output_bytes(8), dtype=torch.uint8, device=dev)
+    # Bytes: each distinct gathered row's lane plane and elapsed once, the
+    # probe's five columns and the 25-byte verdicts once.
+    g = cols[0].astype(np.int32).astype(np.int64)
+    g = np.clip(np.where(g < 0, g + BUCKETS, g), 0, BUCKETS - 1)
+    nbytes = len(np.unique(g)) * (LANES * 16 + 8) + k * 40 + k * 25
+    res = {
+        "ms": device_ms(torch, lambda: lk.probe(*args, 0, out=out)),
+        "plain_ms": device_ms(torch, lambda: lops.lifecycle_probe_plain(state, probe, 0)),
+        "floor_ms": device_ms(torch, lambda: lk.probe(pn_t, el_t, *small, 0, out=out8)),
+        "library_ms": None,
+        "bytes": nbytes,
+        "ops": k * (2 * LANES + 40),
+        "max_abs_err": err,
+        "full": nfull,
+        "k": k,
+    }
+    del pn_t, el_t, cols_t, out
+    return res
+
+
+def lifecycle_edge_checks(torch, lk, lops, dev, rng):
+    """The probe at N = 1, 31 and 33 lanes (the warp's ragged edge) with
+    the own lane first and last, on a small state (4096 buckets, K = 512),
+    bit for bit against its plain version."""
+    err = 0
+    cases = [(n, slot) for n in (1, 31, 33) for slot in sorted({0, n - 1})]
+    for n, slot in cases:
+        pn, el, cols = lifecycle_inputs(rng, EDGE_BUCKETS, n, 512)
+        e, _ = lifecycle_compare(
+            torch, lops, torch.from_numpy(pn).to(dev), torch.from_numpy(el).to(dev),
+            torch.from_numpy(cols).to(dev), slot, f"lifecycle_probe N={n} node_slot={slot}",
+        )
+        err = max(err, e)
     return {"cases": len(cases), "max_abs_err": err}
 
 
@@ -1831,6 +1994,300 @@ def run_promotion_leg(Command, LimiterConfig, engine_mod) -> dict:
             "launches": launches, **counts}
 
 
+# -- phase 3h: the bucket lifecycle on the card ---------------------------------
+
+GC_RAW_NAMES = 200_000  # device rows bound by raw ingest
+GC_HOST_NAMES = 4_000  # host-resident rows bound by takes
+GC_RATE = (10, NANO)  # 10 tokens a second
+GC_RETAKES = 1_000  # reclaimed names taken again
+GC_REINGEST = 512  # reclaimed raw names ingested again
+GC_SHED_OFFER = 2_000  # new names offered at the hard watermark
+
+
+def lifecycle_raw_trace(rng, names, seq0=1):
+    """One dv2 entry for each name (lanes 1..63, capacity 10 tokens), each
+    with added >= taken: wire deltas carry no rate period, so such a row is
+    reclaimable by its standing balance alone. → planes, lengths."""
+    from patrol_tpu_torch.ops import wire
+
+    n = len(names)
+    lanes = rng.integers(1, LANES, n)
+    taken = rng.integers(0, 1 << 40, n)
+    added = taken + rng.integers(0, NANO, n)
+    elapsed = rng.integers(1, 1 << 40, n)
+    ents = [
+        wire.DeltaEntry(name, int(s), GC_RATE[0] * NANO, int(a), int(t), int(e))
+        for name, s, a, t, e in zip(names, lanes, added, taken, elapsed)
+    ]
+    datagrams = []
+    at = 0
+    while at < n:
+        data, packed = wire.encode_delta_packet(1, seq0 + len(datagrams), (), ents[at:],
+                                                max_size=DV2_ROW)
+        at += packed
+        datagrams.append(data)
+    return to_planes(datagrams)
+
+
+def wait_sweep(eng, sweeps_before: int, clock, window_ns: int) -> int:
+    """Step the clock past the GC window and wake the feeder through the
+    host-served paths' seam until its cadence has run a sweep; → the
+    engine's sweep count."""
+    deadline = time.monotonic() + 60
+    while True:
+        clock.now += window_ns + 1
+        eng._kick_gc_if_due(clock.now)
+        t_end = time.monotonic() + 5
+        while time.monotonic() < t_end:
+            n = eng.lifecycle_stats()["engine_gc_sweeps"]
+            if n > sweeps_before:
+                check(eng.flush(60), "flush after a cadence sweep timed out")
+                return n
+            time.sleep(0.001)
+        check(time.monotonic() < deadline, "the feeder's GC cadence never swept")
+
+
+def lifecycle_sequence(eng, clock, traces, profile=False) -> dict:
+    """Phase 3h's steps (a)-(d) on one engine at the defaults (host lanes
+    in the native store, the GC knobs at their defaults, the promote knobs
+    lowered to PROMO_THRESHOLD), at a stepped clock. → every take outcome,
+    the reclaimed count of each sweep, and the phase's counts."""
+    from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.ops.rate import Rate
+    from patrol_tpu_torch.utils import histogram as hist_mod
+
+    planes, lengths, re_planes, re_lengths = traces
+    rate = Rate(freq=GC_RATE[0], per_ns=GC_RATE[1])
+    prate = Rate(freq=PROMO_RATE[0], per_ns=PROMO_RATE[1])
+    window = eng._gc_window_ns
+    out: dict = {"outcomes": [], "sweep_reclaims": []}
+
+    def takes(names, r, counts, phase):
+        for lo in range(0, len(names), 512):
+            part = names[lo:lo + 512]
+            res = eng.submit_takes_batch(part, [r] * len(part), counts[lo:lo + 512],
+                                         now_ns=clock.now)
+            check(res is not None, "the pool is spent")
+            for name, (t, created) in zip(part, res):
+                check(t.wait(60), "a take ticket never completed")
+                out["outcomes"].append((phase, name, t.remaining, t.ok, created, t.shed))
+
+    # (a) Bind: 200,000 device rows by raw ingest, 4,000 host-resident rows
+    # by takes (a quarter also spent in front), 64 promoted rows.
+    accepted, _ = run_raw_ingest(eng, planes, lengths)
+    out["raw_accepted"] = sum(accepted)
+    host = [f"gh{i:05d}" for i in range(GC_HOST_NAMES)]
+    takes(host, rate, [1 + i % 3 for i in range(len(host))], "bind")
+    for name in host[:GC_HOST_NAMES // 4]:
+        got = probe_take(eng, name, rate, 2, clock.now)
+        out["outcomes"].append(("front", name, got))
+    promo = [f"gp{i:02d}" for i in range(PROMO_NAMES)]
+    takes(promo, prate, [1] * len(promo), "bind")
+    for name in promo:
+        for _ in range(PROMO_BURST):
+            got = probe_take(eng, name, prate, 1, clock.now)
+            if got is None:  # promoted mid-burst: the take rides the device
+                t = eng.submit_take(name, prate, 1, now_ns=clock.now)[0]
+                check(t.wait(60), "a take ticket never completed")
+                got = (t.remaining, t.ok)
+            out["outcomes"].append(("burst", name, got))
+    eng.drain_native_promotions()
+    check(eng.flush(60), "the promotion drain did not finish")
+    out["promotions"] = eng.promotions
+    out["bound"] = len(eng.directory)
+    hosted_names = {eng.directory.name_of(r) for r in list(eng._hosted)}
+
+    # (b) Sweep: past the refill and GC_IDLE, the feeder's cadence, then
+    # forced sweeps until no candidate is left.
+    clock.now += 10 * NANO
+    probe_calls = [0]
+    orig_probe = eng._probe_device_rows
+
+    def counted_probe(*args):
+        probe_calls[0] += 1
+        return orig_probe(*args)
+
+    eng._probe_device_rows = counted_probe
+    launches0 = _build.LAUNCHES["lifecycle_probe"]
+    hist0 = hist_mod.GC_SWEEP.count
+    t_sweep = time.perf_counter()
+    sweeps = eng.lifecycle_stats()["engine_gc_sweeps"]
+    reclaimed0 = 0
+    for _ in range(4):
+        sweeps = wait_sweep(eng, sweeps, clock, window)
+        now_reclaimed = eng.lifecycle_stats()["engine_gc_reclaimed"]
+        out["sweep_reclaims"].append(("cadence", now_reclaimed - reclaimed0))
+        reclaimed0 = now_reclaimed
+    out["cadence_sweeps"] = sweeps
+    window_prof = ProfileWindow(kernels=("lifecycle_probe_kernel",)) if profile else None
+    forced = 0
+    while forced < 80:
+        n = eng.gc_sweep(force=True)
+        forced += 1
+        out["sweep_reclaims"].append(("forced", n))
+        if n == 0 and eng.directory.gc_candidates(clock.now, 0, 1)[0].size == 0:
+            break
+    if window_prof is not None:
+        out["profile"] = window_prof.close(sweeps=forced)
+    out["sweep_wall_s"] = time.perf_counter() - t_sweep
+    eng._probe_device_rows = orig_probe
+    out["forced_sweeps"] = forced
+    out["probe_calls"] = probe_calls[0]
+    out["probe_launches"] = _build.LAUNCHES["lifecycle_probe"] - launches0
+    st = eng.lifecycle_stats()
+    out["reclaimed"] = st["engine_gc_reclaimed"]
+    out["reclaimed_host"] = sum(eng.directory.lookup(n) is None for n in hosted_names)
+    out["reclaimed_device"] = out["reclaimed"] - out["reclaimed_host"]
+    out["tombstones"] = st["engine_gc_tombstones"]
+    out["bound_after_sweeps"] = len(eng.directory)
+    # The process's histogram: no sweep ran before this phase's first run.
+    out["gc_sweep_ns"] = hist_mod.GC_SWEEP.summary()
+    out["gc_sweep_count"] = hist_mod.GC_SWEEP.count - hist0
+
+    # (c) Re-create: take 1,000 reclaimed names again (the promoted ones and
+    # host ones, whose tombstones hold own-lane spend), and ingest 512
+    # reclaimed raw names again.
+    clock.now += NANO
+    tombs = eng.directory.export_tombstones()
+    again = promo + host[:GC_RETAKES - len(promo)]
+    takes(again, rate, [1] * len(again), "retake")
+    re_acc = eng.ingest_raw_planes(re_planes, re_lengths)
+    check(eng.flush(60), "flush after the re-creation timed out")
+    out["reingest_accepted"] = re_acc
+    own = []
+    for name in again:
+        states = {s.origin_slot: s for s in eng.snapshot(name)}
+        own.append(states[0].lane_taken_nt if 0 in states else 0)
+    out["retake_own_taken"] = own
+    out["retake_tomb_taken"] = [int(tombs[n][1]) for n in again]
+    out["tombstones_after_recreate"] = eng.lifecycle_stats()["engine_gc_tombstones"]
+
+    # (d) Shed: a hard watermark just above the bound count, then new names.
+    sweeps = eng.lifecycle_stats()["engine_gc_sweeps"]
+    eng.configure_lifecycle(max_buckets=len(eng.directory) + 8)
+    fresh = [f"gn{i:05d}" for i in range(GC_SHED_OFFER)]
+    takes(fresh, rate, [1] * len(fresh), "shed")
+    sweeps = wait_sweep(eng, sweeps, clock, window)  # a sweep under pressure
+    st = eng.lifecycle_stats()
+    out["shed_tickets"] = sum(1 for o in out["outcomes"] if o[0] == "shed" and o[5])
+    out["gc_shed"] = st["engine_gc_shed"]
+    out["pressure_sweeps"] = st["engine_gc_sweeps"] - out["cadence_sweeps"] - forced
+    eng.configure_lifecycle(max_buckets=0)
+    check(eng.flush(60), "the final flush timed out")
+    return out
+
+
+def run_lifecycle_phase(engine_mod, torch) -> dict:
+    """3h: one node at 1,000,000 x 64 on the card at the defaults (host
+    lanes in the native store, GC on at its default knobs), at a stepped
+    clock, through :func:`lifecycle_sequence`; then (e) a checkpoint saved
+    and restored into a fresh engine on the card. (a)-(d) replay on a CPU
+    engine with the same clock steps: outcomes, each sweep's reclaims, the
+    bound set, tombstones and final planes must be equal."""
+    import shutil
+    import tempfile
+
+    from patrol_tpu_torch.models.limiter import LimiterConfig
+    from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.runtime import checkpoint as ckpt
+    from patrol_tpu_torch.runtime import hoststore
+    from patrol_tpu_torch.runtime.engine import DeviceEngine
+
+    rng = np.random.default_rng(19)
+    raw_names = [f"g{i:09d}" for i in range(GC_RAW_NAMES)]
+    planes, lengths = lifecycle_raw_trace(rng, raw_names)
+    re_planes, re_lengths = lifecycle_raw_trace(rng, raw_names[:GC_REINGEST], seq0=10_000)
+    traces = (planes, lengths, re_planes, re_lengths)
+    cfg = LimiterConfig(buckets=BUCKETS, nodes=LANES)
+    saved = engine_mod.HOST_PROMOTE_TAKES, hoststore.NATIVE_PROMOTE_TAKES
+    engine_mod.HOST_PROMOTE_TAKES = hoststore.NATIVE_PROMOTE_TAKES = PROMO_THRESHOLD
+    t0 = 1_700_000_000 * NANO
+    try:
+        clock = Clock(t0)
+        eng = DeviceEngine(cfg, node_slot=0, clock=clock, device="cuda", native_host=True)
+        try:
+            check(eng._native_store is not None, "the native host store was not taken")
+            check(eng._gc_window_ns > 0, "GC is not on at the defaults")
+            eng.warmup()
+            _build.reset_launches()
+            t = time.perf_counter()
+            gpu = lifecycle_sequence(eng, clock, traces, profile=True)
+            gpu["seconds"] = time.perf_counter() - t
+            gpu["launches"] = dict(_build.LAUNCHES)
+            gpu_state = (dict(eng.directory._rows), eng.directory.export_tombstones(),
+                         *eng.snapshot_planes())
+            # (e) The checkpoint round trip, on the card.
+            tmp = tempfile.mkdtemp(prefix="patrol-ckpt-")
+            try:
+                t = time.perf_counter()
+                ckpt.save(tmp, eng, membership={"self_slot": 0, "epoch": 0})
+                gpu["save_s"] = time.perf_counter() - t
+                gpu["checkpoint_bytes"] = sum(
+                    os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+                eng2 = DeviceEngine(cfg, node_slot=0, clock=Clock(clock.now), device="cuda",
+                                    native_host=True)
+                try:
+                    t = time.perf_counter()
+                    gpu["restored_buckets"] = ckpt.restore(tmp, eng2)
+                    gpu["restore_s"] = time.perf_counter() - t
+                    pn2, el2 = eng2.snapshot_planes()
+                    check(np.array_equal(pn2, gpu_state[2]) and np.array_equal(el2, gpu_state[3]),
+                          "the restored planes differ from the saved node's")
+                    check(eng2.directory.export_tombstones() == gpu_state[1],
+                          "the restored tombstones differ from the saved node's")
+                    check(dict(eng2.directory._rows) == gpu_state[0],
+                          "the restored directory differs from the saved node's")
+                    del pn2, el2
+                finally:
+                    eng2.stop()
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+        finally:
+            eng.stop()
+        del eng
+        torch.cuda.empty_cache()
+        cclock = Clock(t0)
+        ceng = DeviceEngine(cfg, node_slot=0, clock=cclock, device="cpu", native_host=True)
+        try:
+            cpu = lifecycle_sequence(ceng, cclock, traces)
+            cpu_state = (dict(ceng.directory._rows), ceng.directory.export_tombstones(),
+                         *ceng.snapshot_planes())
+        finally:
+            ceng.stop()
+    finally:
+        engine_mod.HOST_PROMOTE_TAKES, hoststore.NATIVE_PROMOTE_TAKES = saved
+
+    for key in ("outcomes", "sweep_reclaims", "reclaimed", "reclaimed_host", "tombstones",
+                "retake_own_taken", "shed_tickets", "gc_shed", "raw_accepted",
+                "reingest_accepted", "promotions"):
+        check(gpu[key] == cpu[key], f"3h: {key} differs from the CPU replay")
+    check(gpu_state[0] == cpu_state[0], "3h: the bound set differs from the CPU replay")
+    check(gpu_state[1] == cpu_state[1], "3h: the tombstones differ from the CPU replay")
+    check(np.array_equal(gpu_state[2], cpu_state[2]) and np.array_equal(gpu_state[3], cpu_state[3]),
+          "3h: the final planes differ from the CPU replay")
+    check(gpu["promotions"] == PROMO_NAMES, f"3h: {gpu['promotions']} promotions")
+    check(gpu["reclaimed"] >= GC_RAW_NAMES, f"3h: only {gpu['reclaimed']} reclaimed")
+    check(gpu["reclaimed_host"] > 0 and gpu["reclaimed_device"] >= GC_RAW_NAMES,
+          f"3h: reclaimed {gpu['reclaimed_host']} host, {gpu['reclaimed_device']} device rows")
+    check(gpu["bound_after_sweeps"] == 0, f"3h: {gpu['bound_after_sweeps']} rows survived the sweeps")
+    check(gpu["probe_launches"] > 0 and gpu["probe_launches"] == gpu["probe_calls"],
+          f"3h: {gpu['probe_launches']} probe launches for {gpu['probe_calls']} sweeps "
+          "with device candidates")
+    # The re-seed: a re-taken bucket's own lane resumes at its tombstone.
+    check(all(o == t + NANO for o, t in zip(gpu["retake_own_taken"], gpu["retake_tomb_taken"])),
+          "3h: a re-taken bucket's own lane did not resume at its tombstone")
+    check(sum(t > 0 for t in gpu["retake_tomb_taken"]) >= GC_RETAKES // 2,
+          "3h: too few re-taken buckets had own-lane spend")
+    check(gpu["tombstones_after_recreate"] == gpu["tombstones"] - GC_RETAKES - GC_REINGEST,
+          "3h: re-creation did not consume the tombstones")
+    check(gpu["shed_tickets"] > 0 and gpu["gc_shed"] >= gpu["shed_tickets"],
+          f"3h: {gpu['shed_tickets']} sheds")
+    gpu.pop("outcomes")
+    for key in ("retake_own_taken", "retake_tomb_taken"):
+        gpu.pop(key)
+    return gpu
+
+
 def fold_timing(engine_mod, reps: int = 5) -> dict:
     """The tick fold on one clustered batch, 131,072 deltas over 64 rows
     and 64 lanes (the reference's motivating shape): host ns of the numpy
@@ -1881,6 +2338,8 @@ def main() -> int:
     from patrol_tpu_torch.ops import _build
     from patrol_tpu_torch.ops import ingest_kernel as ik
     from patrol_tpu_torch.ops import join_kernel as jk
+    from patrol_tpu_torch.ops import lifecycle as lops
+    from patrol_tpu_torch.ops import lifecycle_kernel as lk
     from patrol_tpu_torch.ops import row_rmw_kernel as rk
     from patrol_tpu_torch.ops import take_kernel as tk
     from patrol_tpu_torch.runtime import engine as engine_mod
@@ -1923,7 +2382,8 @@ def main() -> int:
     _build.lib()
     report["build_s"] = time.perf_counter() - t0
     report["build_log"] = (so.parent / "build.log").read_text() if (so.parent / "build.log").exists() else ""
-    report["ptxas"] = ptxas_lines(report["build_log"], ("take.cu", "decode_fold.cu", "join.cu"))
+    report["ptxas"] = ptxas_lines(report["build_log"],
+                                  ("take.cu", "decode_fold.cu", "join.cu", "lifecycle.cu"))
     report["join_sass"] = join_sass(so)
     sass = report["join_sass"]
     if sass is not None:
@@ -1949,6 +2409,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rmw = row_rmw_checks(torch, rk, dev, rng)
     torch.cuda.empty_cache()  # the 4.1 GB probe state and its copies
+    lrng = np.random.default_rng(20261017)
+    life = lifecycle_checks(torch, lk, lops, dev, lrng)
+    life["edges"] = lifecycle_edge_checks(torch, lk, lops, dev, lrng)
+    torch.cuda.empty_cache()
     log(f"joins: {json.dumps(joins)}")
     log(f"pair_join {pair['ms']:.4f} ms, row_join {row['ms']:.4f} ms, tick_join "
         f"{tick['ms']:.4f} ms (two launches {tick['two_launches_ms']:.4f} ms), ring warm "
@@ -1957,21 +2421,27 @@ def main() -> int:
         f"{dfold[512]['ms']:.4f} ms at P=512, {dfold[1]['ms']:.4f} ms at P=1 "
         f"(rejected at its length {dfold[1]['rejected_only_ms']:.4f} ms), row_rmw "
         f"{rmw['bcast']['ms']:.4f} ms bcast, {rmw['pairmax']['ms']:.4f} ms pairmax "
-        f"(pair_join on its updates {rmw['pairmax']['pair_join_ms']:.4f} ms)")
+        f"(pair_join on its updates {rmw['pairmax']['pair_join_ms']:.4f} ms), lifecycle_probe "
+        f"{life['ms']:.4f} ms at K={life['k']} (floor {life['floor_ms']:.4f} ms)")
     report["kernel_detail"] = {
         "pair_join": pair, "row_join": row, "tick_join": tick, "commit_ring": ring,
         "take_n": take,
         "decode_fold_p512": dfold[512], "decode_fold_p1": dfold[1],
         "decode_fold_edges": dfold["edges"],
         "row_rmw_bcast": rmw["bcast"], "row_rmw_pairmax": rmw["pairmax"],
+        "lifecycle_probe": life,
     }
 
     # 3. The main path. Phases 3, 3b, 3c and 3e run the asyncio front with
     # the host fast path off (the engine module's switch, as the tests set
     # it), as they did before host lanes and the native front became the
     # defaults, so their numbers stay comparable; 3f and 3g run the
-    # defaults.
+    # defaults. Phases 3-3g also pin the GC window to 0 (the feeder never
+    # sweeps), so their windows stay comparable with the runs before GC
+    # was on by default; 3h runs GC at its defaults.
     engine_mod.HOST_FASTPATH = False
+    gc_window = engine_mod.GC_WINDOW_NS
+    engine_mod.GC_WINDOW_NS = 0
     trace = make_trace(np.random.default_rng(7))
     clock_now = 1_700_000_000 * NANO
     cfg = LimiterConfig(buckets=BUCKETS, nodes=LANES)
@@ -2156,6 +2626,26 @@ def main() -> int:
           f"through hosted_mask {two_d['counters'].get('ingest_raw_hosted_absorbed', 0)}")
     torch.cuda.empty_cache()
 
+    # 3h. The bucket lifecycle at the defaults: bind, sweep, re-create,
+    # shed, checkpoint; replayed on a CPU engine.
+    engine_mod.GC_WINDOW_NS = gc_window
+    t0 = time.perf_counter()
+    lc = run_lifecycle_phase(engine_mod, torch)
+    lc["phase_s"] = time.perf_counter() - t0
+    report["lifecycle"] = lc
+    log(f"3h lifecycle: {json.dumps(lc, default=str)}")
+    prof = lc.get("profile", {}).get("kernels", {}).get("lifecycle_probe_kernel", {})
+    print(f"lifecycle 3h: bound {lc['bound']} reclaimed {lc['reclaimed']} (device "
+          f"{lc['reclaimed_device']}, host {lc['reclaimed_host']}) in {lc['cadence_sweeps']} "
+          f"cadence + {lc['forced_sweeps']} forced sweeps, probe launches "
+          f"{lc['probe_launches']} (device time {prof.get('device_us')} us over "
+          f"{prof.get('count')}), sweep p50 {lc['gc_sweep_ns']['p50']} ns p99 "
+          f"{lc['gc_sweep_ns']['p99']} ns, tombstones {lc['tombstones']}, sheds "
+          f"{lc['shed_tickets']}, pressure sweeps {lc['pressure_sweeps']}, checkpoint "
+          f"{lc['checkpoint_bytes']} B save {lc['save_s']:.3f} s restore {lc['restore_s']:.3f} s; "
+          f"equal to the CPU replay; phase {lc['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # 3d. The probe's entry point on the card: 1M x 256 lanes, K = 8192.
     from patrol_tpu_torch.scripts import probe_dma_scatter as probe_mod
 
@@ -2200,6 +2690,10 @@ def main() -> int:
         # Launches are those of the probe's entry point (phase 3d).
         ("row_rmw", "patrol_tpu_torch/csrc/row_rmw.cu", "scripts/probe_dma_scatter.py:86",
          rmw["pairmax"], probe_launches["row_rmw"]),
+        # Timed at K = 8192 (GC_SWEEP_MAX) on the 1M x 64 state; launches
+        # are those of phase 3h's sweeps.
+        ("lifecycle_probe", "patrol_tpu_torch/csrc/lifecycle.cu",
+         "patrol_tpu/ops/lifecycle.py:69", life, lc["launches"]["lifecycle_probe"]),
     ):
         b_ms, b_by = bound(m["bytes"], m["ops"])
         entry = {
@@ -2240,7 +2734,8 @@ def main() -> int:
                              ("3f_warm", res_leg["warm"]["launches"]),
                              ("3f_warm_1x1", res_leg["warm_1x1"]["launches"]),
                              ("3f_promotion", promo["launches"]),
-                             ("3g", two_d["launches"])):
+                             ("3g", two_d["launches"]),
+                             ("3h", lc["launches"])):
             if name in ("pair_join", "row_join", "tick_join"):
                 entry[f"launches_{path}"] = sum(counts[k] for k in ("pair_join", "row_join", "tick_join"))
             elif name != "row_rmw":
@@ -2263,6 +2758,9 @@ def main() -> int:
         if name == "take_n":
             entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
             entry["padding_only_ms"] = m["padding_only_ms"]
+        if name == "lifecycle_probe":
+            entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
+            entry["floor_ms"] = m["floor_ms"]
         kernels.append(entry)
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -96,7 +96,12 @@ def build_parser() -> argparse.ArgumentParser:
         default="30s",
         help="graceful shutdown timeout, Go duration syntax",
     )
-    p.add_argument("--checkpoint-dir", default=None, help="snapshot/restore directory (not yet ported)")
+    p.add_argument("--checkpoint-dir", default=None, help="snapshot/restore directory")
+    p.add_argument(
+        "--checkpoint-interval",
+        default="0",
+        help="periodic checkpoint interval, Go duration syntax (0 = at shutdown only)",
+    )
     p.add_argument(
         "--no-warmup",
         action="store_true",
@@ -131,6 +136,11 @@ def main(argv=None) -> int:
     except ValueError as exc:
         print(f"bad --shutdown-timeout: {exc}", file=sys.stderr)
         return 2
+    try:
+        checkpoint_ns = parse_duration(args.checkpoint_interval)
+    except ValueError as exc:
+        print(f"bad --checkpoint-interval: {exc}", file=sys.stderr)
+        return 2
 
     log = configure(args.log_env)
     cmd = Command(
@@ -146,6 +156,7 @@ def main(argv=None) -> int:
         log=log,
         http_front=args.http_front,
         checkpoint_dir=args.checkpoint_dir,
+        checkpoint_interval_s=checkpoint_ns / 1e9,
         warmup=not args.no_warmup,
         mesh_replicas=args.mesh_replicas,
         device=args.device,

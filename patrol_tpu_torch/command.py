@@ -7,8 +7,12 @@ into one process and supervises them: an asyncio task group with signal
 handling and a graceful-shutdown timeout. Used by the CLI and by
 in-process multi-node harnesses.
 
-The multi-device mesh engine and checkpoints are not ported yet: asking
-for either raises :class:`NotPortedError` before anything starts.
+With ``checkpoint_dir`` set, a node restores the checkpoint found there at
+boot (back on the lane its membership view names), saves one every
+``checkpoint_interval_s`` (0: only at shutdown) and one at shutdown.
+
+The multi-device mesh engine is not ported yet: asking for it raises
+:class:`NotPortedError` before anything starts.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ class Command:
     # h1 -> h2c Upgrade). "auto" = native when the library loads, else python.
     http_front: str = "auto"
     checkpoint_dir: Optional[str] = None
+    # Periodic checkpoint interval; 0 saves only at shutdown.
+    checkpoint_interval_s: float = 0.0
     # Build the kernels and launch each once at boot.
     warmup: bool = False
     mesh_replicas: int = 0
@@ -90,8 +96,6 @@ class Command:
             raise ValueError(f"unknown http front {self.http_front!r}")
         if self.mesh_replicas > 0:
             raise NotPortedError("--mesh-replicas > 0 is not yet ported")
-        if self.checkpoint_dir:
-            raise NotPortedError("checkpoints (--checkpoint-dir) are not yet ported")
 
     async def run(self, stop: Optional[asyncio.Event] = None) -> None:
         """Run until ``stop`` is set or SIGINT/SIGTERM arrives; then shut
@@ -104,11 +108,26 @@ class Command:
         stop = stop or asyncio.Event()
         self.started.clear()
 
+        from patrol_tpu_torch.runtime import checkpoint as ckpt
         from patrol_tpu_torch.utils import histogram as hist_mod
         from patrol_tpu_torch.utils import profiling
 
-        # Lane = rank of self in the sorted member list.
-        slots = SlotTable(self.node_addr, self.peer_addrs, max_slots=self.config.nodes)
+        # Lane = rank of self in the sorted member list, unless a checkpoint
+        # pins the node to its original lane: its checkpointed spend lives
+        # there, even when the peer list (or its own address) changed.
+        self_slot = None
+        mem = None
+        if self.checkpoint_dir and ckpt.exists(self.checkpoint_dir):
+            mem = ckpt.load_membership(self.checkpoint_dir)
+            if mem is not None and isinstance(mem.get("self_slot"), int):
+                self_slot = mem["self_slot"]
+        slots = SlotTable(
+            self.node_addr, self.peer_addrs, max_slots=self.config.nodes,
+            self_slot=self_slot,
+        )
+        if mem is not None:
+            # The epoch counter survives restarts (monotone).
+            slots.restore_epoch(mem.get("epoch"))
         node_name = self.node_name or self.node_addr
         hist_mod.set_node_identity(slots.self_slot, node_name)
         from patrol_tpu_torch.net import native_http
@@ -160,6 +179,15 @@ class Command:
         engine.on_broadcast = replicator.broadcast_states
         replicator.fleet.set_identity(node_name)
 
+        if self.checkpoint_dir and ckpt.exists(self.checkpoint_dir):
+            try:
+                n = ckpt.restore(self.checkpoint_dir, engine)
+            except BaseException:
+                replicator.close()
+                engine.stop()
+                raise
+            log.info("checkpoint restored", extra={"buckets": n, "dir": self.checkpoint_dir})
+
         if self.warmup:
             loop = asyncio.get_running_loop()
             t0 = loop.time()
@@ -187,6 +215,9 @@ class Command:
                 "buckets": len(engine.directory),
                 "node_slot": slots.self_slot,
                 "device": str(engine.device),
+                # Bucket lifecycle: reclaims, sheds, sweeps, compactions,
+                # tombstones, bytes in use against the budget, pressure.
+                **engine.lifecycle_stats(),
                 **profiling.COUNTERS.snapshot(),
                 **replicator.stats(),
                 "histograms": hist_mod.HISTOGRAMS.snapshot(),
@@ -245,9 +276,38 @@ class Command:
 
         log.info("API serving", extra={"addr": self.api_addr, "port": self.api_port})
         self.started.set()
+
+        def membership_view():
+            return replicator.membership.view()
+
+        ckpt_task = None
+        if self.checkpoint_dir and self.checkpoint_interval_s > 0:
+            loop = asyncio.get_running_loop()
+
+            async def periodic_checkpoint():
+                while True:
+                    await asyncio.sleep(self.checkpoint_interval_s)
+                    try:
+                        await loop.run_in_executor(
+                            None, ckpt.save, self.checkpoint_dir, engine, membership_view()
+                        )
+                    except Exception:  # pragma: no cover - the node keeps serving
+                        log.exception("periodic checkpoint failed")
+
+            ckpt_task = asyncio.ensure_future(periodic_checkpoint())
         try:
             await stop.wait()
         finally:
+            if ckpt_task is not None:
+                ckpt_task.cancel()
+                with contextlib.suppress(asyncio.CancelledError):
+                    await ckpt_task
+            if self.checkpoint_dir:
+                try:
+                    ckpt.save(self.checkpoint_dir, engine, membership_view())
+                    log.info("checkpoint saved", extra={"dir": self.checkpoint_dir})
+                except Exception:  # pragma: no cover - shutdown goes on
+                    log.exception("final checkpoint failed")
             log.info("shutting down")
             # Graceful-shutdown flush: re-broadcast the final state of
             # recently-active buckets (bounded, paced) BEFORE the transport

@@ -41,7 +41,7 @@ NVCC_FLAGS = [
 # name -> launches since the last reset_launches().
 LAUNCHES: Dict[str, int] = {
     "pair_join": 0, "row_join": 0, "tick_join": 0, "take_n": 0, "decode_fold": 0,
-    "row_rmw": 0,
+    "row_rmw": 0, "lifecycle_probe": 0,
 }
 
 _lib = None
@@ -153,8 +153,12 @@ def lib() -> ctypes.CDLL:
                 p, p, i64, i64, p, i64, i64, p, p, p, p, i64, p, p, p, p,
             ]
             cdll.patrol_row_rmw.argtypes = [p, i64, p, p, p, p, i64, ctypes.c_int, p]
+            cdll.patrol_lifecycle_probe.argtypes = [
+                p, p, i64, i64, i64, p, p, p, p, p, p, i64, p,
+            ]
             for fn in (cdll.patrol_join, cdll.patrol_take_n,
-                       cdll.patrol_decode_fold, cdll.patrol_row_rmw):
+                       cdll.patrol_decode_fold, cdll.patrol_row_rmw,
+                       cdll.patrol_lifecycle_probe):
                 fn.restype = ctypes.c_int
             _lib = cdll
         return _lib

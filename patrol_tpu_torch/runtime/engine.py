@@ -56,8 +56,18 @@ its device row is zeroed). With ``native_host=True`` the lanes live in
 the C++ store of ``runtime/hoststore.py``, which the native HTTP front
 serves takes from without entering Python.
 
-Not part of this package yet, and absent here: lifecycle GC and the
-memory budget (so no tombstone re-seeds), and the certified GCRA /
+Bucket lifecycle (on by default, ``GC_WINDOW_NS``): the feeder tick
+sweeps full, idle buckets at the GC window's cadence. Device-resident
+candidates go through one launch of the lifecycle probe kernel
+(ops/lifecycle.py), host-resident ones through its numpy twin; a
+reclaimed bucket leaves the device plane, the host lanes and the
+directory, and its own lane goes into a directory tombstone that
+re-seeds the row when the name is bound again, on every entry point.
+Under a memory budget (``MAX_BUCKETS``, ``STATE_BYTES_BUDGET``) sweeps
+run eight times as often past the soft watermark, and new names are shed
+with :class:`OverloadedError` at the hard one.
+
+Not part of this package yet, and absent here: the certified GCRA /
 concurrency / quota families (their entry points raise
 ``NotImplementedError``).
 """
@@ -89,6 +99,8 @@ from patrol_tpu_torch.ops import delta as delta_ops
 from patrol_tpu_torch.ops import ingest as ingest_ops
 from patrol_tpu_torch.ops import ingest_kernel
 from patrol_tpu_torch.ops import join_kernel
+from patrol_tpu_torch.ops import lifecycle as lifecycle_ops
+from patrol_tpu_torch.ops import lifecycle_kernel
 from patrol_tpu_torch.ops import merge as merge_mod
 from patrol_tpu_torch.ops import wire
 from patrol_tpu_torch.ops.merge import MergeBatch, merge_batch, merge_scalar_batch
@@ -101,9 +113,14 @@ from patrol_tpu_torch.ops.take import (
     take_n_batch,
 )
 from patrol_tpu_torch.runtime.bucket import ClockFn, system_clock
-from patrol_tpu_torch.runtime.directory import BucketDirectory, DirectoryFullError
+from patrol_tpu_torch.runtime.directory import (
+    BucketDirectory,
+    DirectoryFullError,
+    OverloadedError,
+)
 from patrol_tpu_torch.utils import histogram as hist
 from patrol_tpu_torch.utils import profiling
+from patrol_tpu_torch.utils import slo as slo_mod
 from patrol_tpu_torch.utils import trace as trace_mod
 
 log = logging.getLogger("patrol.engine")
@@ -165,6 +182,31 @@ HOST_DEMOTE_TAKES = int(
 HOST_DEMOTE_WINDOW_NS = int(
     float(os.environ.get("PATROL_HOST_DEMOTE_WINDOW_MS", 200)) * 1e6
 )
+
+# Bucket lifecycle: idle-bucket GC on the feeder tick. A bound bucket whose
+# reconstructed balance reaches its capacity (the IsZero predicate,
+# ops/lifecycle.py) is reclaimed from the device plane, the host lanes and
+# the directory. 0 turns the feeder's cadence off (gc_sweep() still runs
+# when called). Module globals, read when an engine is built; an engine
+# keeps its own copies (configure_lifecycle).
+GC_WINDOW_NS = int(float(os.environ.get("PATROL_GC_WINDOW_MS", 500)) * 1e6)
+# Buckets untouched this long are candidates at zero budget pressure;
+# pressure (and a forced sweep) drops the idleness requirement: the
+# predicate alone makes a reclaim safe, idleness keeps sweeps off warm rows.
+GC_IDLE_NS = int(float(os.environ.get("PATROL_GC_IDLE_MS", 1000)) * 1e6)
+# Candidates probed per sweep (one padded launch).
+GC_SWEEP_MAX = int(os.environ.get("PATROL_GC_SWEEP_MAX", 8192))
+# Memory budget: bound buckets and/or bytes (0: unenforced). Past the soft
+# watermark (GC_SOFT_FRAC of a budget) sweeps ignore idleness and run at
+# window/8; at the hard one new names are shed with OverloadedError (HTTP
+# 429 "overloaded") instead of growing state.
+MAX_BUCKETS = int(os.environ.get("PATROL_MAX_BUCKETS", 0))
+STATE_BYTES_BUDGET = int(os.environ.get("PATROL_STATE_BYTES_BUDGET", 0))
+GC_SOFT_FRAC = float(os.environ.get("PATROL_GC_SOFT_FRAC", 0.85))
+
+# Host-side directory bytes attributed to one bound row (name bytes and
+# the per-row columns): the byte budget's row class.
+_ROW_HOST_BYTES = 256 + 64
 
 BroadcastFn = Callable[[List[wire.WireState]], None]
 
@@ -908,6 +950,30 @@ class DeviceEngine:
         self._promoted_at: Dict[int, int] = {}
         self._dev_window: Dict[int, int] = {}
         self._demote_win_start: Optional[int] = None
+        # Checkpoint restore pauses idle demotion across its flush, load
+        # and join: a demotion's gather and zero in between would strand
+        # the restored spend in zeroed device rows.
+        self._demotion_paused = False
+        # Bucket lifecycle: the knobs are per-engine copies
+        # (configure_lifecycle); the sweep's counters change under
+        # _evict_mu, the lock that serializes every unbind/zero/recycle.
+        self._gc_window_ns = GC_WINDOW_NS
+        self._gc_idle_ns = GC_IDLE_NS
+        self._gc_sweep_max = GC_SWEEP_MAX
+        self._max_buckets = MAX_BUCKETS
+        self._bytes_budget = STATE_BYTES_BUDGET
+        self._gc_soft_frac = GC_SOFT_FRAC
+        self._gc_win_start: Optional[int] = None
+        self._gc_reclaimed = 0
+        self._gc_shed = 0
+        self._gc_sweeps = 0
+        self._gc_compactions = 0
+        # Set (under _cond) by the host-served paths at the GC window's
+        # rollover: they queue no feeder work, so without this wake-up a
+        # workload served from host lanes would never sweep.
+        self._gc_due = False
+        if self._max_buckets or self._bytes_budget:
+            slo_mod.SENTINEL.watch_budget(self._budget_snapshot)
         self._dispatch_ahead = DISPATCH_AHEAD
         self._commit_row_ns_ewma = 0.0
         self._commit_blocks = COMMIT_BLOCKS
@@ -960,6 +1026,16 @@ class DeviceEngine:
         )
         if res is None:
             raise DirectoryFullError("every bucket row is mid-flight")
+        row, fresh = res
+        # Unpinned creations re-seed here; the take path (pin=True) pops
+        # the tombstone itself, to write the seed into fresh host lanes
+        # before the first take commits.
+        if fresh and not pin and self.directory.has_tombstones():
+            seed = self._pop_tombstone_seed(name, row)
+            if seed is not None:
+                with self._cond:
+                    self._deltas.append(_Delta(row, self.node_slot, *seed))
+                    self._cond.notify()
         return res
 
     def _assign_pinned(self, name: str, now: int) -> Tuple[int, bool]:
@@ -974,6 +1050,328 @@ class DeviceEngine:
             ),
             len(names),
         )
+
+    # -- bucket lifecycle: idle-bucket GC and the memory budget -------------
+
+    def configure_lifecycle(
+        self,
+        window_ms: Optional[float] = None,
+        idle_ms: Optional[float] = None,
+        sweep_max: Optional[int] = None,
+        max_buckets: Optional[int] = None,
+        bytes_budget: Optional[int] = None,
+        soft_frac: Optional[float] = None,
+    ) -> None:
+        """Tune the lifecycle knobs of a live engine. Setting a budget
+        registers the engine with the SLO sentinel, so a watermark breach
+        fires its anomaly snapshot."""
+        if window_ms is not None:
+            self._gc_window_ns = int(window_ms * 1e6)
+        if idle_ms is not None:
+            self._gc_idle_ns = int(idle_ms * 1e6)
+        if sweep_max is not None:
+            self._gc_sweep_max = sweep_max
+        if max_buckets is not None:
+            self._max_buckets = max_buckets
+        if bytes_budget is not None:
+            self._bytes_budget = bytes_budget
+        if soft_frac is not None:
+            self._gc_soft_frac = soft_frac
+        if self._max_buckets or self._bytes_budget:
+            slo_mod.SENTINEL.watch_budget(self._budget_snapshot)
+
+    def state_bytes_in_use(self) -> int:
+        """Bytes of limiter state attributed to live buckets: device rows
+        (pn and elapsed), directory metadata, host-resident lanes and
+        tombstones -- what the byte budget is enforced against."""
+        n = self.config.nodes
+        row_bytes = n * 16 + 8 + _ROW_HOST_BYTES
+        _t_n, t_bytes = self.directory.tombstone_stats()
+        return (
+            len(self.directory) * row_bytes
+            + len(self._hosted) * (n * 16 + 64)
+            + t_bytes
+        )
+
+    def _budget_pressure(self) -> int:
+        """0: under budget, 1: soft watermark (GC ramps), 2: hard
+        watermark (new names shed)."""
+        hard = soft = False
+        if self._max_buckets:
+            bound = len(self.directory)
+            hard |= bound >= self._max_buckets
+            soft |= bound >= int(self._max_buckets * self._gc_soft_frac)
+        if self._bytes_budget:
+            in_use = self.state_bytes_in_use()
+            hard |= in_use >= self._bytes_budget
+            soft |= in_use >= int(self._bytes_budget * self._gc_soft_frac)
+        return 2 if hard else (1 if soft else 0)
+
+    def _budget_snapshot(self) -> dict:
+        """The SLO sentinel's budget provider (utils/slo.py)."""
+        return {
+            "state_bytes_in_use": self.state_bytes_in_use(),
+            "state_bytes_budget": self._bytes_budget,
+            "buckets_bound": len(self.directory),
+            "max_buckets": self._max_buckets,
+            "over": self._budget_pressure() >= 2,
+        }
+
+    def _shed_new_names(self, now: int, n: int = 1) -> bool:
+        """Hard-watermark check for NEW names: one emergency sweep (at most
+        one per window/8) may free budget; if the pressure holds, the
+        caller sheds the admission. Known names are never shed."""
+        if self._budget_pressure() < 2:
+            return False
+        start = self._gc_win_start
+        if start is None or now - start > self._gc_window_ns // 8:
+            self.gc_sweep(now, force=True)
+            if self._budget_pressure() < 2:
+                return False
+        with self._evict_mu:
+            self._gc_shed += n
+        profiling.COUNTERS.inc("gc_pressure_shed", n)
+        trace_mod.anomaly("budget-shed")
+        return True
+
+    def _kick_gc_if_due(self, now: int) -> None:
+        """Wake the feeder for a sweep when the GC window has rolled over
+        (host-served takes queue no feeder work). Two int reads on the
+        serving path; the sweep runs on the feeder."""
+        if not self._gc_window_ns:
+            return
+        start = self._gc_win_start
+        if start is not None and now - start <= self._gc_window_ns:
+            return
+        with self._cond:
+            self._gc_due = True
+            self._cond.notify()
+
+    def _maybe_gc(self) -> None:
+        """The feeder's cadence: sweep at the window's rollover, or at
+        window/8 under budget pressure (GC ramps before admission sheds)."""
+        if not self._gc_window_ns:
+            return
+        now = self.clock()
+        start = self._gc_win_start
+        if start is None:
+            with self._evict_mu:
+                self._gc_win_start = now
+            return
+        window = self._gc_window_ns
+        if (self._max_buckets or self._bytes_budget) and self._budget_pressure():
+            window //= 8
+        if now - start > window:
+            self.gc_sweep(now)
+
+    def gc_sweep(self, now_ns: Optional[int] = None, force: bool = False) -> int:
+        """One lifecycle sweep: probe up to ``_gc_sweep_max`` idle
+        candidates (one kernel launch for the device-resident ones, the
+        numpy twin for host-resident lanes), reclaim the full ones from the
+        device plane, the host lanes and the directory, and compact the
+        free list. → buckets reclaimed. Callable from any thread: each
+        verdict is re-verified at reclaim (pins and an unchanged
+        ``last_used_ns`` stamp, see :meth:`_gc_reclaim`), so a row that saw
+        traffic after its probe is kept.
+
+        Conservation: a reclaimed bucket's own lane and refill clock go
+        into a directory tombstone and re-seed the row when the name is
+        bound again, so the own lane stays monotone across reclaims and a
+        peer's stale echo of the old lane cannot absorb later spend."""
+        now = self.clock() if now_ns is None else now_ns
+        pressure = self._budget_pressure()
+        idle_ns = 0 if (force or pressure) else self._gc_idle_ns
+        t0 = time.perf_counter_ns()
+        cands, stamps = self.directory.gc_candidates(now, idle_ns, self._gc_sweep_max)
+        reclaimed = 0
+        if cands.size:
+            reclaimed = self._gc_reclaim(cands, stamps, now)
+        with self._evict_mu:
+            self._gc_sweeps += 1
+            self._gc_win_start = now
+        profiling.COUNTERS.inc("gc_sweeps")
+        profiling.COUNTERS.set_max("state_bytes_in_use", self.state_bytes_in_use())
+        hist.GC_SWEEP.record(time.perf_counter_ns() - t0)
+        return reclaimed
+
+    def _probe_device_rows(self, rows, now: int, per, cap, created):
+        """One padded launch of the lifecycle probe over device-resident
+        rows; its four outputs come back with one copy. → numpy (full,
+        own_added, own_taken, elapsed), each of ``len(rows)``."""
+        m = len(rows)
+        k = _pad_size(m, lo=8, hi=1 << 20)
+        buf = self._staging.lease((5, k))
+        cols = buf.numpy()
+        cols[:] = 0  # padding: row 0 with capacity 0, never full
+        cols[0, :m] = rows
+        cols[1, :m] = now
+        cols[2, :m] = per
+        cols[3, :m] = cap
+        cols[4, :m] = created
+        dev = self._ship(buf)
+        out = None
+        if self._cuda:
+            out = torch.empty(
+                lifecycle_kernel.output_bytes(k), dtype=torch.uint8, device=self.device
+            )
+        with self._state_mu:
+            view = lifecycle_ops.lifecycle_probe(
+                self.state, lifecycle_ops.LifecycleProbe(*dev.unbind(0)),
+                self.node_slot, out=out,
+            )
+        if out is None:
+            return tuple(t.numpy()[:m].copy() for t in view)
+        # One readback a sweep, on the stream behind the launch.
+        res = self._staging.lease((lifecycle_kernel.output_bytes(k),), torch.uint8)
+        res.copy_(out, non_blocking=True)
+        self._device_event().synchronize()
+        got = tuple(a[:m].copy() for a in lifecycle_kernel.split_outputs(res.numpy(), k))
+        self._staging.release(res)
+        return got
+
+    def _gc_reclaim(self, cands: np.ndarray, stamps: np.ndarray, now: int) -> int:
+        """Probe and reclaim body of :meth:`gc_sweep`.
+
+        Host-resident victims are reclaimed under ``_host_mu``, and only
+        while their own lane and elapsed still read as probed. The native
+        front's in-front take pins nothing: it stamps ``last_used_ns`` and
+        commits under that lock. So a take that lands after the probe
+        either changed the lanes (the row is kept) or comes after the
+        unbind (it misses; the Python path binds the name again and
+        re-seeds it from the tombstone). Without the lock, a take admitted
+        between the stamp check and the unbind, or at the stamp's own
+        nanosecond, was dropped with the lanes. Device-resident victims
+        are reclaimed outside it: the front serves no device row, and the
+        directory's unbind of a full sweep takes tens of milliseconds."""
+        n = len(cands)
+        cap = self.directory.cap_base_nt[cands]
+        per = self.directory.rate_per_ns[cands]
+        created = self.directory.created_ns[cands]
+        full = np.zeros(n, bool)
+        own_a = np.zeros(n, np.int64)
+        own_t = np.zeros(n, np.int64)
+        el = np.zeros(n, np.int64)
+        slot = self.node_slot
+        # Rows mid-promotion live in neither plane completely (lanes
+        # popped, join not landed): never probe or reclaim them. A
+        # promotion requested after this snapshot is caught by the
+        # reclaim's stamp check: the takes behind it refreshed the row.
+        with self._host_mu:
+            promo = set(self._promote_pending) | set(self._promoting)
+            hosted_sel = self._hosted_flag[cands].copy()
+        keep = np.ones(n, bool)
+        if promo:
+            keep = np.array([int(r) not in promo for r in cands], bool)
+        host_idx = np.flatnonzero(hosted_sel & keep)
+        if host_idx.size:
+            with self._host_mu:
+                for i in host_idx:
+                    lanes = self._hosted.get(int(cands[i]))
+                    if lanes is None:
+                        continue
+                    full[i] = bool(lifecycle_ops.host_lifecycle_full(
+                        int(lanes.added.sum()), int(lanes.taken.sum()),
+                        lanes.elapsed_ns, cap[i], created[i], now, per[i],
+                    ))
+                    own_a[i] = int(lanes.added[slot])
+                    own_t[i] = int(lanes.taken[slot])
+                    el[i] = lanes.elapsed_ns
+        dev_idx = np.flatnonzero(~hosted_sel & keep)
+        if dev_idx.size:
+            full[dev_idx], own_a[dev_idx], own_t[dev_idx], el[dev_idx] = (
+                self._probe_device_rows(
+                    cands[dev_idx], now, per[dev_idx], cap[dev_idx], created[dev_idx]
+                )
+            )
+        vict = np.flatnonzero(full)
+        if not vict.size:
+            return 0
+        tombs = [(own_a[i], own_t[i], el[i]) for i in range(n)]
+        with self._evict_mu:
+            # Under _evict_mu residency holds still (promotion and demotion
+            # both take it), so the victims split into rows hosted now, whose
+            # reclaim runs under _host_mu, and device rows, which the front
+            # never serves.
+            with self._host_mu:
+                hosted_now = self._hosted_flag[cands[vict]]
+                host_v = []
+                for i in vict[hosted_now]:
+                    lanes = self._hosted.get(int(cands[i]))
+                    if lanes is not None and (
+                        int(lanes.added[slot]), int(lanes.taken[slot]), lanes.elapsed_ns,
+                    ) == (own_a[i], own_t[i], el[i]):
+                        host_v.append(i)  # else served since the probe: keep
+                kept_h = self.directory.reclaim_rows(
+                    cands[host_v], stamps[host_v], [tombs[i] for i in host_v]
+                )
+                self._drop_hosted_rows_locked(kept_h)
+            dev_v = vict[~hosted_now]
+            kept_d = self.directory.reclaim_rows(
+                cands[dev_v], stamps[dev_v], [tombs[i] for i in dev_v]
+            )
+            self._drop_hosted_rows(kept_d)
+            kept = np.concatenate([kept_h, kept_d])
+            if not kept.size:
+                return 0
+            rows_z = torch.as_tensor(kept, device=self.device)
+            with self._state_mu:
+                merge_mod.zero_rows(self.state, rows_z)
+            if self.directory.recycle_compact(kept):
+                self._gc_compactions += 1
+                profiling.COUNTERS.inc("directory_compactions")
+            self._gc_reclaimed += int(kept.size)
+        profiling.COUNTERS.inc("gc_buckets_reclaimed", int(kept.size))
+        log.debug("lifecycle GC reclaimed %d full idle buckets", kept.size)
+        return int(kept.size)
+
+    def _pop_tombstone_seed(self, name: str, row: int):
+        """Consume a reclaimed bucket's tombstone when its name is bound
+        again: → (own_added_nt, own_taken_nt, elapsed_ns) or None, and the
+        row gets its original creation stamp back (the refill clock then
+        reconstructs exactly). The seed must land before the row's first
+        take commits: callers put it into fresh host lanes or into the
+        same tick's merge phase."""
+        tomb = self.directory.pop_tombstone(name, row)
+        if tomb is None:
+            return None
+        return tomb[0], tomb[1], tomb[2]
+
+    def _reseed_fresh_rows(self, names, rows, fresh_mask) -> None:
+        """Bulk-ingest tail: queue the tombstone seeds of freshly bound rows
+        (their order against the deltas that bound them is free: joins
+        commute)."""
+        if not self.directory.has_tombstones():
+            return
+        seeds = []
+        seen = set()
+        for i in np.flatnonzero(fresh_mask):
+            row = int(rows[i])
+            if row in seen:
+                continue
+            seen.add(row)
+            seed = self._pop_tombstone_seed(names[i], row)
+            if seed is not None:
+                seeds.append(_Delta(row, self.node_slot, *seed))
+        if seeds:
+            with self._cond:
+                self._deltas.extend(seeds)
+                self._cond.notify()
+
+    def lifecycle_stats(self) -> Dict[str, object]:
+        """The bucket-lifecycle block of ``/debug/vars``."""
+        t_n, _t_bytes = self.directory.tombstone_stats()
+        return {
+            "engine_gc_reclaimed": self._gc_reclaimed,
+            "engine_gc_shed": self._gc_shed,
+            "engine_gc_sweeps": self._gc_sweeps,
+            "engine_gc_compactions": self._gc_compactions,
+            "engine_gc_tombstones": t_n,
+            "engine_state_bytes": self.state_bytes_in_use(),
+            "engine_state_bytes_budget": self._bytes_budget,
+            "engine_max_buckets": self._max_buckets,
+            "engine_buckets_bound": len(self.directory),
+            "engine_budget_pressure": self._budget_pressure(),
+        }
 
     # -- entry points -------------------------------------------------------
 
@@ -1000,20 +1398,35 @@ class DeviceEngine:
         """Queue a take; returns (ticket, created). ``created`` is the
         get-or-create miss signal that triggers incast. A fresh or
         host-resident bucket is served in-process and the ticket comes back
-        completed."""
+        completed. Raises :class:`OverloadedError` for a NEW name when the
+        memory budget's hard watermark holds after an emergency sweep."""
         now = self.clock() if now_ns is None else now_ns
+        if (
+            (self._max_buckets or self._bytes_budget)
+            and self.directory.lookup(name) is None
+            and self._shed_new_names(now)
+        ):
+            raise OverloadedError(
+                f"memory budget spent and nothing reclaimable; new bucket {name!r} shed"
+            )
         row, fresh = self._assign_pinned(name, now)
+        seed = self._pop_tombstone_seed(name, row) if fresh else None
         # First *local* take on the row (capacity still unset) counts as a
         # miss even when replication created the row first.
         created = fresh or int(self.directory.cap_base_nt[row]) == 0
         self.directory.init_cap_base(row, rate.freq * NANO)
         self.directory.note_rate(row, rate.per_ns)
         if HOST_FASTPATH and (fresh or self._hosted_flag[row]):
-            ticket = self._try_host_take(name, row, rate, count, now, fresh)
+            ticket = self._try_host_take(name, row, rate, count, now, fresh, seed=seed)
             if ticket is not None:
+                self._kick_gc_if_due(now)
                 return ticket, created
         ticket = TakeTicket(name, row, rate, count, now)
         with self._cond:
+            if seed is not None:
+                # The re-seed rides the same tick's merge phase, which runs
+                # before its takes: the first take commits on top of it.
+                self._deltas.append(_Delta(row, self.node_slot, *seed))
             self._enqueue_take_locked(ticket)
             self._cond.notify()
         return ticket, created
@@ -1029,12 +1442,13 @@ class DeviceEngine:
         now: int,
         fresh: bool,
         out_broadcasts: Optional[List[wire.WireState]] = None,
+        seed: Optional[Tuple[int, int, int]] = None,
     ) -> Optional[TakeTicket]:
         """Serve one take from the host lanes; → the completed ticket, or
         None when the row is (or just became) device-resident and the
         caller takes the device path."""
         ticket = TakeTicket(name, row, rate, count, now)
-        served = self._host_serve_ticket(ticket, fresh, out_broadcasts)
+        served = self._host_serve_ticket(ticket, fresh, out_broadcasts, seed)
         return ticket if served else None
 
     def _host_serve_ticket(
@@ -1042,12 +1456,14 @@ class DeviceEngine:
         ticket: TakeTicket,
         fresh: bool,
         out_broadcasts: Optional[List[wire.WireState]] = None,
+        seed: Optional[Tuple[int, int, int]] = None,
     ) -> bool:
         """Complete a ticket from the host lanes; False ⇒ the row is
         device-resident and the caller keeps the device path. A bucket
         whose window passes HOST_PROMOTE_TAKES is marked for promotion
         here. Batch callers pass ``out_broadcasts`` so a whole batch fans
-        out through one ``on_broadcast`` call.
+        out through one ``on_broadcast`` call. ``seed`` (a tombstone's own
+        lane and elapsed) goes into fresh lanes before the take commits.
 
         Known creation race, accepted as in the reference: between the
         directory bind and the flag flip, a concurrent rx delta or take on
@@ -1068,6 +1484,10 @@ class DeviceEngine:
                     lanes = self._native_store.host_locked(row)
                 else:
                     lanes = HostLanes(self.config.nodes)
+                if seed is not None:
+                    lanes.added[self.node_slot] = seed[0]
+                    lanes.taken[self.node_slot] = seed[1]
+                    lanes.elapsed_ns = seed[2]
                 self._hosted[row] = lanes
                 self._hosted_flag[row] = True
             lanes.roll_window(now)
@@ -1266,19 +1686,23 @@ class DeviceEngine:
         if not self._hosted and not self._promoted_rows and not self._promoting:
             return
         with self._host_mu:
-            for row in rows:
-                row = int(row)
-                self._promoted_rows.discard(row)
-                self._promoted_at.pop(row, None)
-                if self._hosted_flag[row]:
-                    self._hosted.pop(row, None)
-                    self._hosted_flag[row] = False
-                    if self._native_store is not None:
-                        self._native_store.unhost_locked(row)
-                # A stale pending entry would promote the next bucket bound
-                # here; a staged one would show the dead bucket's lanes.
-                self._promote_pending.discard(row)
-                self._promoting.pop(row, None)
+            self._drop_hosted_rows_locked(rows)
+
+    def _drop_hosted_rows_locked(self, rows) -> None:
+        """Body of :meth:`_drop_hosted_rows`; caller holds ``_host_mu``."""
+        for row in rows:
+            row = int(row)
+            self._promoted_rows.discard(row)
+            self._promoted_at.pop(row, None)
+            if self._hosted_flag[row]:
+                self._hosted.pop(row, None)
+                self._hosted_flag[row] = False
+                if self._native_store is not None:
+                    self._native_store.unhost_locked(row)
+            # A stale pending entry would promote the next bucket bound
+            # here; a staged one would show the dead bucket's lanes.
+            self._promote_pending.discard(row)
+            self._promoting.pop(row, None)
 
     def _maybe_demote(self, tickets, deltas) -> None:
         """Feeder only: at the demote window's rollover, move quiet
@@ -1294,7 +1718,7 @@ class DeviceEngine:
         path reads residency; the gather → flip → zero runs under
         ``_evict_mu``, so no eviction or release recycles a row
         mid-demotion."""
-        if not HOST_FASTPATH:
+        if not HOST_FASTPATH or self._demotion_paused:
             return
         now = self.clock()
         if self._demote_win_start is None:
@@ -1335,6 +1759,11 @@ class DeviceEngine:
             pn, el = self.read_rows(elig)  # one gather
             demoted: List[int] = []
             with self._host_mu:
+                # Re-checked under the lock: a checkpoint restore sets the
+                # pause, then reads the host lanes under this lock, so no
+                # demotion commits after its read.
+                if self._demotion_paused:
+                    return
                 for i, row in enumerate(elig):
                     if int(self.directory.pins[row]) != own_pins.get(row, 0):
                         continue  # pinned since the outer check
@@ -1418,6 +1847,9 @@ class DeviceEngine:
         st = self._native_store
         if st is None:
             return
+        # The C++ front's takes never enter Python: the pump's drain cycle
+        # is the one periodic seam that keeps the GC cadence alive then.
+        self._kick_gc_if_due(self.clock())
         if self.on_broadcast is None:
             # Standalone node: drain both queues (promotion marks matter,
             # dirty flags must clear) without building states.
@@ -1489,9 +1921,41 @@ class DeviceEngine:
         directory pass, one capacity init, host-resident and fresh rows
         served in-process in batch order, one queue append + wake-up for
         the rest. Returns [(ticket, created), ...] in request order, or
-        None when the pool is spent with every row pinned."""
+        None when the pool is spent with every row pinned. Under the memory
+        budget's hard watermark, requests for NEW names come back as
+        completed shed tickets (ok False, ``shed`` set): per-request 429s,
+        never a failed batch."""
         now = self.clock() if now_ns is None else now_ns
-        names = list(names)
+        if self._max_buckets or self._bytes_budget:
+            unknown = [i for i, n in enumerate(names) if self.directory.lookup(n) is None]
+            if unknown and self._shed_new_names(now, len(unknown)):
+                out: List = [None] * len(names)
+                for i in unknown:
+                    t = TakeTicket(names[i], 0, rates[i], int(counts[i]), now)
+                    t.shed = True  # an overload shed, not a rate deny
+                    t.complete(0, False)  # never pinned, never queued
+                    out[i] = (t, False)
+                shed = set(unknown)
+                keep = [i for i in range(len(names)) if i not in shed]
+                if keep:
+                    sub = self._submit_takes_batch_inner(
+                        [names[i] for i in keep], [rates[i] for i in keep],
+                        [counts[i] for i in keep], now,
+                    )
+                    if sub is None:
+                        return None
+                    for i, r in zip(keep, sub):
+                        out[i] = r
+                return out
+        return self._submit_takes_batch_inner(list(names), list(rates), list(counts), now)
+
+    def _submit_takes_batch_inner(
+        self,
+        names: Sequence[str],
+        rates: Sequence[Rate],
+        counts: Sequence[int],
+        now: int,
+    ) -> Optional[List[Tuple[TakeTicket, bool]]]:
         res = self._assign_many_pinned(names, now, with_fresh=True)
         if res is None:
             return None
@@ -1508,6 +1972,16 @@ class DeviceEngine:
         self.directory.note_rate_many(
             rows, np.asarray([r.per_ns for r in rates], np.int64)
         )
+        # Tombstone re-seeds of rows this batch bound fresh (one per first
+        # occurrence): into the fresh host lanes below, or into the tick's
+        # merge phase for the device path.
+        fresh_first = bind_fresh & first
+        seeds: Dict[int, Tuple[int, int, int]] = {}
+        if fresh_first.any() and self.directory.has_tombstones():
+            for i in np.flatnonzero(fresh_first):
+                s = self._pop_tombstone_seed(names[i], int(rows[i]))
+                if s is not None:
+                    seeds[int(rows[i])] = s
         # Host fast path, in batch order. The flag is re-read per request:
         # a fresh row hosted by its first occurrence must catch its later
         # occurrences in this batch. Eligibility is the directory's
@@ -1515,16 +1989,18 @@ class DeviceEngine:
         # hold replicated device lanes).
         host_served: Dict[int, TakeTicket] = {}
         if HOST_FASTPATH:
-            fresh_first = bind_fresh & first
             bc: List[wire.WireState] = []
             for i in np.flatnonzero(self._hosted_flag[rows] | bind_fresh):
                 if self._hosted_flag[rows[i]] or fresh_first[i]:
                     t = self._try_host_take(
                         names[i], int(rows[i]), rates[i], int(counts[i]), now,
                         bool(fresh_first[i]), out_broadcasts=bc,
+                        seed=seeds.get(int(rows[i])),
                     )
                     if t is not None:
                         host_served[int(i)] = t
+                        if fresh_first[i]:
+                            seeds.pop(int(rows[i]), None)  # in the lanes
             self._emit_broadcasts(bc)
         tickets = [
             host_served.get(i)
@@ -1532,8 +2008,15 @@ class DeviceEngine:
             for i in range(len(names))
         ]
         queued = [t for i, t in enumerate(tickets) if i not in host_served]
-        if queued:
+        if host_served and not queued:
+            # No feeder work queued: keep the GC cadence alive.
+            self._kick_gc_if_due(now)
+        if queued or seeds:
             with self._cond:
+                for srow, s in seeds.items():
+                    # Fresh binds left on the device path: the seed rides
+                    # the same tick's merge phase, ahead of the takes.
+                    self._deltas.append(_Delta(srow, self.node_slot, *s))
                 for t in queued:
                     self._enqueue_take_locked(t)
                 self._cond.notify()
@@ -1559,6 +2042,12 @@ class DeviceEngine:
         except DirectoryFullError:
             log.warning("pool spent (all pinned); delta for %r dropped", state.name)
             return False
+        if created and self.directory.has_tombstones():
+            seed = self._pop_tombstone_seed(state.name, row)
+            if seed is not None:
+                with self._cond:
+                    self._deltas.append(_Delta(row, self.node_slot, *seed))
+                    self._cond.notify()
         self.directory.last_remote_ns[row] = now
         added_nt = state.added_nt
         taken_nt = state.taken_nt
@@ -1681,7 +2170,9 @@ class DeviceEngine:
                     "pool spent (all pinned); %d deltas dropped", len(chunk_names)
                 )
                 continue
-            rows, _fresh = res
+            rows, fresh = res
+            if fresh.any():
+                self._reseed_fresh_rows(chunk_names, rows, fresh)
             accepted += self._classify_queue_chunk(
                 rows,
                 slots_a[lo:hi],
@@ -1983,10 +2474,12 @@ class DeviceEngine:
                     len(chunk_names),
                 )
                 continue
-            rows, _fresh = res
+            rows, fresh_c = res
             # patrol-audit staleness stamp: these rows just absorbed
             # remote-lane state (racy int64 write, sampler-only reader).
             self.directory.last_remote_ns[rows] = now
+            if fresh_c.any():
+                self._reseed_fresh_rows(chunk_names, rows, fresh_c)
             slots_c = slots_a[lo:hi]
             caps_c = np.maximum(caps_a[lo:hi], 0)
             added_c = np.maximum(added_a[lo:hi], 0)
@@ -2328,6 +2821,10 @@ class DeviceEngine:
         )
         if rows is None:
             log.warning("pool spent (all pinned); %d deltas dropped", mi.size)
+        elif self.directory.has_tombstones():
+            # Wire misses are creations: re-seed any reclaimed bucket's own
+            # lane from its tombstone.
+            self._reseed_fresh_rows(miss_names, rows, np.ones(len(rows), dtype=bool))
         return rows
 
     def gcra_take(self, *args, **kwargs):
@@ -2588,6 +3085,7 @@ class DeviceEngine:
         return False
 
     def stop(self) -> None:
+        slo_mod.SENTINEL.unwatch_budget(self._budget_snapshot)
         with self._cond:
             self._stopped = True
             self._cond.notify_all()
@@ -2738,11 +3236,13 @@ class DeviceEngine:
         while True:
             with self._cond:
                 while not (
-                    self._takes or self._deltas or self._promote_pending or self._stopped
+                    self._takes or self._deltas or self._promote_pending
+                    or self._gc_due or self._stopped
                 ):
                     self._cond.wait()
                 if self._stopped and not (self._takes or self._deltas):
                     return
+                self._gc_due = False  # this tick runs _maybe_gc below
                 if COMMIT_BLOCKS_AUTO:
                     self._auto_size_commit_blocks_locked()
                 deltas = self._drain_deltas(MAX_MERGE_ROWS * self._commit_blocks)
@@ -2759,6 +3259,10 @@ class DeviceEngine:
                     if t.row in self._promoted_rows:
                         self._dev_window[t.row] = self._dev_window.get(t.row, 0) + 1
                 self._maybe_demote(tickets, deltas)
+            # Bucket lifecycle: sweep full idle buckets at the GC window's
+            # cadence. This tick's deltas and tickets hold pins, so the
+            # sweep leaves their rows alone.
+            self._maybe_gc()
             # Residency re-route: a ticket that raced into the device queue
             # while its row was (or became) host-resident is served from
             # the lanes here, the one point every queued take passes, so a

@@ -10,7 +10,8 @@ answers of the reference's routes; statuses and bodies must be identical.
 The debug routes are compared by status only (their bodies hold timings).
 The same script then runs against the port's native C++ front (host lanes
 in its native store) and the JAX node at its defaults (its own native
-front): again identical. Options not ported yet refuse to start.
+front): again identical. Options not ported yet (the mesh) refuse to
+start.
 """
 
 import asyncio
@@ -165,15 +166,14 @@ def test_http_script_matches_reference(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"udp_backend": "native", "http_front": "native", "checkpoint_dir": "ckpt"},
+        {"udp_backend": "native", "http_front": "native", "mesh_replicas": 2},
         {"http_front": "native", "mesh_replicas": 2},
         {"mesh_replicas": 2},
-        {"checkpoint_dir": "ckpt"},
     ],
 )
 def test_unported_options_refuse_to_start(kwargs):
-    # The native UDP backend and HTTP front are ported; beside them an
-    # option that is not still refuses the whole configuration.
+    # The native UDP backend, HTTP front and checkpoints are ported; beside
+    # them an option that is not still refuses the whole configuration.
     with pytest.raises(NotPortedError):
         TCommand(device="cpu", **kwargs).check_ported()
 

@@ -12,8 +12,8 @@ with the lanes in Python and once in the C++ store of
 The randomized law drives one op sequence through the JAX package at its
 defaults and through the port with the fast path on (Python lanes and
 native store) and off: per-take results and final states must be equal
-bit for bit. The JAX package's two checkpoint cases are not twinned here:
-the port has no checkpoints yet.
+bit for bit. The JAX package's two checkpoint cases have their twins in
+``tests/test_torch_checkpoint.py``.
 """
 
 import numpy as np

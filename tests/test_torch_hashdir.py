@@ -14,8 +14,8 @@ of ``tests/test_hashdir.py`` on ``patrol_tpu_torch.runtime.directory``.
   deltas and malformed rows, and ``ingest_wire_batch`` (the fused native
   classify) agrees with both.
 
-Checkpoints are not part of the port yet, so the reference's
-checkpoint-restore case has no twin here.
+The reference's checkpoint-restore case has its twin in
+``tests/test_torch_checkpoint.py``.
 """
 
 import numpy as np

@@ -2,8 +2,9 @@
 pulls in neither ``jax`` nor ``patrol_tpu``, and no port file imports
 either (an AST walk, so a lazy import inside a function is caught too).
 The CLI starts a replicating node from ``--peer-addr``, serves on the
-native HTTP front, and refuses what is not ported yet (``--checkpoint-dir``)
-with exit code 2; the native UDP backend and HTTP front are ported, and
+native HTTP front, checkpoints at SIGINT and restores at restart
+(``--checkpoint-dir``), and refuses what is not ported yet
+(``--mesh-replicas``) with exit code 2; the native UDP backend and HTTP front are ported, and
 their C++ sources are the port's own copies: no port file reads a path
 under ``patrol_tpu/``.
 
@@ -46,6 +47,21 @@ def test_every_module_imports_without_jax():
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'patrol_tpu'))\n"
         "print(json.dumps(bad))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_lifecycle_and_checkpoint_import_without_jax():
+    code = (
+        "import json, sys\n"
+        "import patrol_tpu_torch.runtime.checkpoint, patrol_tpu_torch.ops.lifecycle\n"
+        "print(json.dumps(sorted(k for k in sys.modules\n"
+        "                        if k.split('.')[0] in ('jax', 'jaxlib', 'patrol_tpu'))))\n"
     )
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -140,17 +156,75 @@ def _free_port(kind):
 
 
 def test_cli_refuses_the_native_udp_backend():
-    # The native UDP backend and HTTP front are ported; beside them
-    # checkpoints are not, and the whole set is refused before anything
+    # The native UDP backend, HTTP front and checkpoints are ported; beside
+    # them the mesh is not, and the whole set is refused before anything
     # starts.
     res = subprocess.run(
         [sys.executable, "-m", "patrol_tpu_torch", "--udp-backend", "native",
-         "--http-front", "native", "--checkpoint-dir", "ckpt", "--device", "cpu",
-         "--no-warmup"],
+         "--http-front", "native", "--checkpoint-dir", "ckpt", "--mesh-replicas", "2",
+         "--device", "cpu", "--no-warmup"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 2
-    assert "not yet ported" in res.stderr and "checkpoint-dir" in res.stderr
+    assert "not yet ported" in res.stderr and "mesh-replicas" in res.stderr
+
+
+def test_cli_checkpoints_at_sigint_and_restores_at_restart(tmp_path):
+    """``--checkpoint-dir`` serves: SIGINT writes a checkpoint (the
+    periodic one runs too), and a restart restores it, so the spent bucket
+    answers as it did before and /debug/vars carries the lifecycle block."""
+    import http.client
+    import signal
+    import socket
+    import time
+
+    ckdir = tmp_path / "ckpt"
+
+    def serve_and_take(takes):
+        api = _free_port(socket.SOCK_STREAM)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "patrol_tpu_torch", "--api-addr", f"127.0.0.1:{api}",
+             "--node-addr", f"127.0.0.1:{_free_port(socket.SOCK_DGRAM)}",
+             "--http-front", "python", "--udp-backend", "asyncio",
+             "--checkpoint-dir", str(ckdir), "--checkpoint-interval", "200ms",
+             "--buckets", "64", "--node-lanes", "4", "--device", "cpu", "--no-warmup"],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        try:
+            deadline = time.monotonic() + 90
+            answers = []
+            while len(answers) < takes:
+                assert proc.poll() is None, proc.communicate()[1]
+                try:
+                    conn = http.client.HTTPConnection("127.0.0.1", api, timeout=5)
+                    conn.request("POST", "/take/ck?rate=3:1h")
+                    resp = conn.getresponse()
+                    answers.append((resp.status, resp.read()))
+                    conn.close()
+                except OSError:
+                    assert time.monotonic() < deadline, "the node did not start serving"
+                    time.sleep(0.1)
+            conn = http.client.HTTPConnection("127.0.0.1", api, timeout=5)
+            conn.request("GET", "/debug/vars")
+            stats = json.loads(conn.getresponse().read())
+            conn.close()
+            time.sleep(0.5)  # a periodic checkpoint or two
+            proc.send_signal(signal.SIGINT)
+            assert proc.wait(timeout=60) == 0
+            return answers, stats
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            proc.stdout.close()
+            proc.stderr.close()
+
+    first, stats = serve_and_take(2)
+    assert first == [(200, b"2"), (200, b"1")]
+    assert "engine_gc_sweeps" in stats and stats["engine_buckets_bound"] == 1
+    assert (ckdir / "state.npz").is_file() and (ckdir / "directory.json").is_file()
+    again, _ = serve_and_take(2)
+    assert again == [(200, b"0"), (429, b"0")]  # restored: one token left
 
 
 def test_cli_serves_on_the_native_http_front():
