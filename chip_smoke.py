@@ -48,9 +48,13 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    state, over every verdict case (full, spent, over capacity, zero rate,
    capacity-0 padding, ``now`` before ``created + elapsed``, int64-wrapping
    sums, an fp64 corpus on the edge of the verdict, wrapped and clamped
-   rows) at ``node_slot`` 0, 31, 32 and 63, and at N = 1, 31, 33 lanes on
-   a small state; all four outputs bit for bit, timed beside its plain
-   version, its bound and its floor (one block of candidates).
+   rows) at ``node_slot`` 0, 31, 32 and 63, at K = 0 (no launch), 1, 8,
+   512 and 2^20, and at N = 1, 31, 33, 256 and 512 lanes on a small state
+   with the own lane first and last; all four outputs bit for bit, timed
+   warm (the same candidates each call), cold (a cycle of fresh random
+   row sets past L2, and of consecutive ones), at K = 512 and at its floor
+   (K = 8, one block), beside its plain version and its bound; its
+   ``-Xptxas -v`` line (registers, shared memory) is printed.
 3. The main path: the port's ``Command`` serving on the asyncio front
    (host fast path off, see 3f)
    (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
@@ -642,8 +646,17 @@ def lifecycle_compare(torch, lops, pn_t, el_t, cols_t, slot, tag):
 
 
 def lifecycle_checks(torch, lk, lops, dev, rng):
+    """The probe at K = 8,192 on the 1M x 64 state against its plain
+    version at four ``node_slot`` values, then at K = 0, 1, 8, 512 and
+    2^20 (the corpus repeated); timed warm (the same candidates every
+    call), cold (a cycle of 16 candidate sets on fresh random rows, 134 MB
+    of planes together, past the 50 MB L2), cold on consecutive rows, and
+    at K = 512 and K = 8 (the floor: one block)."""
+    from patrol_tpu_torch.ops import _build
+
     pn, el, cols = lifecycle_inputs(rng)
     pn_t, el_t = torch.from_numpy(pn).to(dev), torch.from_numpy(el).to(dev)
+    del pn
     cols_t = torch.from_numpy(cols).to(dev)
     err = 0
     for slot in (0, 31, 32, 63):
@@ -652,14 +665,37 @@ def lifecycle_checks(torch, lk, lops, dev, rng):
         err = max(err, e)
     nfull = int(full.sum())
     check(GC_K // 8 < nfull < GC_K * 7 // 8, f"lifecycle corpus is one-sided: {nfull} full")
+    for k in (1, 8, 512):
+        e, _ = lifecycle_compare(torch, lops, pn_t, el_t, cols_t[:, :k], 63,
+                                 f"lifecycle_probe K={k}")
+        err = max(err, e)
+    e, _ = lifecycle_compare(torch, lops, pn_t, el_t, cols_t.repeat(1, 128), 31,
+                             "lifecycle_probe K=2^20")
+    err = max(err, e)
+    launches = _build.LAUNCHES["lifecycle_probe"]
+    empty = lops.lifecycle_probe(lops.LimiterState(pn_t, el_t),
+                                 lops.LifecycleProbe(*cols_t[:, :0].unbind(0)), 0)
+    check(all(x.numel() == 0 for x in empty) and _build.LAUNCHES["lifecycle_probe"] == launches,
+          "lifecycle_probe at K = 0 launched or returned values")
+
     k = cols.shape[1]
     out = torch.empty(lk.output_bytes(k), dtype=torch.uint8, device=dev)
     args = (pn_t, el_t, *cols_t.unbind(0))
     state = lops.LimiterState(pn_t, el_t)
     probe = lops.LifecycleProbe(*cols_t.unbind(0))
-    # The floor: the same launch over one block of candidates.
-    small = [c[:8].contiguous() for c in cols_t.unbind(0)]
-    out8 = torch.empty(lk.output_bytes(8), dtype=torch.uint8, device=dev)
+    fresh = rng.choice(BUCKETS, (16, k), replace=False)
+    cold = []
+    for rows in (fresh, np.arange(16 * k).reshape(16, k)):
+        sets = []
+        for r in rows:
+            c = cols.copy()
+            c[0] = r
+            sets.append([x.contiguous() for x in torch.from_numpy(c).to(dev).unbind(0)])
+        cold.append(itertools.cycle(sets))
+
+    def call(cs, kk=k):
+        lk.probe(pn_t, el_t, *(x[:kk] for x in cs), 0, out=out)
+
     # Bytes: each distinct gathered row's lane plane and elapsed once, the
     # probe's five columns and the 25-byte verdicts once.
     g = cols[0].astype(np.int32).astype(np.int64)
@@ -667,8 +703,11 @@ def lifecycle_checks(torch, lk, lops, dev, rng):
     nbytes = len(np.unique(g)) * (LANES * 16 + 8) + k * 40 + k * 25
     res = {
         "ms": device_ms(torch, lambda: lk.probe(*args, 0, out=out)),
+        "ms_cold": device_ms(torch, lambda: call(next(cold[0]))),
+        "ms_cold_contig": device_ms(torch, lambda: call(next(cold[1]))),
+        "ms_k512": device_ms(torch, lambda: call(cols_t.unbind(0), 512)),
+        "floor_ms": device_ms(torch, lambda: call(cols_t.unbind(0), 8)),
         "plain_ms": device_ms(torch, lambda: lops.lifecycle_probe_plain(state, probe, 0)),
-        "floor_ms": device_ms(torch, lambda: lk.probe(pn_t, el_t, *small, 0, out=out8)),
         "library_ms": None,
         "bytes": nbytes,
         "ops": k * (2 * LANES + 40),
@@ -676,16 +715,17 @@ def lifecycle_checks(torch, lk, lops, dev, rng):
         "full": nfull,
         "k": k,
     }
-    del pn_t, el_t, cols_t, out
+    del pn_t, el_t, cols_t, out, cold
     return res
 
 
 def lifecycle_edge_checks(torch, lk, lops, dev, rng):
-    """The probe at N = 1, 31 and 33 lanes (the warp's ragged edge) with
-    the own lane first and last, on a small state (4096 buckets, K = 512),
-    bit for bit against its plain version."""
+    """The probe at N = 1, 31, 33, 256 and 512 lanes (a lane group's
+    ragged edge, and planes of several passes) with the own lane first and
+    last, on a small state (4096 buckets, K = 512), bit for bit against
+    its plain version."""
     err = 0
-    cases = [(n, slot) for n in (1, 31, 33) for slot in sorted({0, n - 1})]
+    cases = [(n, slot) for n in (1, 31, 33, 256, 512) for slot in sorted({0, n - 1})]
     for n, slot in cases:
         pn, el, cols = lifecycle_inputs(rng, EDGE_BUCKETS, n, 512)
         e, _ = lifecycle_compare(
@@ -1425,6 +1465,7 @@ DEFAULTS_TAKES = 6_000  # phase 3g's paced takes (after 2 x 2,000 priming takes)
 PROFILE_CHUNKS = range(4, 10)  # the paced takes' chunks traced by the profiler
 PROFILE_KERNELS = ("take_n_kernel", "decode_fold_kernel")
 JOIN_PROFILE_KERNELS = ("join_kernel",)  # phase 3's deltas
+PROFILE_LEAD_IN_S = 0.25  # a profiler window's lead-in before its baseline
 
 
 class ProfileWindow:
@@ -1435,7 +1476,7 @@ class ProfileWindow:
     of the window (the union of their intervals over the window's wall
     time), beside the launch counters' view of the same window."""
 
-    def __init__(self, kernels=PROFILE_KERNELS):
+    def __init__(self, kernels=PROFILE_KERNELS, lead_in_s: float = 0.0):
         import torch
         from patrol_tpu_torch.ops import _build
 
@@ -1444,8 +1485,16 @@ class ProfileWindow:
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         self.prof = torch.profiler.profile(activities=acts)
         self.prof.__enter__()
-        self.launches0 = dict(_build.LAUNCHES)
+        # The tracer now and then drops every device record of a window's
+        # first milliseconds: 3h's window lost its first sweep's (the probe
+        # and its copies, 6 ms in) while the launch counter counted the
+        # launch, and a warm-up launch did not prevent it. A window whose
+        # profiled count is read against its launches (3h) waits out a
+        # lead-in before its baseline, so that its first launch is well
+        # past the trace's start.
         torch.cuda.synchronize()
+        time.sleep(lead_in_s)
+        self.launches0 = dict(_build.LAUNCHES)
         self.t0 = time.perf_counter()
 
     def close(self, **meta) -> dict:
@@ -1462,6 +1511,10 @@ class ProfileWindow:
                 "count": sum(e.count for e in rows),
                 "device_us": sum(e.device_time_total for e in rows),
             }
+            starts = sorted(e.time_range.start for e in self.prof.events()
+                            if name in e.name and str(e.device_type).endswith("CUDA"))
+            if len(starts) <= 64:  # each launch's start, in us from the trace's
+                kernels[name]["starts_us"] = starts
         spans = sorted(
             (e.time_range.start, e.time_range.end) for e in self.prof.events()
             if str(e.device_type).endswith("CUDA") and e.time_range.end > e.time_range.start
@@ -2101,10 +2154,12 @@ def lifecycle_sequence(eng, clock, traces, profile=False) -> dict:
     # forced sweeps until no candidate is left.
     clock.now += 10 * NANO
     probe_calls = [0]
+    probe_at = []  # host seconds of each probe call
     orig_probe = eng._probe_device_rows
 
     def counted_probe(*args):
         probe_calls[0] += 1
+        probe_at.append(time.perf_counter())
         return orig_probe(*args)
 
     eng._probe_device_rows = counted_probe
@@ -2119,7 +2174,8 @@ def lifecycle_sequence(eng, clock, traces, profile=False) -> dict:
         out["sweep_reclaims"].append(("cadence", now_reclaimed - reclaimed0))
         reclaimed0 = now_reclaimed
     out["cadence_sweeps"] = sweeps
-    window_prof = ProfileWindow(kernels=("lifecycle_probe_kernel",)) if profile else None
+    window_prof = (ProfileWindow(kernels=("lifecycle_probe_kernel",),
+                                 lead_in_s=PROFILE_LEAD_IN_S) if profile else None)
     forced = 0
     while forced < 80:
         n = eng.gc_sweep(force=True)
@@ -2129,6 +2185,10 @@ def lifecycle_sequence(eng, clock, traces, profile=False) -> dict:
             break
     if window_prof is not None:
         out["profile"] = window_prof.close(sweeps=forced)
+        # When each probe of the window was called (ms after it opened),
+        # to match against the profiled kernels' starts.
+        out["profile"]["probe_calls_ms"] = [
+            (t - window_prof.t0) * 1e3 for t in probe_at if t >= window_prof.t0]
     out["sweep_wall_s"] = time.perf_counter() - t_sweep
     eng._probe_device_rows = orig_probe
     out["forced_sweeps"] = forced
@@ -2423,6 +2483,14 @@ def main() -> int:
         f"{rmw['bcast']['ms']:.4f} ms bcast, {rmw['pairmax']['ms']:.4f} ms pairmax "
         f"(pair_join on its updates {rmw['pairmax']['pair_join_ms']:.4f} ms), lifecycle_probe "
         f"{life['ms']:.4f} ms at K={life['k']} (floor {life['floor_ms']:.4f} ms)")
+    # The probe's launch shape: registers and shared memory from -Xptxas -v.
+    life["ptxas"] = [ln for ln in report["ptxas"].get("lifecycle.cu", []) if "Used" in ln]
+    print(f"lifecycle_probe K={life['k']}: warm {life['ms']:.6f} ms, cold {life['ms_cold']:.6f} "
+          f"ms (consecutive rows {life['ms_cold_contig']:.6f}), K=512 {life['ms_k512']:.6f} ms, "
+          f"K=8 {life['floor_ms']:.6f} ms, plain {life['plain_ms']:.6f} ms, bound "
+          f"{bound(life['bytes'], life['ops'])[0]:.6f} ms, max_abs_err "
+          f"{max(life['max_abs_err'], life['edges']['max_abs_err'])}; ptxas: "
+          f"{' '.join(life['ptxas'])}")
     report["kernel_detail"] = {
         "pair_join": pair, "row_join": row, "tick_join": tick, "commit_ring": ring,
         "take_n": take,
@@ -2635,11 +2703,13 @@ def main() -> int:
     report["lifecycle"] = lc
     log(f"3h lifecycle: {json.dumps(lc, default=str)}")
     prof = lc.get("profile", {}).get("kernels", {}).get("lifecycle_probe_kernel", {})
+    window_launches = lc.get("profile", {}).get("launches", {}).get("lifecycle_probe")
     print(f"lifecycle 3h: bound {lc['bound']} reclaimed {lc['reclaimed']} (device "
           f"{lc['reclaimed_device']}, host {lc['reclaimed_host']}) in {lc['cadence_sweeps']} "
           f"cadence + {lc['forced_sweeps']} forced sweeps, probe launches "
           f"{lc['probe_launches']} (device time {prof.get('device_us')} us over "
-          f"{prof.get('count')}), sweep p50 {lc['gc_sweep_ns']['p50']} ns p99 "
+          f"{prof.get('count')} profiled of the window's {window_launches}), sweep p50 "
+          f"{lc['gc_sweep_ns']['p50']} ns p99 "
           f"{lc['gc_sweep_ns']['p99']} ns, tombstones {lc['tombstones']}, sheds "
           f"{lc['shed_tickets']}, pressure sweeps {lc['pressure_sweeps']}, checkpoint "
           f"{lc['checkpoint_bytes']} B save {lc['save_s']:.3f} s restore {lc['restore_s']:.3f} s; "
@@ -2760,7 +2830,8 @@ def main() -> int:
             entry["padding_only_ms"] = m["padding_only_ms"]
         if name == "lifecycle_probe":
             entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
-            entry["floor_ms"] = m["floor_ms"]
+            entry.update({key: m[key] for key in ("floor_ms", "ms_cold", "ms_cold_contig",
+                                                   "ms_k512")})
         kernels.append(entry)
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

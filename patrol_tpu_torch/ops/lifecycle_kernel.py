@@ -61,6 +61,8 @@ def probe(
         raise ValueError("state must be pn[B,N,2] and elapsed[B]")
     if not 0 <= node_slot < n:
         raise ValueError(f"node_slot {node_slot} outside [0, {n})")
+    if pn.data_ptr() % 16:
+        raise ValueError("pn must be 16-byte aligned (its lanes are read as 16-byte vectors)")
     cols = (rows, now_ns, per_ns, cap_base_nt, created_ns)
     k = rows.shape[0]
     for name, c in zip(("rows", "now_ns", "per_ns", "cap_base_nt", "created_ns"), cols):

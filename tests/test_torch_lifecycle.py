@@ -6,9 +6,10 @@
   case (full, spent, over capacity, zero rate, capacity-0 padding, ``now``
   before ``created + elapsed``, int64-wrapping sums, fp64 refill edges),
   lane counts N in {1, 4, 31, 33, 64}, ``node_slot`` at its edges, rows
-  {-B-1, -1, 0, B-1, B}; all four outputs equal. The numpy twins are held
-  to the JAX package's. The CUDA kernel is held to the plain version on
-  the card by ``chip_smoke.py`` (phase 2).
+  {-B-1, -1, 0, B-1, B}, K from 0 to 2^20; all four outputs equal. The
+  numpy twins are held to the JAX package's; the output buffer's layout
+  (the engine's one-copy readback) is pinned. The CUDA kernel is held to
+  the plain version on the card by ``chip_smoke.py`` (phase 2).
 * Engine twins of ``tests/test_lifecycle.py``'s ``TestGcSweep``,
   ``TestTombstoneConservation`` and ``TestMemoryBudget``: each scenario
   runs on a JAX engine and a port engine (Python lanes, and the C++ store
@@ -151,6 +152,51 @@ def test_probe_row_index_semantics_match_reference():
     cols[3, :] = 0  # all padding: never full, lanes still gathered
     jo = assert_probe_equal(pn, el, cols, 0)
     assert not jo[0].any()
+
+
+@pytest.mark.parametrize("k", [0, 1, 8, 8192, 1 << 20])
+def test_probe_matches_reference_at_every_launch_size(k):
+    """K from none to the engine's ``_pad_size`` bound (2^20): the kernel
+    launches one block per 32 candidates and none at K = 0; its plain
+    version is held to the reference at each K (the corpus repeated)."""
+    rng = np.random.default_rng(11)
+    pn, el, cols = probe_inputs(rng, 33)
+    cols = np.ascontiguousarray(np.tile(cols, (1, -(-k // cols.shape[1])))[:, :k])
+    jo = assert_probe_equal(pn, el, cols, 32)
+    assert all(x.shape == (k,) for x in jo)
+
+
+def test_output_buffer_layout_is_unchanged():
+    """One buffer of 25 bytes a candidate: own_added, own_taken and
+    elapsed as int64[K] each, then full as one byte a candidate, as the
+    engine's one-copy readback (``_probe_device_rows``) splits it."""
+    from patrol_tpu_torch.ops import lifecycle_kernel as lk
+
+    for k in (0, 1, 8, 8192, 1 << 20):
+        assert lk.output_bytes(k) == 25 * k
+    k = 24
+    vals = np.arange(3 * k, dtype=np.int64) - 7
+    full = np.arange(k) % 3 == 0
+    raw = np.concatenate([vals.view(np.uint8), full.astype(np.uint8)])
+    for buf in (raw.copy(), torch.from_numpy(raw.copy())):
+        got = lk.split_outputs(buf, k)
+        for part, want in zip(got, (full, vals[:k], vals[k:2 * k], vals[2 * k:])):
+            np.testing.assert_array_equal(np.asarray(part), want)
+    # The views alias the buffer (the readback is the only copy).
+    buf = torch.from_numpy(raw.copy())
+    lk.split_outputs(buf, k)[1][0] = 99
+    assert buf[:8].view(torch.int64)[0] == 99
+
+
+def test_kernel_wrapper_refuses_a_cpu_state():
+    """The wrapper launches on CUDA tensors or raises; the op takes the
+    plain version for a CPU state (the tests above), never the wrapper."""
+    from patrol_tpu_torch.ops import lifecycle_kernel as lk
+
+    pn = torch.zeros((4, 2, 2), dtype=torch.int64)
+    cols = [torch.zeros(3, dtype=torch.int64) for _ in range(5)]
+    with pytest.raises(ValueError, match="CUDA"):
+        lk.probe(pn, torch.zeros(4, dtype=torch.int64), *cols, 0)
 
 
 @settings(max_examples=40, deadline=None)
