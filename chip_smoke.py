@@ -54,7 +54,22 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    warm (the same candidates each call), cold (a cycle of fresh random
    row sets past L2, and of consecutive ones), at K = 512 and at its floor
    (K = 8, one block), beside its plain version and its bound; its
-   ``-Xptxas -v`` line (registers, shared memory) is printed.
+   ``-Xptxas -v`` line (registers, shared memory) is printed. Then the
+   certified families (``csrc/cert.cu``: each family's admit kernel, then
+   ``own_lane_commit``) at K = 8,192 on the 1M x 64 state (quota over
+   24,576 row gathers), each held bit for bit (results and final planes)
+   to its plain version at ``node_slot`` 0 and 63, over its hazards:
+   remote lanes preset (holds, spends, TAT watermarks, raw int64 near
+   2^63), repeated rows and padding columns aliasing live ones, rows in
+   ``[-B, 0)``, past ``B`` and below ``-B``, shared tenant and global rows
+   and a row at two levels, ``nreq``, ``count`` and ``T`` <= 0, negative
+   ``nreq``, releases above the held amount, wrapping products; again at
+   K = 0 (no launch), 1, 8 and 2^16, and at N = 1, 31, 33 and 256 lanes
+   on a small state; the commit kernel alone against its plain version.
+   Each family is timed warm, cold (16 requests on fresh random rows),
+   at K = 8 (its floor), its admit launch alone, beside its plain
+   version, the library calls (``index_select``, ``amax`` or ``sum``,
+   ``scatter_reduce_``) and its bound; the ``-Xptxas -v`` lines print.
 3. The main path: the port's ``Command`` serving on the asyncio front
    (host fast path off, see 3f)
    (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
@@ -142,6 +157,18 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    the card (planes, directory and tombstones equal). (a)-(d) replay on a
    CPU engine: outcomes, each sweep's reclaims, the bound set, tombstones
    and final planes must be equal. Phases 3-3g pin the GC window to 0.
+3i. The certified families through the engine's entry points: a
+   ``Command`` at the defaults on the card (1M x 64, GC window pinned to
+   0). The bench's cert leg input for input on rows 0..11 (bound first to
+   names of their own) must admit 15 / 21 / 8 with ``own_tat_ns`` on its
+   sequential replay; then 64 rounds of one microbatch of each family at
+   K = 8,192 over random rows in ``[B/2, B)``, each round followed by 16
+   host-served takes and 16 peer deltas on other names, under the
+   profiler; a microbatch of each family on rows 0..11 must show in the
+   next scrape. Each admit kernel must have launched once a call and the
+   commit once a family call. Then 1,000 scrapes of unchanged state must
+   be mirror hits with no device gather. The sequence replays on a CPU
+   engine: every result, serving outcome and the final planes equal.
 3d. The probe's entry point (``patrol_tpu_torch.scripts.probe_dma_scatter``,
    ``--device cuda``) at 1M × 256 lanes, K = 8192: ``row_rmw`` must have
    launched exactly once per call the probe made, and ``pairmax`` through
@@ -734,6 +761,264 @@ def lifecycle_edge_checks(torch, lk, lops, dev, rng):
         )
         err = max(err, e)
     return {"cases": len(cases), "max_abs_err": err}
+
+
+# -- phase 2: the certified families' kernels against their plain versions ----
+
+CERT_K = 8192  # columns a family call takes in phase 2 (quota: 3 x 8,192 row gathers)
+CERT_NOW = 1_700_000_000 * NANO
+CERT_FAMILIES = ("gcra", "conc", "quota")
+_I64_MAX = (1 << 63) - 1
+
+
+def cert_rows(rng, k, buckets, pool):
+    """K raw rows over ``pool`` distinct rows (so rows repeat): 1/64 each in
+    ``[-B, 0)`` (wrapped), past ``B`` (clamped to B - 1, commit dropped) and
+    below ``-B`` (clamped to 0, commit dropped)."""
+    rows = rng.choice(rng.choice(buckets, min(pool, buckets), replace=False), k)
+    n = max(k // 64, 1)
+    if k >= 3 * n:
+        at = rng.choice(k, 3 * n, replace=False)
+        rows[at[:n]] -= buckets
+        rows[at[n:2 * n]] = buckets + rng.integers(0, 1000, n)
+        rows[at[2 * n:]] = -buckets - 1 - rng.integers(0, 1000, n)
+    return rows.astype(np.int64)
+
+
+def cert_fill(rng, pn_t, rows, torch):
+    """Preset the lanes of every row the columns gather (remote lanes
+    included), a quarter each: zeros, small holds and spends (sparse),
+    TAT watermarks around ``CERT_NOW``, and raw int64 (values near 2^63,
+    negative ones, wrapping sums)."""
+    b, n, _ = pn_t.shape
+    r = rows.astype(np.int32).astype(np.int64)
+    r = np.unique(np.clip(np.where(r < 0, r + b, r), 0, b - 1))
+    case = rng.integers(0, 4, len(r))
+    vals = np.zeros((len(r), n, 2), np.int64)
+    small = case == 1
+    mask = rng.random((int(small.sum()), n, 1)) < 0.3
+    vals[small] = rng.integers(0, 200, (int(small.sum()), n, 2)) * mask
+    vals[small, :, 1] += rng.integers(0, 50, (int(small.sum()), n))  # TAKEN >= ADDED mostly
+    tat = case == 2
+    vals[tat, :, 1] = CERT_NOW + rng.integers(-10**6, 10**6, (int(tat.sum()), n))
+    raw = case == 3
+    vals[raw] = rng.integers(-(1 << 63), _I64_MAX, (int(raw.sum()), n, 2), dtype=np.int64)
+    vals[raw, 0, 1] = _I64_MAX - rng.integers(0, 1000, int(raw.sum()))
+    pn_t[torch.from_numpy(r).to(pn_t.device)] = torch.from_numpy(vals).to(pn_t.device)
+
+
+def cert_request(rng, family, k, buckets):
+    """One family's packed request (rows raw, as a caller passes them)
+    over its hazards: repeated rows with padding columns (``nreq`` 0)
+    aliasing live ones, out-of-range rows, ``nreq``, ``count`` and ``T``
+    <= 0 and negative ``nreq``, releases above the held amount, operands
+    near 2^62 whose products and sums wrap; quota paths under 16 global and
+    512 tenant rows, a tenth of the tenant rows a user row of another path."""
+    big = 1 << 62
+    nreq = rng.choice([-3, 0, 0, 1, 5, 1000, big], k)
+    if family == "gcra":
+        return np.stack([
+            cert_rows(rng, k, buckets, max(k // 2, 1)),
+            CERT_NOW + rng.integers(-10**6, 10**6, k),
+            rng.choice([-5, 0, 1, 100, 10**5, big], k),
+            rng.choice([-50, 0, 300, 10**6, big], k),
+            nreq,
+        ])
+    if family == "conc":
+        return np.stack([
+            cert_rows(rng, k, buckets, max(k // 2, 1)),
+            rng.choice([-5, 0, 10, 1000, 10**6, big], k),
+            rng.choice([-2, 0, 1, 7, 1 << 40], k),
+            nreq,
+            rng.choice([-1, 0, 1, 3, 100, 1 << 40], k),
+        ])
+    users = cert_rows(rng, k, buckets, max(k // 2, 1))
+    tenants = cert_rows(rng, k, buckets, min(512, k))
+    swap = rng.random(k) < 0.1
+    tenants[swap] = rng.choice(users, int(swap.sum()))  # a row at two levels
+    limits = [rng.choice([-5, 0, 10, 1000, 10**6, big, big], k) for _ in range(3)]
+    return np.stack([
+        cert_rows(rng, k, buckets, min(16, k)), tenants, users, *limits,
+        rng.choice([-2, 0, 1, 1, 7, 1 << 40], k), nreq,
+    ])
+
+
+def cert_modules():
+    from patrol_tpu_torch.ops import cert_kernel, concurrency, gcra, hierquota
+
+    return cert_kernel, {"gcra": gcra, "conc": concurrency, "quota": hierquota}
+
+
+def cert_pack(torch, family, p, b, dev):
+    """A raw request → the packed device matrix (rows cast and wrapped,
+    as the engine packs)."""
+    from patrol_tpu_torch.ops import cert_kernel
+
+    p = p.copy()
+    levels = 3 if family == "quota" else 1
+    p[:levels] = cert_kernel.wrap_rows_np(p[:levels], b)
+    return torch.from_numpy(p).to(dev)
+
+
+def cert_compare(torch, family, base, packed, slot, tag):
+    """Kernel (admit, then commit) against the plain version from the same
+    base planes: results and final planes bit for bit. → (max_abs_err,
+    kernel result, kernel planes)."""
+    ck, mods = cert_modules()
+    pk, pp = base.clone(), base.clone()
+    out_k = ck.run(family, pk, packed, slot)
+    out_p = mods[family].packed_plain(pp, *packed, slot)
+    torch.cuda.synchronize()
+    err = max(check_equal(torch, f"{tag} results", out_k, out_p),
+              check_equal(torch, f"{tag} pn", pk, pp))
+    del pp
+    return err, out_k, pk
+
+
+def cert_library(torch, family, pn, g):
+    """The function's data movement as PyTorch library calls (timed only):
+    ``index_select`` of the rows, ``amax`` or ``sum`` over lanes, and one
+    ``scatter_reduce_`` into the own lane (slot 0)."""
+    rows = pn.index_select(0, g)
+    if family == "gcra":
+        pn[:, 0, 1].scatter_reduce_(0, g, rows[:, :, 1].amax(-1), reduce="amax")
+    elif family == "conc":
+        pn[:, 0].scatter_reduce_(0, g[:, None].expand(-1, 2), rows.sum(1), reduce="sum")
+    else:
+        pn[:, 0, 1].scatter_reduce_(0, g, rows[:, :, 1].sum(-1), reduce="sum")
+
+
+def cert_checks(torch, dev, rng):
+    """Each family at K = 8,192 on the 1M x 64 state against its plain
+    version at ``node_slot`` 0 and 63, then at K = 0 (no launch), 1, 8
+    and 2^16 (and the commit kernel alone against its plain version);
+    timed warm (the same request each call), cold (a cycle of 16 requests
+    on fresh random rows, 134 MB of planes for GCRA, past the 50 MB L2),
+    at its floor (K = 8), beside its plain version, the library calls and
+    its bound. → {family: numbers, "commit": numbers}."""
+    from patrol_tpu_torch.ops import _build
+
+    ck, mods = cert_modules()
+    base = torch.zeros((BUCKETS, LANES, 2), dtype=torch.int64, device=dev)
+    res = {}
+    for family in CERT_FAMILIES:
+        mod = mods[family]
+        p = cert_request(rng, family, CERT_K, BUCKETS)
+        levels = 3 if family == "quota" else 1
+        base.zero_()
+        cert_fill(rng, base, p[:levels].reshape(-1), torch)
+        packed = cert_pack(torch, family, p, BUCKETS, dev)
+        err = 0
+        for slot in (0, LANES - 1):
+            e, out_k, pk = cert_compare(torch, family, base, packed, slot,
+                                        f"{family} node_slot={slot}")
+            err = max(err, e)
+            if slot == 0:
+                adm = out_k[0].cpu().numpy()
+                check((adm >= 1).sum() > CERT_K // 32 and (adm == 0).sum() > CERT_K // 32,
+                      f"{family}: the corpus admits {int((adm >= 1).sum())} of {CERT_K}")
+                changed = int((pk != base).any(-1).any(-1).sum())
+                check(changed > CERT_K // 32, f"{family}: {changed} rows committed")
+            del pk
+        for kk in (1, 8):
+            e, _, pk = cert_compare(torch, family, base, packed[:, :kk].contiguous(), LANES // 2,
+                                    f"{family} K={kk}")
+            err = max(err, e)
+            del pk
+        p16 = cert_request(rng, family, 1 << 16, BUCKETS)
+        cert_fill(rng, base, p16[:levels].reshape(-1), torch)
+        e, _, pk = cert_compare(torch, family, base, cert_pack(torch, family, p16, BUCKETS, dev),
+                                7, f"{family} K=2^16")
+        err = max(err, e)
+        del pk
+        launches = dict(_build.LAUNCHES)
+        empty = ck.run(family, base, packed[:, :0].contiguous(), 0)
+        check(empty.numel() == 0 and _build.LAUNCHES == launches,
+              f"{family} at K = 0 launched or returned values")
+
+        # The commit kernel alone, against its plain version.
+        _, commit = ck.admit(family, base, packed, 0)
+        op = ck.FAMILIES[family][3]
+        ca, cb = base.clone(), base.clone()
+        ck.own_lane_commit(ca, commit, op)
+        ck.own_lane_commit_plain(cb, commit, op)
+        torch.cuda.synchronize()
+        err_commit = check_equal(torch, f"{family} own_lane_commit", ca, cb)
+        del cb
+        live_mask = commit[0] >= 0
+        live, live_val = commit[0][live_mask], commit[1][live_mask]
+        n_updated = int(live.unique().numel())
+        n_entries = commit.shape[1]
+
+        # Bytes: the request and result matrices once, each distinct
+        # gathered row's lane plane once, 8 B written per updated lane.
+        g = p[:levels].astype(np.int32).astype(np.int64)
+        g = np.clip(np.where(g < 0, g + BUCKETS, g), 0, BUCKETS - 1).reshape(-1)
+        rows_in, rows_out = ck.FAMILIES[family][:2]
+        nbytes = (len(np.unique(g)) * LANES * 16 + 8 * rows_in * CERT_K
+                  + 8 * rows_out * CERT_K + 8 * n_updated)
+        cold = []
+        for _ in range(16):
+            q = p.copy()
+            q[:levels] = rng.choice(BUCKETS, levels * CERT_K, replace=False).reshape(levels, -1)
+            cold.append(cert_pack(torch, family, q, BUCKETS, dev))
+        cold = itertools.cycle(cold)
+        g_t = torch.from_numpy(g).to(dev)
+        pp = ca.clone()
+        packed8 = packed[:, :8].contiguous()
+        res[family] = {
+            "ms": device_ms(torch, lambda: ck.run(family, ca, packed, 0)),
+            "ms_admit": device_ms(torch, lambda: ck.admit(family, ca, packed, 0)),
+            "ms_cold": device_ms(torch, lambda: ck.run(family, ca, next(cold), 0)),
+            "floor_ms": device_ms(torch, lambda: ck.run(family, ca, packed8, 0)),
+            "plain_ms": device_ms(torch, lambda: mod.packed_plain(pp, *packed, 0)),
+            "library_ms": device_ms(torch, lambda: cert_library(torch, family, ca, g_t)),
+            "commit_ms": device_ms(torch, lambda: ck.own_lane_commit(ca, commit, op)),
+            "commit_plain_ms": device_ms(torch, lambda: ck.own_lane_commit_plain(ca, commit, op)),
+            # One scatter_reduce_ over the live entries, masked beforehand.
+            "commit_library_ms": device_ms(torch, lambda: ca.view(-1).scatter_reduce_(
+                0, live, live_val, reduce="amax" if op == "max" else "sum")),
+            "commit_entries": n_entries,
+            "commit_updated": n_updated,
+            "commit_bytes": 16 * n_entries + 16 * n_updated,
+            "bytes": nbytes,
+            "ops": len(g) * 2 * LANES + 40 * CERT_K,
+            "max_abs_err": max(err, err_commit),
+            "admitted_columns": int((adm >= 1).sum()),
+            "k": CERT_K,
+        }
+        del ca, pp, cold, commit, live, live_val
+        torch.cuda.empty_cache()
+    del base
+    # The commit kernel's line: its time on quota's 3 x 8,192 entries.
+    q = res["quota"]
+    res["commit"] = {
+        "ms": q["commit_ms"], "plain_ms": q["commit_plain_ms"],
+        "library_ms": q["commit_library_ms"],
+        "bytes": q["commit_bytes"], "ops": q["commit_entries"],
+        "max_abs_err": max(res[f]["max_abs_err"] for f in CERT_FAMILIES),
+        "entries": q["commit_entries"],
+    }
+    return res
+
+
+def cert_edge_checks(torch, dev, rng):
+    """Each family at N = 1, 31, 33 and 256 lanes with the own lane first
+    and last, on a small state (4096 buckets, K = 512), bit for bit."""
+    err, cases = 0, 0
+    _, mods = cert_modules()
+    for family in CERT_FAMILIES:
+        levels = 3 if family == "quota" else 1
+        for n in (1, 31, 33, 256):
+            for slot in sorted({0, n - 1}):
+                base = torch.zeros((EDGE_BUCKETS, n, 2), dtype=torch.int64, device=dev)
+                p = cert_request(rng, family, 512, EDGE_BUCKETS)
+                cert_fill(rng, base, p[:levels].reshape(-1), torch)
+                packed = cert_pack(torch, family, p, EDGE_BUCKETS, dev)
+                e, _, _ = cert_compare(torch, family, base, packed, slot,
+                                       f"{family} N={n} node_slot={slot}")
+                err, cases = max(err, e), cases + 1
+    return {"cases": cases, "max_abs_err": err}
 
 
 # -- phase 2: decode_fold against its plain version --------------------------
@@ -2237,6 +2522,236 @@ def lifecycle_sequence(eng, clock, traces, profile=False) -> dict:
     return out
 
 
+# -- phase 3i: the certified families through the engine's entry points -----
+
+CERT_BATCHES = 64  # microbatches of each family, K = CERT_K each
+CERT_LEG_NAMES = [f"cert-leg-{i}" for i in range(12)]  # bind rows 0..11
+CERT_SERVE_TAKES, CERT_SERVE_DELTAS = 16, 16  # serving traffic a round
+CERT_SCRAPES = 1_000
+CERT_PROFILE_KERNELS = ("gcra_admit_kernel", "conc_admit_kernel", "quota_admit_kernel",
+                        "own_lane_commit_kernel")
+CERT_METHODS = {"gcra": "gcra_take", "conc": "conc_acquire", "quota": "quota_take"}
+
+
+def cert_engine_batches(rng) -> list:
+    """(family, raw request int64[P, K]) for 64 rounds of the three
+    families: :func:`cert_request`'s operands, rows in ``[B/2, B)`` (the
+    serving names bind rows from 0), repeated within a call (quota paths
+    under 16 global and 512 tenant rows)."""
+    half = BUCKETS // 2
+    out = []
+    for _ in range(CERT_BATCHES):
+        for family in CERT_FAMILIES:
+            p = cert_request(rng, family, CERT_K, BUCKETS)
+            pools = (16, 512, CERT_K // 2) if family == "quota" else (CERT_K // 2,)
+            for level, pool in enumerate(pools):
+                p[level] = rng.choice(half + rng.choice(half, pool, replace=False), CERT_K)
+            out.append((family, p))
+    return out
+
+
+def cert_leg(eng) -> dict:
+    """bench.py's cert leg (``bench.py:1529-1608``), input for input, on
+    rows 0..11: → admitted counts; each result is held to the leg's
+    sequential replay."""
+    def gcra_ref(tat, now, t, tol, nreq):
+        if tat > now + tol:
+            return 0, tat
+        base = max(tat, now)
+        k = min(1 + (now + tol - base) // t, nreq)
+        return k, base + k * t
+
+    rows3, tats, want, got = [0, 1, 2], [0, 0, 0], 0, 0
+    for now in (1_000, 1_100):
+        res = eng.gcra_take(rows3, [now] * 3, [100] * 3, [300] * 3, [5] * 3)
+        got += int(np.asarray(res.admitted).sum())
+        for i in range(3):
+            k, tats[i] = gcra_ref(tats[i], now, 100, 300, 5)
+            want += k
+        check(np.asarray(res.own_tat_ns).tolist() == tats,
+              "3i: gcra TAT diverged from the sequential replay")
+    check(got == want, f"3i: gcra admitted {got}, the sequential replay {want}")
+    rows3 = [3, 4, 5]
+    res = eng.conc_acquire(rows3, [5] * 3, [1] * 3, [8] * 3, [0] * 3)
+    check(np.asarray(res.admitted).tolist() == [5] * 3, "3i: conc first acquire")
+    conc = int(np.asarray(res.admitted).sum())
+    res = eng.conc_acquire(rows3, [5] * 3, [1] * 3, [4] * 3, [2] * 3)
+    check(np.asarray(res.released_nt).tolist() == [2] * 3
+          and np.asarray(res.admitted).tolist() == [2] * 3
+          and np.asarray(res.inflight_nt).tolist() == [5] * 3, "3i: conc re-acquire")
+    conc += int(np.asarray(res.admitted).sum())
+    paths = dict(rows_global=[6, 7], rows_tenant=[8, 9], rows_user=[10, 11],
+                 limit_global_nt=[10] * 2, limit_tenant_nt=[6] * 2, limit_user_nt=[4] * 2,
+                 count_nt=[1] * 2)
+    res = eng.quota_take(nreq=[5] * 2, **paths)
+    check(np.asarray(res.admitted).tolist() == [4] * 2, "3i: quota path-minimum admission")
+    quota = int(np.asarray(res.admitted).sum())
+    res = eng.quota_take(nreq=[5] * 2, **paths)
+    check(np.asarray(res.admitted).tolist() == [0] * 2, "3i: quota second tick must starve")
+    return {"gcra": got, "conc": conc, "quota": quota}
+
+
+def cert_sequence(eng, clock, batches, wire_mod, rate_cls, profile=False) -> dict:
+    """3i's sequence on one engine at a frozen, stepped clock: the cert
+    leg (its rows bound first to names of their own, so the serving names
+    land on other rows), then each round's three family microbatches
+    followed by 16 takes (host lanes) and 16 peer deltas (device rows) on
+    other names and a flush; then one microbatch of each family on the
+    leg's rows, which a scrape must show. → digests of every result,
+    serving outcomes, host time per call and (``profile``) the profiled
+    window."""
+    import hashlib
+
+    for name in CERT_LEG_NAMES:
+        eng.assign_row(name, clock.now)
+    out = {"leg": cert_leg(eng), "digests": [], "serve": [], "call_us": {f: [] for f in CERT_FAMILIES}}
+    rng = np.random.default_rng(29)
+    rate = rate_cls(freq=100, per_ns=NANO)
+    window = ProfileWindow(CERT_PROFILE_KERNELS) if profile else None
+    for i, (family, p) in enumerate(batches):
+        levels = 3 if family == "quota" else 1
+        t0 = time.perf_counter()
+        res = getattr(eng, CERT_METHODS[family])(*p[:levels], *p[levels:])
+        out["call_us"][family].append((time.perf_counter() - t0) * 1e6)
+        out["digests"].append(hashlib.sha256(np.stack(res).tobytes()).hexdigest())
+        if i % 3 == 2:
+            clock.now += 1_000_000
+            for name in rng.integers(0, 2_000, CERT_SERVE_TAKES):
+                out["serve"].append(tuple(eng.take(f"svc{name}", rate, 1)))
+            for name, slot in zip(rng.integers(0, 2_000, CERT_SERVE_DELTAS),
+                                  rng.integers(1, LANES, CERT_SERVE_DELTAS)):
+                t = int(rng.integers(0, 50)) * NANO
+                out["serve"].append(eng.ingest_delta(wire_mod.from_nanotokens(
+                    f"peer{name}", 0, t, 0, origin_slot=int(slot), cap_nt=100 * NANO,
+                    lane_added_nt=0, lane_taken_nt=t), slot=int(slot)))
+            check(eng.flush(120), "3i: flush after a round timed out")
+    out["profile"] = window.close(calls=len(batches)) if window else None
+    # A scrape after a family's microbatch shows it: GCRA on rows 0..2,
+    # concurrency on 3..5, quota on paths 6/8/10 and 7/9/11.
+    clock.now += 1_000_000
+    shown = []
+    g = eng.gcra_take([0, 1, 2], [5_000] * 3, [100] * 3, [300] * 3, [2] * 3)
+    shown.append([int(eng.row_view(r)[0][0, 1]) for r in (0, 1, 2)] == np.asarray(g.own_tat_ns).tolist())
+    c = eng.conc_acquire([3, 4, 5], [9] * 3, [1] * 3, [3] * 3, [1] * 3)
+    views = [eng.row_view(r)[0][0] for r in (3, 4, 5)]
+    shown.append([[int(v[0]), int(v[1])] for v in views]
+                 == [[int(a), int(t)] for a, t in zip(c.own_released_nt, c.own_acquired_nt)])
+    q = eng.quota_take([6, 7], [8, 9], [10, 11], [100] * 2, [100] * 2, [100] * 2, [1] * 2, [3] * 2)
+    shown.append([int(eng.row_view(r)[0][0, 1]) for r in (10, 11)]
+                 == np.asarray(q.own_taken_user_nt).tolist())
+    direct, _ = eng.read_rows(np.arange(12))
+    shown.append(all(np.array_equal(eng.row_view(r)[0], direct[r]) for r in range(12)))
+    out["scrape_shows_microbatch"] = shown
+    out["digests"].append(hashlib.sha256(np.concatenate([*g, *c, *q]).tobytes()).hexdigest())
+    return out
+
+
+def run_cert_phase(Command, LimiterConfig, engine_mod, torch) -> dict:
+    """3i: a ``Command`` at the defaults on the card (1M x 64, GC window
+    pinned to 0 as in phases 3-3g) drives :func:`cert_sequence` with the
+    launch counters zeroed just before; then 1,000 scrapes of unchanged
+    state must all be mirror hits with no device gather. The sequence
+    replays on a CPU engine: every family result, every serving outcome
+    and the final planes must be equal."""
+    from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.ops import wire as wire_mod
+    from patrol_tpu_torch.ops.rate import Rate
+    from patrol_tpu_torch.runtime.engine import DeviceEngine
+    from patrol_tpu_torch.utils import profiling
+
+    t = time.perf_counter()
+    batches = cert_engine_batches(np.random.default_rng(23))
+    built_s = time.perf_counter() - t
+    cfg = LimiterConfig(buckets=BUCKETS, nodes=LANES)
+    t0 = 1_700_000_000 * NANO
+    clock = Clock(t0)
+    node = Node(Command(
+        api_addr="127.0.0.1:0", node_addr=f"127.0.0.1:{free_udp_port()}", config=cfg,
+        clock=clock, handle_signals=False, warmup=True, device="cuda",
+    ))
+    try:
+        eng = node.cmd.engine
+        check(eng._native_store is not None, "3i: the native host store was not taken")
+        check(engine_mod.SCRAPE_MIRROR and eng._mirror_window == engine_mod.SCRAPE_MIRROR_ROWS,
+              "3i: the scrape mirror is not on at the defaults")
+        _build.reset_launches()
+        t = time.perf_counter()
+        gpu = cert_sequence(eng, clock, batches, wire_mod, Rate, profile=True)
+        gpu["seconds"] = time.perf_counter() - t
+        gpu["launches"] = dict(_build.LAUNCHES)
+        check(eng.flush(120), "3i: final flush timed out")
+        # 1,000 scrapes of unchanged state: the leg's rows and the peer
+        # names' device rows, all inside the mirror window.
+        peers = [f"peer{i}" for i in range(2_000) if eng.directory.lookup(f"peer{i}") is not None]
+        c0 = {k: profiling.COUNTERS.get(k) for k in
+              ("scrape_mirror_hits", "scrape_device_gathers", "scrape_mirror_refreshes")}
+        t = time.perf_counter()
+        for i in range(CERT_SCRAPES):
+            if i % 2:
+                eng.row_view(i % 12)
+            else:
+                eng.tokens_if_known(peers[i % len(peers)])
+        scrape_s = time.perf_counter() - t
+        scrapes = {k: profiling.COUNTERS.get(k) - v for k, v in c0.items()}
+        scrapes["per_scrape_us"] = scrape_s / CERT_SCRAPES * 1e6
+        gpu["scrapes"] = scrapes
+        gpu_planes = eng.snapshot_planes()
+        # The entry point's own host time: 64 GCRA calls at K = 8192 on an
+        # idle engine, after the planes were read (their writes are not
+        # replayed).
+        p = next(q for f, q in batches if f == "gcra")
+        idle = []
+        for _ in range(64):
+            t = time.perf_counter()
+            eng.gcra_take(*p)
+            idle.append((time.perf_counter() - t) * 1e6)
+        gpu["idle_gcra_call_us_p50"] = statistics.median(idle)
+    finally:
+        node.close()
+    del node
+    torch.cuda.empty_cache()
+    cclock = Clock(t0)
+    ceng = DeviceEngine(cfg, node_slot=0, clock=cclock, device="cpu", native_host=True)
+    try:
+        t = time.perf_counter()
+        cpu = cert_sequence(ceng, cclock, batches, wire_mod, Rate)
+        cpu_s = time.perf_counter() - t
+        check(ceng.flush(600), "3i: CPU replay flush timed out")
+        cpu_planes = ceng.snapshot_planes()
+    finally:
+        ceng.stop()
+    check(gpu["leg"] == {"gcra": 15, "conc": 21, "quota": 8}, f"3i: cert leg {gpu['leg']}")
+    check(gpu["leg"] == cpu["leg"], "3i: the cert leg differs from the CPU replay")
+    bad = [i for i, (a, b) in enumerate(zip(gpu["digests"], cpu["digests"])) if a != b]
+    check(not bad and len(gpu["digests"]) == len(cpu["digests"]),
+          f"3i: family results differ from the CPU replay at calls {bad[:8]}")
+    check(gpu["serve"] == cpu["serve"], "3i: serving outcomes differ from the CPU replay")
+    check(all(gpu["scrape_shows_microbatch"]) and all(cpu["scrape_shows_microbatch"]),
+          f"3i: a scrape did not show a family's microbatch: {gpu['scrape_shows_microbatch']}")
+    check(np.array_equal(gpu_planes[0], cpu_planes[0]) and np.array_equal(gpu_planes[1], cpu_planes[1]),
+          "3i: the final planes differ from the CPU replay")
+    check(scrapes["scrape_device_gathers"] == 0
+          and scrapes["scrape_mirror_hits"] >= CERT_SCRAPES // 2,
+          f"3i: scrapes of unchanged state gathered: {scrapes}")
+    # Each family: two calls of the leg, the rounds, one on the leg's rows;
+    # one commit launch a call.
+    calls_each = 2 + CERT_BATCHES + 1
+    for name in ("gcra_admit", "conc_admit", "quota_admit"):
+        check(gpu["launches"][name] == calls_each,
+              f"3i: {name} launched {gpu['launches'][name]} times, not {calls_each}")
+    check(gpu["launches"]["own_lane_commit"] == 3 * calls_each,
+          f"3i: own_lane_commit launched {gpu['launches']['own_lane_commit']} times")
+    del gpu_planes, cpu_planes
+    calls = {f: statistics.median(v) for f, v in gpu["call_us"].items()}
+    p99 = {f: float(np.percentile(v, 99)) for f, v in gpu["call_us"].items()}
+    gpu.pop("digests")
+    gpu.pop("serve")
+    gpu.pop("call_us")
+    gpu.update({"batches_built_s": built_s, "cpu_replay_s": cpu_s, "call_us_p50": calls,
+                "call_us_p99": p99})
+    return gpu
+
+
 def run_lifecycle_phase(engine_mod, torch) -> dict:
     """3h: one node at 1,000,000 x 64 on the card at the defaults (host
     lanes in the native store, GC on at its default knobs), at a stepped
@@ -2443,7 +2958,8 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     report["build_log"] = (so.parent / "build.log").read_text() if (so.parent / "build.log").exists() else ""
     report["ptxas"] = ptxas_lines(report["build_log"],
-                                  ("take.cu", "decode_fold.cu", "join.cu", "lifecycle.cu"))
+                                  ("take.cu", "decode_fold.cu", "join.cu", "lifecycle.cu",
+                                   "cert.cu"))
     report["join_sass"] = join_sass(so)
     sass = report["join_sass"]
     if sass is not None:
@@ -2473,6 +2989,10 @@ def main() -> int:
     life = lifecycle_checks(torch, lk, lops, dev, lrng)
     life["edges"] = lifecycle_edge_checks(torch, lk, lops, dev, lrng)
     torch.cuda.empty_cache()
+    crng = np.random.default_rng(20261018)
+    cert = cert_checks(torch, dev, crng)
+    cert["edges"] = cert_edge_checks(torch, dev, crng)
+    torch.cuda.empty_cache()
     log(f"joins: {json.dumps(joins)}")
     log(f"pair_join {pair['ms']:.4f} ms, row_join {row['ms']:.4f} ms, tick_join "
         f"{tick['ms']:.4f} ms (two launches {tick['two_launches_ms']:.4f} ms), ring warm "
@@ -2491,6 +3011,17 @@ def main() -> int:
           f"{bound(life['bytes'], life['ops'])[0]:.6f} ms, max_abs_err "
           f"{max(life['max_abs_err'], life['edges']['max_abs_err'])}; ptxas: "
           f"{' '.join(life['ptxas'])}")
+    # The cert kernels' launch shapes, and each family beside its bounds.
+    cert["ptxas"] = [ln for ln in report["ptxas"].get("cert.cu", [])
+                     if "Used" in ln or "entry function" in ln]
+    for family in CERT_FAMILIES:
+        m = cert[family]
+        print(f"{family}_admit + own_lane_commit K={m['k']}: warm {m['ms']:.6f} ms (admit "
+              f"{m['ms_admit']:.6f}, commit {m['commit_ms']:.6f}), cold {m['ms_cold']:.6f} ms, "
+              f"K=8 {m['floor_ms']:.6f} ms, plain {m['plain_ms']:.6f} ms, library "
+              f"{m['library_ms']:.6f} ms, bound {bound(m['bytes'], m['ops'])[0]:.6f} ms, "
+              f"max_abs_err {max(m['max_abs_err'], cert['edges']['max_abs_err'])}")
+    print("cert.cu ptxas: " + " | ".join(cert["ptxas"]))
     report["kernel_detail"] = {
         "pair_join": pair, "row_join": row, "tick_join": tick, "commit_ring": ring,
         "take_n": take,
@@ -2498,6 +3029,7 @@ def main() -> int:
         "decode_fold_edges": dfold["edges"],
         "row_rmw_bcast": rmw["bcast"], "row_rmw_pairmax": rmw["pairmax"],
         "lifecycle_probe": life,
+        "cert": cert,
     }
 
     # 3. The main path. Phases 3, 3b, 3c and 3e run the asyncio front with
@@ -2694,6 +3226,25 @@ def main() -> int:
           f"through hosted_mask {two_d['counters'].get('ingest_raw_hosted_absorbed', 0)}")
     torch.cuda.empty_cache()
 
+    # 3i. The certified families through the engine's entry points, at the
+    # defaults (GC window still pinned to 0); replayed on the CPU.
+    t0 = time.perf_counter()
+    cphase = run_cert_phase(Command, LimiterConfig, engine_mod, torch)
+    cphase["phase_s"] = time.perf_counter() - t0
+    report["cert_phase"] = cphase
+    log(f"3i cert families: {json.dumps(cphase, default=str)}")
+    cprof = cphase["profile"]
+    print(f"cert 3i: leg {json.dumps(cphase['leg'])}, {3 * CERT_BATCHES} microbatches of "
+          f"K={CERT_K} in {cphase['seconds']:.2f} s, host us a call p50 "
+          f"{json.dumps(cphase['call_us_p50'])} p99 {json.dumps(cphase['call_us_p99'])} (idle "
+          f"engine, gcra: {cphase['idle_gcra_call_us_p50']:.1f}), launches "
+          f"{json.dumps({k: cphase['launches'][k] for k in ('gcra_admit', 'conc_admit', 'quota_admit', 'own_lane_commit')})}, "
+          f"profiled {json.dumps({k: v['count'] for k, v in cprof['kernels'].items()})} device us "
+          f"{json.dumps({k: round(v['device_us'], 3) for k, v in cprof['kernels'].items()})}, "
+          f"device busy {cprof['device_busy_share']}, scrapes {json.dumps(cphase['scrapes'])}; "
+          f"equal to the CPU replay; phase {cphase['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # 3h. The bucket lifecycle at the defaults: bind, sweep, re-create,
     # shed, checkpoint; replayed on a CPU engine.
     engine_mod.GC_WINDOW_NS = gc_window
@@ -2764,6 +3315,19 @@ def main() -> int:
         # are those of phase 3h's sweeps.
         ("lifecycle_probe", "patrol_tpu_torch/csrc/lifecycle.cu",
          "patrol_tpu/ops/lifecycle.py:69", life, lc["launches"]["lifecycle_probe"]),
+        # Each family timed as one call (its admit launch and the commit)
+        # at K = 8192 on the 1M x 64 state; launches are phase 3i's.
+        ("gcra_admit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/gcra.py:69",
+         cert["gcra"], cphase["launches"]["gcra_admit"]),
+        ("conc_admit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/concurrency.py:73",
+         cert["conc"], cphase["launches"]["conc_admit"]),
+        ("quota_admit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/hierquota.py:79",
+         cert["quota"], cphase["launches"]["quota_admit"]),
+        # The commit alone, on quota's 3 x 8192 entries; its launches are
+        # the three families' in 3i. It replaces the reference's scatters
+        # (gcra.py:108, concurrency.py:112, hierquota.py:117).
+        ("own_lane_commit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/hierquota.py:117",
+         cert["commit"], cphase["launches"]["own_lane_commit"]),
     ):
         b_ms, b_by = bound(m["bytes"], m["ops"])
         entry = {
@@ -2805,6 +3369,7 @@ def main() -> int:
                              ("3f_warm_1x1", res_leg["warm_1x1"]["launches"]),
                              ("3f_promotion", promo["launches"]),
                              ("3g", two_d["launches"]),
+                             ("3i", cphase["launches"]),
                              ("3h", lc["launches"])):
             if name in ("pair_join", "row_join", "tick_join"):
                 entry[f"launches_{path}"] = sum(counts[k] for k in ("pair_join", "row_join", "tick_join"))
@@ -2828,6 +3393,10 @@ def main() -> int:
         if name == "take_n":
             entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
             entry["padding_only_ms"] = m["padding_only_ms"]
+        if name in ("gcra_admit", "conc_admit", "quota_admit", "own_lane_commit"):
+            entry["max_abs_err"] = max(m["max_abs_err"], cert["edges"]["max_abs_err"])
+            entry.update({key: m[key] for key in ("floor_ms", "ms_admit", "ms_cold", "k")
+                          if key in m})
         if name == "lifecycle_probe":
             entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
             entry.update({key: m[key] for key in ("floor_ms", "ms_cold", "ms_cold_contig",

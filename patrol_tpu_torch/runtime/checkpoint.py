@@ -124,6 +124,7 @@ def restore(directory: str, engine) -> int:
         with engine._state_mu:
             torch.maximum(engine.state.pn, pn, out=engine.state.pn)
             torch.maximum(engine.state.elapsed, elapsed, out=engine.state.elapsed)
+            engine._state_gen += 1  # a write outside any tick: the scrape epoch moves
         del pn, elapsed
 
         d = engine.directory

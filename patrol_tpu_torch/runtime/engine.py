@@ -67,9 +67,20 @@ Under a memory budget (``MAX_BUCKETS``, ``STATE_BYTES_BUDGET``) sweeps
 run eight times as often past the soft watermark, and new names are shed
 with :class:`OverloadedError` at the hard one.
 
-Not part of this package yet, and absent here: the certified GCRA /
-concurrency / quota families (their entry points raise
-``NotImplementedError``).
+The certified families (:meth:`DeviceEngine.gcra_take`,
+:meth:`~DeviceEngine.conc_acquire`, :meth:`~DeviceEngine.quota_take`) are
+synchronous microbatch entry points on the caller's thread: one packed
+request shipped in one copy, the family's two launches under
+``_state_mu`` on the same stream as the feeder's ticks, one readback.
+
+Scrape mirror (``SCRAPE_MIRROR``): the stats and debug reads
+(``row_view``, ``snapshot``, ``snapshot_many``, ``tokens_if_known``) of
+device rows answer from a host copy of the low row window, stamped with
+the ``(_ticks, _state_gen)`` epoch it reflects and exact while that epoch
+holds. Every device-state write bumps one of the two: a tick, ingest or
+promotion launch bumps ``_ticks``; a row zeroed (eviction, GC reclaim,
+demotion, ``release_bucket``), a family call and a checkpoint restore
+bump ``_state_gen``.
 """
 
 from __future__ import annotations
@@ -94,8 +105,12 @@ from patrol_tpu_torch.models.limiter import (
     state_to_numpy,
 )
 from patrol_tpu_torch.ops import _build
+from patrol_tpu_torch.ops import cert_kernel
 from patrol_tpu_torch.ops import commit as commit_mod
+from patrol_tpu_torch.ops import concurrency as conc_ops
 from patrol_tpu_torch.ops import delta as delta_ops
+from patrol_tpu_torch.ops import gcra as gcra_ops
+from patrol_tpu_torch.ops import hierquota as quota_ops
 from patrol_tpu_torch.ops import ingest as ingest_ops
 from patrol_tpu_torch.ops import ingest_kernel
 from patrol_tpu_torch.ops import join_kernel
@@ -182,6 +197,14 @@ HOST_DEMOTE_TAKES = int(
 HOST_DEMOTE_WINDOW_NS = int(
     float(os.environ.get("PATROL_HOST_DEMOTE_WINDOW_MS", 200)) * 1e6
 )
+
+# Scrape mirror: a host copy of the low row window for the stats and debug
+# reads, exact while the (_ticks, _state_gen) epoch it is stamped with
+# holds, so a scrape of unchanged state costs no device gather. A stale
+# scrape re-arms it with one window gather; rows past the window (or with
+# the mirror off) are gathered one call each.
+SCRAPE_MIRROR = os.environ.get("PATROL_SCRAPE_MIRROR", "1") != "0"
+SCRAPE_MIRROR_ROWS = int(os.environ.get("PATROL_SCRAPE_MIRROR_ROWS", 4096))
 
 # Bucket lifecycle: idle-bucket GC on the feeder tick. A bound bucket whose
 # reconstructed balance reaches its capacity (the IsZero predicate,
@@ -881,6 +904,14 @@ class DeviceEngine:
         self._stopped = False
         self._busy = False
         self._ticks = 0  # kernel ticks issued (observability)
+        # Device-state writes that ride no _ticks bump (rows zeroed, the
+        # certified families, checkpoint restore), bumped under _state_mu.
+        # (_ticks, _state_gen) is the scrape mirror's epoch.
+        self._state_gen = 0
+        # (epoch, pn[W, N, 2], elapsed[W]) or None, swapped as one tuple.
+        self._scrape_mirror: Optional[Tuple[Tuple[int, int], np.ndarray, np.ndarray]] = None
+        self._mirror_window = min(config.buckets, SCRAPE_MIRROR_ROWS) if SCRAPE_MIRROR else 0
+        self._mirror_want = False  # a scrape found it stale: the completer refreshes
         self._tick_traced: List[Tuple[int, str]] = []
         self._evictions = 0
         self._scalar_dropped = 0
@@ -998,6 +1029,7 @@ class DeviceEngine:
         rows = torch.from_numpy(victims.astype(np.int64)).to(self.device)
         with self._state_mu:
             merge_mod.zero_rows(self.state, rows)
+            self._state_gen += 1
         self.directory.recycle(victims)
         self._evictions += int(victims.size)
         log.info("evicted %d idle buckets (pool pressure)", victims.size)
@@ -1316,6 +1348,7 @@ class DeviceEngine:
             rows_z = torch.as_tensor(kept, device=self.device)
             with self._state_mu:
                 merge_mod.zero_rows(self.state, rows_z)
+                self._state_gen += 1
             if self.directory.recycle_compact(kept):
                 self._gc_compactions += 1
                 profiling.COUNTERS.inc("directory_compactions")
@@ -1786,6 +1819,7 @@ class DeviceEngine:
                 rows_t = torch.as_tensor(np.asarray(demoted, np.int64), device=self.device)
                 with self._state_mu:
                     merge_mod.zero_rows(self.state, rows_t)
+                    self._state_gen += 1
                 self._demotions += len(demoted)
                 log.debug("demoted %d idle buckets to host residency", len(demoted))
 
@@ -2827,14 +2861,78 @@ class DeviceEngine:
             self._reseed_fresh_rows(miss_names, rows, np.ones(len(rows), dtype=bool))
         return rows
 
-    def gcra_take(self, *args, **kwargs):
-        raise NotImplementedError("the certified GCRA family is not ported yet")
+    # -- the certified families (ops/gcra.py, ops/concurrency.py,
+    # ops/hierquota.py): synchronous microbatches against the shared planes,
+    # under the state lock the feeder's launches take.
 
-    def conc_acquire(self, *args, **kwargs):
-        raise NotImplementedError("the certified concurrency family is not ported yet")
+    def _cert_call(self, launch, rows, fields, result_rows: int) -> np.ndarray:
+        """One family call. ``rows`` (the path's row vectors) are read as
+        int32 and wrapped, ``fields`` as int64, each broadcast to K
+        columns, packed into one staging buffer (K padded to a power of
+        two with columns of zeros, which commit nothing) and shipped in
+        one copy; ``launch(state, packed, node_slot)`` runs under
+        ``_state_mu`` and bumps ``_state_gen``; the result matrix comes
+        back in one copy. → int64[result_rows, K]."""
+        b = self.config.buckets
+        k = np.asarray(rows[-1]).shape[0]
+        cols = [np.broadcast_to(cert_kernel.wrap_rows_np(r, b), (k,)) for r in rows]
+        cols += [np.broadcast_to(np.asarray(f, np.int64), (k,)) for f in fields]
+        if k == 0:
+            return np.zeros((result_rows, 0), np.int64)
+        kp = _pad_size(k, hi=1 << 62)
+        buf = self._staging.lease((len(cols), kp))
+        packed = buf.numpy()
+        packed[:, k:] = 0
+        for i, col in enumerate(cols):
+            packed[i, :k] = col
+        dev = self._ship(buf)
+        with self._state_mu:
+            out = launch(self.state, dev, self.node_slot)
+            self._state_gen += 1
+        if self._cuda:
+            res_buf = self._staging.lease((result_rows, kp))
+            res_buf.copy_(out)  # the one readback; waits for the launches
+            res = res_buf.numpy()[:, :k].copy()
+            self._staging.release(res_buf)
+            return res
+        return out.numpy()[:, :k].copy()
 
-    def quota_take(self, *args, **kwargs):
-        raise NotImplementedError("the certified hierarchical-quota family is not ported yet")
+    def gcra_take(self, rows, now_ns, emission_ns, tol_ns, nreq) -> gcra_ops.GcraResult:
+        """GCRA conformance microbatch → GcraResult of numpy int64 arrays."""
+        res = self._cert_call(
+            gcra_ops.gcra_take_packed, [rows], [now_ns, emission_ns, tol_ns, nreq],
+            gcra_ops.GCRA_RESULT_ROWS,
+        )
+        return gcra_ops.GcraResult(*res)
+
+    def conc_acquire(self, rows, limit_nt, count_nt, nreq, releases) -> conc_ops.ConcResult:
+        """Concurrency release-then-acquire microbatch → ConcResult of
+        numpy int64 arrays."""
+        res = self._cert_call(
+            conc_ops.conc_acquire_packed, [rows], [limit_nt, count_nt, nreq, releases],
+            conc_ops.CONC_RESULT_ROWS,
+        )
+        return conc_ops.ConcResult(*res)
+
+    def quota_take(
+        self,
+        rows_global,
+        rows_tenant,
+        rows_user,
+        limit_global_nt,
+        limit_tenant_nt,
+        limit_user_nt,
+        count_nt,
+        nreq,
+    ) -> quota_ops.QuotaResult:
+        """Hierarchical-quota path-take microbatch → QuotaResult of numpy
+        int64 arrays."""
+        res = self._cert_call(
+            quota_ops.quota_take_packed, [rows_global, rows_tenant, rows_user],
+            [limit_global_nt, limit_tenant_nt, limit_user_nt, count_nt, nreq],
+            quota_ops.QUOTA_RESULT_ROWS,
+        )
+        return quota_ops.QuotaResult(*res)
 
     def _emit_broadcasts(self, broadcasts: List[wire.WireState]) -> None:
         if not broadcasts:
@@ -2926,7 +3024,7 @@ class DeviceEngine:
         el = np.zeros(len(rows), np.int64)
         dev = [i for i in range(len(rows)) if i not in host]
         if dev:
-            pn[dev], el[dev] = self.read_rows([rows[i] for i in dev])
+            pn[dev], el[dev] = self._scrape_rows([rows[i] for i in dev])
         for i, (a, t, e) in host.items():
             pn[i, :, 0], pn[i, :, 1], el[i] = a, t, e
         for i, (a, t, e) in staged.items():
@@ -2934,6 +3032,42 @@ class DeviceEngine:
             np.maximum(pn[i, :, 1], t, out=pn[i, :, 1])
             el[i] = max(int(el[i]), e)
         return pn, el
+
+    def _scrape_epoch(self) -> Tuple[int, int]:
+        """The device-state version a mirror is stamped with. Plain int
+        reads: a bump landing mid-read only makes the mirror look stale."""
+        return (self._ticks, self._state_gen)
+
+    def _refresh_scrape_mirror(self) -> None:
+        """One window gather re-stamping the scrape mirror. The epoch is
+        taken BEFORE the gather: a write racing the gather leaves the
+        mirror stamped older than its data (one more refresh), never
+        pre-write data stamped as current."""
+        k = self._mirror_window
+        if k <= 0:
+            return
+        epoch = self._scrape_epoch()
+        pn, elapsed = self.read_rows(np.arange(k, dtype=np.int64))
+        self._scrape_mirror = (epoch, pn, elapsed)
+        profiling.COUNTERS.inc("scrape_mirror_refreshes")
+
+    def _scrape_rows(self, rows) -> Tuple[np.ndarray, np.ndarray]:
+        """(pn[K, N, 2], elapsed[K]) of device rows for the stats and debug
+        reads: from the mirror while its epoch holds, else one window
+        gather re-arms it (and flags the completer to keep it fresh).
+        Rows past the window, or with the mirror off, are gathered."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if (SCRAPE_MIRROR and rows.size and int(rows.min()) >= 0
+                and int(rows.max()) < self._mirror_window):
+            mir = self._scrape_mirror
+            if mir is None or mir[0] != self._scrape_epoch():
+                self._mirror_want = True
+                self._refresh_scrape_mirror()
+                mir = self._scrape_mirror
+            profiling.COUNTERS.inc("scrape_mirror_hits")
+            return mir[1][rows], mir[2][rows]
+        profiling.COUNTERS.inc("scrape_device_gathers")
+        return self.read_rows(rows)
 
     def row_view(self, row: int) -> Tuple[np.ndarray, int]:
         """One bucket row's full PN state, wherever it lives."""
@@ -3034,6 +3168,7 @@ class DeviceEngine:
                 merge_mod.zero_rows(
                     self.state, torch.tensor([row], dtype=torch.int64, device=self.device)
                 )
+                self._state_gen += 1
             self.directory.recycle([row])
         return True
 
@@ -3155,6 +3290,15 @@ class DeviceEngine:
                 with self._pcond:
                     self._completing = False
                     self._pcond.notify_all()
+            if SCRAPE_MIRROR and self._mirror_want:
+                # Scrapes went stale under load: re-arm the mirror here,
+                # off the scrape threads (one window gather a completion,
+                # while scrape interest is flagged).
+                try:
+                    self._refresh_scrape_mirror()
+                    self._mirror_want = False
+                except Exception:  # pragma: no cover - a gauge refresh
+                    log.exception("scrape-mirror refresh failed")
 
     @property
     def ticks(self) -> int:

@@ -224,16 +224,6 @@ def test_cpu_engine_never_touches_cuda():
         eng.stop()
 
 
-def test_unported_families_raise():
-    eng = tengine_mod.DeviceEngine(TConfig(16, 2), device="cpu")
-    try:
-        for fn in (eng.gcra_take, eng.conc_acquire, eng.quota_take):
-            with pytest.raises(NotImplementedError):
-                fn()
-    finally:
-        eng.stop()
-
-
 @pytest.mark.parametrize("hold", [False, True])
 @pytest.mark.parametrize("seed", [5, 8])
 def test_hybrid_tick_is_one_lease_and_one_launch(monkeypatch, seed, hold):

@@ -155,3 +155,76 @@ def test_repo_seam_matches_reference(monkeypatch):
     finally:
         teng.stop()
     assert got == want
+
+
+# -- the certified families' trailers (tests/test_cert_kernels.py::TestCertTrailers)
+
+_TRAILERS = {
+    "gcra": ("GcraTrailer", "encode_gcra_trailer", "decode_gcra_trailer"),
+    "conc": ("ConcTrailer", "encode_conc_trailer", "decode_conc_trailer"),
+    "quota": ("QuotaTrailer", "encode_quota_trailer", "decode_quota_trailer"),
+}
+
+
+def _trailer_both(kind, *fields):
+    """Encode one trailer with each package's codec: → (jax bytes, port
+    bytes, jax decode, port decode as field tuples); the bytes must match."""
+    cls, enc, dec = _TRAILERS[kind]
+    jdata = getattr(jwire, enc)(getattr(jwire, cls)(*fields))
+    tdata = getattr(twire, enc)(getattr(twire, cls)(*fields))
+    assert tdata == jdata
+    return jdata, getattr(jwire, dec), getattr(twire, dec)
+
+
+def _astuple(x):
+    return None if x is None else dataclasses.astuple(x)
+
+
+@pytest.mark.parametrize("kind, fields", [
+    ("gcra", (7, 123456789)),
+    ("conc", (3, 50, 20)),
+    ("quota", (1, 9, 6, 4)),
+])
+def test_cert_trailer_roundtrip_matches_reference(kind, fields):
+    data, jdec, tdec = _trailer_both(kind, *fields)
+    assert _astuple(tdec(data)) == _astuple(jdec(data)) == fields
+
+
+@pytest.mark.parametrize("kind", list(_TRAILERS))
+def test_cert_trailer_truncation_and_corruption_match_reference(kind):
+    fields = {"gcra": (0, 42), "conc": (0, 9, 4), "quota": (0, 3, 2, 1)}[kind]
+    data, jdec, tdec = _trailer_both(kind, *fields)
+    rng = np.random.default_rng(9)
+    cases = [data[:-1], data[:1], b"", data + b"\x00",
+             bytes([data[0] ^ 0xFF]) + data[1:]]
+    for _ in range(64):
+        i = int(rng.integers(0, len(data)))
+        cases.append(data[:i] + bytes([data[i] ^ int(rng.integers(1, 256))]) + data[i + 1:])
+    for case in cases:
+        assert _astuple(tdec(case)) == _astuple(jdec(case))
+    assert tdec(data[:-1]) is None and tdec(cases[4]) is None
+
+
+def test_cert_trailer_kind_confusion_matches_reference():
+    for kind, fields in (("gcra", (0, 42)), ("conc", (0, 9, 4)), ("quota", (0, 3, 2, 1))):
+        data, _, _ = _trailer_both(kind, *fields)
+        for other in set(_TRAILERS) - {kind}:
+            dec = _TRAILERS[other][2]
+            assert getattr(twire, dec)(data) is None
+            assert getattr(jwire, dec)(data) is None
+
+
+def test_cert_conc_released_above_acquired_matches_reference():
+    data, jdec, tdec = _trailer_both("conc", 0, 1, 5)
+    assert tdec(data) is None and jdec(data) is None
+
+
+@pytest.mark.parametrize("kind, fields, want", [
+    ("gcra", (0, -5), (0, 0)),
+    ("conc", (2, -3, -9), (2, 0, 0)),
+    ("quota", (4, -1, 7, -(1 << 63)), (4, 0, 7, 0)),
+    ("gcra", (65535 + 3, 1 << 70), (2, (1 << 63) - 1)),
+])
+def test_cert_trailer_negative_watermarks_clamp_as_the_reference(kind, fields, want):
+    data, jdec, tdec = _trailer_both(kind, *fields)
+    assert _astuple(tdec(data)) == _astuple(jdec(data)) == want
