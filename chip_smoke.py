@@ -55,21 +55,26 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    row sets past L2, and of consecutive ones), at K = 512 and at its floor
    (K = 8, one block), beside its plain version and its bound; its
    ``-Xptxas -v`` line (registers, shared memory) is printed. Then the
-   certified families (``csrc/cert.cu``: each family's admit kernel, then
-   ``own_lane_commit``) at K = 8,192 on the 1M x 64 state (quota over
-   24,576 row gathers), each held bit for bit (results and final planes)
-   to its plain version at ``node_slot`` 0 and 63, over its hazards:
-   remote lanes preset (holds, spends, TAT watermarks, raw int64 near
-   2^63), repeated rows and padding columns aliasing live ones, rows in
-   ``[-B, 0)``, past ``B`` and below ``-B``, shared tenant and global rows
-   and a row at two levels, ``nreq``, ``count`` and ``T`` <= 0, negative
-   ``nreq``, releases above the held amount, wrapping products; again at
-   K = 0 (no launch), 1, 8 and 2^16, and at N = 1, 31, 33 and 256 lanes
-   on a small state; the commit kernel alone against its plain version.
-   Each family is timed warm, cold (16 requests on fresh random rows),
-   at K = 8 (its floor), its admit launch alone, beside its plain
-   version, the library calls (``index_select``, ``amax`` or ``sum``,
-   ``scatter_reduce_``) and its bound; the ``-Xptxas -v`` lines print.
+   certified families (``csrc/cert.cu``: GCRA's admit kernel, then
+   ``own_lane_commit``; concurrency's and quota's one fused launch each)
+   at K = 8,192 on the 1M x 64 state (quota over 24,576 row gathers),
+   each held bit for bit (results and final planes) to its plain version
+   at ``node_slot`` 0 and 63, over its hazards: remote lanes preset
+   (holds, spends, TAT watermarks, raw int64 near 2^63), repeated rows and
+   padding columns aliasing live ones, rows in ``[-B, 0)``, past ``B`` and
+   below ``-B``, shared tenant and global rows and a row at two levels,
+   ``nreq``, ``count`` and ``T`` <= 0, negative ``nreq``, releases above
+   the held amount, wrapping products; again at K = 0 (no launch), 1, 8
+   and 2^16, the fused families also at the resident grid's columns and
+   one either side (the persistent loop's wrap) and at 2^16 with every
+   column committing (the spill buffer), each fused call one launch; and
+   at N = 1, 31, 33 and 256 lanes on a small state; GCRA's commit kernel
+   alone against its plain version. Each family is timed warm, cold (16
+   requests on fresh random rows), at K = 512 and at K = 8 (its floor),
+   GCRA's admit launch alone, beside its plain version, the library calls
+   (``index_select``, ``amax`` or ``sum``, ``scatter_reduce_``) and its
+   bound; the ``-Xptxas -v`` lines and the fused kernels' grid (blocks an
+   SM from the occupancy call, resident blocks) print.
 3. The main path: the port's ``Command`` serving on the asyncio front
    (host fast path off, see 3f)
    (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
@@ -165,10 +170,12 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    K = 8,192 over random rows in ``[B/2, B)``, each round followed by 16
    host-served takes and 16 peer deltas on other names, under the
    profiler; a microbatch of each family on rows 0..11 must show in the
-   next scrape. Each admit kernel must have launched once a call and the
-   commit once a family call. Then 1,000 scrapes of unchanged state must
-   be mirror hits with no device gather. The sequence replays on a CPU
-   engine: every result, serving outcome and the final planes equal.
+   next scrape. Each family's kernel must have launched once a call and
+   the commit once a GCRA call. Each call's host time is split into its
+   steps (packing, staging lease, ship, launch, readback; p50 and p99 per
+   family). Then 1,000 scrapes of unchanged state must be mirror hits
+   with no device gather. The sequence replays on a CPU engine: every
+   result, serving outcome and the final planes equal.
 3d. The probe's entry point (``patrol_tpu_torch.scripts.probe_dma_scatter``,
    ``--device cuda``) at 1M × 256 lanes, K = 8192: ``row_rmw`` must have
    launched exactly once per call the probe made, and ``pairmax`` through
@@ -195,6 +202,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -888,19 +896,36 @@ def cert_library(torch, family, pn, g):
         pn[:, 0, 1].scatter_reduce_(0, g, rows[:, :, 1].sum(-1), reduce="sum")
 
 
+def cert_saturating(rng, family, k, buckets):
+    """A request in which every column admits (and, for concurrency,
+    releases nothing): the most commit entries a call can make, so a
+    block's entries overflow its shared memory into the spill buffer."""
+    p = cert_request(rng, family, k, buckets)
+    if family == "conc":
+        p[1:5] = np.array([1 << 40, 1, 1, 0])[:, None]
+    elif family == "quota":
+        p[3:8] = np.array([1 << 40, 1 << 40, 1 << 40, 1, 1])[:, None]
+    return p
+
+
 def cert_checks(torch, dev, rng):
     """Each family at K = 8,192 on the 1M x 64 state against its plain
     version at ``node_slot`` 0 and 63, then at K = 0 (no launch), 1, 8
-    and 2^16 (and the commit kernel alone against its plain version);
-    timed warm (the same request each call), cold (a cycle of 16 requests
-    on fresh random rows, 134 MB of planes for GCRA, past the 50 MB L2),
-    at its floor (K = 8), beside its plain version, the library calls and
-    its bound. → {family: numbers, "commit": numbers}."""
+    and 2^16; the fused families (concurrency, quota) also at the resident
+    grid's columns and one either side (a block's second tile), and at
+    2^16 with every column committing (the spill buffer), each call one
+    launch; GCRA's commit kernel alone against its plain version. Timed
+    warm (the same request each call), cold (a cycle of 16 requests on
+    fresh random rows, 134 MB of planes for GCRA, past the 50 MB L2), at
+    K = 512 and at its floor (K = 8), beside its plain version, the
+    library calls and its bound. → {family: numbers, "commit": numbers,
+    "grid": the fused kernels' residency}."""
     from patrol_tpu_torch.ops import _build
 
     ck, mods = cert_modules()
     base = torch.zeros((BUCKETS, LANES, 2), dtype=torch.int64, device=dev)
-    res = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res = {"grid": {}}
     for family in CERT_FAMILIES:
         mod = mods[family]
         p = cert_request(rng, family, CERT_K, BUCKETS)
@@ -925,36 +950,49 @@ def cert_checks(torch, dev, rng):
                                     f"{family} K={kk}")
             err = max(err, e)
             del pk
-        p16 = cert_request(rng, family, 1 << 16, BUCKETS)
-        cert_fill(rng, base, p16[:levels].reshape(-1), torch)
-        e, _, pk = cert_compare(torch, family, base, cert_pack(torch, family, p16, BUCKETS, dev),
-                                7, f"{family} K=2^16")
-        err = max(err, e)
-        del pk
+        sizes = [(1 << 16, cert_request)]
+        if family != "gcra":
+            resident = ck.resident_blocks(family, dev)
+            cols = resident * ck.TILE
+            res["grid"][family] = {"blocks_per_sm": resident // sms, "sms": sms,
+                                   "resident_blocks": resident, "resident_columns": cols,
+                                   "blocks_at_k": ck.grid(CERT_K, resident)[0]}
+            sizes += [(cols - 1, cert_request), (cols, cert_request), (cols + 1, cert_request),
+                      (1 << 16, cert_saturating)]
+        for kk, make in sizes:
+            q = make(rng, family, kk, BUCKETS)
+            base.zero_()
+            if make is cert_request:  # a saturating request admits on empty rows
+                cert_fill(rng, base, q[:levels].reshape(-1), torch)
+            launches = dict(_build.LAUNCHES)
+            packed_q = cert_pack(torch, family, q, BUCKETS, dev)
+            e, out_k, pk = cert_compare(torch, family, base, packed_q, 7,
+                                        f"{family} K={kk} ({make.__name__})")
+            err = max(err, e)
+            if family != "gcra":
+                check(_build.LAUNCHES[f"{family}_admit"] == launches[f"{family}_admit"] + 1
+                      and _build.LAUNCHES["own_lane_commit"] == launches["own_lane_commit"],
+                      f"{family} K={kk}: not one launch")
+            if make is cert_saturating:
+                check(bool((out_k[0] == 1).all()), f"{family}: a saturating column did not admit")
+            del pk
+        base.zero_()
+        cert_fill(rng, base, p[:levels].reshape(-1), torch)
         launches = dict(_build.LAUNCHES)
         empty = ck.run(family, base, packed[:, :0].contiguous(), 0)
         check(empty.numel() == 0 and _build.LAUNCHES == launches,
               f"{family} at K = 0 launched or returned values")
 
-        # The commit kernel alone, against its plain version.
-        _, commit = ck.admit(family, base, packed, 0)
-        op = ck.FAMILIES[family][3]
-        ca, cb = base.clone(), base.clone()
-        ck.own_lane_commit(ca, commit, op)
-        ck.own_lane_commit_plain(cb, commit, op)
-        torch.cuda.synchronize()
-        err_commit = check_equal(torch, f"{family} own_lane_commit", ca, cb)
-        del cb
-        live_mask = commit[0] >= 0
-        live, live_val = commit[0][live_mask], commit[1][live_mask]
-        n_updated = int(live.unique().numel())
-        n_entries = commit.shape[1]
-
         # Bytes: the request and result matrices once, each distinct
         # gathered row's lane plane once, 8 B written per updated lane.
         g = p[:levels].astype(np.int32).astype(np.int64)
         g = np.clip(np.where(g < 0, g + BUCKETS, g), 0, BUCKETS - 1).reshape(-1)
-        rows_in, rows_out = ck.FAMILIES[family][:2]
+        rows_in, rows_out, _ = ck.FAMILIES[family]
+        ca, cb = base.clone(), base.clone()
+        ck.run(family, cb, packed, 0)
+        torch.cuda.synchronize()
+        n_updated = int((ca != cb).sum())
+        del cb
         nbytes = (len(np.unique(g)) * LANES * 16 + 8 * rows_in * CERT_K
                   + 8 * rows_out * CERT_K + 8 * n_updated)
         cold = []
@@ -966,39 +1004,52 @@ def cert_checks(torch, dev, rng):
         g_t = torch.from_numpy(g).to(dev)
         pp = ca.clone()
         packed8 = packed[:, :8].contiguous()
+        packed512 = packed[:, :512].contiguous()
         res[family] = {
             "ms": device_ms(torch, lambda: ck.run(family, ca, packed, 0)),
-            "ms_admit": device_ms(torch, lambda: ck.admit(family, ca, packed, 0)),
             "ms_cold": device_ms(torch, lambda: ck.run(family, ca, next(cold), 0)),
+            "ms_k512": device_ms(torch, lambda: ck.run(family, ca, packed512, 0)),
             "floor_ms": device_ms(torch, lambda: ck.run(family, ca, packed8, 0)),
             "plain_ms": device_ms(torch, lambda: mod.packed_plain(pp, *packed, 0)),
             "library_ms": device_ms(torch, lambda: cert_library(torch, family, ca, g_t)),
-            "commit_ms": device_ms(torch, lambda: ck.own_lane_commit(ca, commit, op)),
-            "commit_plain_ms": device_ms(torch, lambda: ck.own_lane_commit_plain(ca, commit, op)),
-            # One scatter_reduce_ over the live entries, masked beforehand.
-            "commit_library_ms": device_ms(torch, lambda: ca.view(-1).scatter_reduce_(
-                0, live, live_val, reduce="amax" if op == "max" else "sum")),
-            "commit_entries": n_entries,
-            "commit_updated": n_updated,
-            "commit_bytes": 16 * n_entries + 16 * n_updated,
             "bytes": nbytes,
             "ops": len(g) * 2 * LANES + 40 * CERT_K,
-            "max_abs_err": max(err, err_commit),
+            "max_abs_err": err,
             "admitted_columns": int((adm >= 1).sum()),
+            "updated_lanes": n_updated,
             "k": CERT_K,
         }
-        del ca, pp, cold, commit, live, live_val
+        if family == "gcra":
+            # The commit kernel alone, against its plain version, on
+            # GCRA's entries (the one family that still commits in a
+            # launch of its own).
+            _, commit = ck.gcra_admit(base, packed, 0)
+            cc, cd = base.clone(), base.clone()
+            ck.own_lane_commit(cc, commit)
+            ck.own_lane_commit_plain(cd, commit)
+            torch.cuda.synchronize()
+            err_commit = check_equal(torch, "gcra own_lane_commit", cc, cd)
+            del cd
+            live_mask = commit[0] >= 0
+            live, live_val = commit[0][live_mask], commit[1][live_mask]
+            n_live = int(live.unique().numel())
+            res["commit"] = {
+                "ms": device_ms(torch, lambda: ck.own_lane_commit(cc, commit)),
+                "plain_ms": device_ms(torch, lambda: ck.own_lane_commit_plain(cc, commit)),
+                # One scatter_reduce_ over the live entries, masked beforehand.
+                "library_ms": device_ms(torch, lambda: cc.view(-1).scatter_reduce_(
+                    0, live, live_val, reduce="amax")),
+                "bytes": 16 * commit.shape[1] + 16 * n_live,
+                "ops": commit.shape[1],
+                "entries": commit.shape[1],
+                "updated": n_live,
+                "max_abs_err": err_commit,
+            }
+            res[family]["ms_admit"] = device_ms(torch, lambda: ck.gcra_admit(ca, packed, 0))
+            del cc, commit, live, live_val
+        del ca, pp, cold
         torch.cuda.empty_cache()
     del base
-    # The commit kernel's line: its time on quota's 3 x 8,192 entries.
-    q = res["quota"]
-    res["commit"] = {
-        "ms": q["commit_ms"], "plain_ms": q["commit_plain_ms"],
-        "library_ms": q["commit_library_ms"],
-        "bytes": q["commit_bytes"], "ops": q["commit_entries"],
-        "max_abs_err": max(res[f]["max_abs_err"] for f in CERT_FAMILIES),
-        "entries": q["commit_entries"],
-    }
     return res
 
 
@@ -2646,6 +2697,100 @@ def cert_sequence(eng, clock, batches, wire_mod, rate_cls, profile=False) -> dic
     return out
 
 
+class CertCallSteps:
+    """Where a family call's host time goes: times the steps of the
+    engine's ``_cert_call`` from outside, by wrapping the callables it
+    calls, on the thread that calls the families only (the feeder leases
+    staging too). Steps: ``pack`` (rows and fields into the staging
+    buffer, before and after its lease), ``lease`` (the staging leases),
+    ``ship`` (the pinned host-to-device copy), ``launch`` (the family's
+    ``*_packed`` function: operand checks, allocations, the ctypes calls),
+    ``readback`` (the synchronous result copy and its numpy slice) and
+    ``other`` (the state lock, the result tuple, the wrappers themselves).
+    → per family, each step's host µs, p50 and p99."""
+
+    STEPS = ("pack", "lease", "ship", "launch", "readback", "other")
+
+    def __init__(self, eng):
+        from patrol_tpu_torch.ops import concurrency, gcra, hierquota
+
+        self.eng = eng
+        self.events = None
+        self.tid = threading.get_ident()
+        self.us = {f: {k: [] for k in self.STEPS} for f in CERT_FAMILIES}
+        self._undo = []
+        # The pool's class has __slots__: the engine gets a stand-in that
+        # times its two methods.
+        pool = eng._staging
+        eng._staging = types.SimpleNamespace(lease=self._timed("lease", pool.lease),
+                                             release=self._timed("release", pool.release))
+        self._undo.append((eng, "_staging", pool))
+        self._wrap(eng, "_ship", "ship")
+        for mod, attr in ((gcra, "gcra_take_packed"), (concurrency, "conc_acquire_packed"),
+                          (hierquota, "quota_take_packed")):
+            self._wrap(mod, attr, "launch")
+        for family, method in CERT_METHODS.items():
+            self._wrap_call(family, method)
+
+    def _timed(self, tag, fn):
+        def timed(*args, **kwargs):
+            events = self.events
+            if events is None or threading.get_ident() != self.tid:
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                events.append((tag, t0, time.perf_counter()))
+
+        return timed
+
+    def _wrap(self, obj, attr, tag):
+        orig = getattr(obj, attr)
+        self._undo.append((obj, attr, orig if attr in vars(obj) else None))
+        setattr(obj, attr, self._timed(tag, orig))
+
+    def _wrap_call(self, family, method):
+        orig = getattr(self.eng, method)
+
+        def call(*args, **kwargs):
+            self.events = events = []
+            t0 = time.perf_counter()
+            try:
+                res = orig(*args, **kwargs)
+            finally:
+                self.events = None
+            self._book(family, events, t0, time.perf_counter())
+            return res
+
+        self._undo.append((self.eng, method, None))
+        setattr(self.eng, method, call)
+
+    def _book(self, family, events, t0, t1):
+        by = {tag: [e for e in events if e[0] == tag]
+              for tag in ("lease", "release", "ship", "launch")}
+        lease, ship, launch = by["lease"], by["ship"][0], by["launch"][0]
+        steps = {
+            "pack": (lease[0][1] - t0) + (ship[1] - lease[0][2]),
+            "lease": sum(e[2] - e[1] for e in lease),
+            "ship": ship[2] - ship[1],
+            "launch": launch[2] - launch[1],
+            "readback": by["release"][-1][1] - lease[-1][2],
+        }
+        steps["other"] = (t1 - t0) - sum(steps.values())
+        for k, v in steps.items():
+            self.us[family][k].append(v * 1e6)
+
+    def close(self) -> dict:
+        for obj, attr, orig in reversed(self._undo):
+            if orig is None:
+                delattr(obj, attr)  # the class's method shows again
+            else:
+                setattr(obj, attr, orig)
+        return {f: {k: {"p50": statistics.median(v), "p99": float(np.percentile(v, 99))}
+                    for k, v in steps.items()} for f, steps in self.us.items()}
+
+
 def run_cert_phase(Command, LimiterConfig, engine_mod, torch) -> dict:
     """3i: a ``Command`` at the defaults on the card (1M x 64, GC window
     pinned to 0 as in phases 3-3g) drives :func:`cert_sequence` with the
@@ -2674,11 +2819,16 @@ def run_cert_phase(Command, LimiterConfig, engine_mod, torch) -> dict:
         check(eng._native_store is not None, "3i: the native host store was not taken")
         check(engine_mod.SCRAPE_MIRROR and eng._mirror_window == engine_mod.SCRAPE_MIRROR_ROWS,
               "3i: the scrape mirror is not on at the defaults")
-        _build.reset_launches()
-        t = time.perf_counter()
-        gpu = cert_sequence(eng, clock, batches, wire_mod, Rate, profile=True)
-        gpu["seconds"] = time.perf_counter() - t
-        gpu["launches"] = dict(_build.LAUNCHES)
+        steps = CertCallSteps(eng)
+        try:
+            _build.reset_launches()
+            t = time.perf_counter()
+            gpu = cert_sequence(eng, clock, batches, wire_mod, Rate, profile=True)
+            gpu["seconds"] = time.perf_counter() - t
+            gpu["launches"] = dict(_build.LAUNCHES)
+        finally:
+            gpu_steps = steps.close()
+        gpu["call_steps_us"] = gpu_steps
         check(eng.flush(120), "3i: final flush timed out")
         # 1,000 scrapes of unchanged state: the leg's rows and the peer
         # names' device rows, all inside the mirror window.
@@ -2734,13 +2884,12 @@ def run_cert_phase(Command, LimiterConfig, engine_mod, torch) -> dict:
           and scrapes["scrape_mirror_hits"] >= CERT_SCRAPES // 2,
           f"3i: scrapes of unchanged state gathered: {scrapes}")
     # Each family: two calls of the leg, the rounds, one on the leg's rows;
-    # one commit launch a call.
+    # one launch a call (concurrency and quota commit inside it), and one
+    # commit launch a GCRA call.
     calls_each = 2 + CERT_BATCHES + 1
-    for name in ("gcra_admit", "conc_admit", "quota_admit"):
+    for name in ("gcra_admit", "conc_admit", "quota_admit", "own_lane_commit"):
         check(gpu["launches"][name] == calls_each,
               f"3i: {name} launched {gpu['launches'][name]} times, not {calls_each}")
-    check(gpu["launches"]["own_lane_commit"] == 3 * calls_each,
-          f"3i: own_lane_commit launched {gpu['launches']['own_lane_commit']} times")
     del gpu_planes, cpu_planes
     calls = {f: statistics.median(v) for f, v in gpu["call_us"].items()}
     p99 = {f: float(np.percentile(v, 99)) for f, v in gpu["call_us"].items()}
@@ -3016,12 +3165,17 @@ def main() -> int:
                      if "Used" in ln or "entry function" in ln]
     for family in CERT_FAMILIES:
         m = cert[family]
-        print(f"{family}_admit + own_lane_commit K={m['k']}: warm {m['ms']:.6f} ms (admit "
-              f"{m['ms_admit']:.6f}, commit {m['commit_ms']:.6f}), cold {m['ms_cold']:.6f} ms, "
-              f"K=8 {m['floor_ms']:.6f} ms, plain {m['plain_ms']:.6f} ms, library "
-              f"{m['library_ms']:.6f} ms, bound {bound(m['bytes'], m['ops'])[0]:.6f} ms, "
-              f"max_abs_err {max(m['max_abs_err'], cert['edges']['max_abs_err'])}")
+        call = ("gcra_admit + own_lane_commit" if family == "gcra"
+                else f"{family}_admit (one launch)")
+        split = (f" (admit {m['ms_admit']:.6f}, commit {cert['commit']['ms']:.6f})"
+                 if family == "gcra" else "")
+        print(f"{call} K={m['k']}: warm {m['ms']:.6f} ms{split}, cold {m['ms_cold']:.6f} ms, "
+              f"K=512 {m['ms_k512']:.6f} ms, K=8 {m['floor_ms']:.6f} ms, plain "
+              f"{m['plain_ms']:.6f} ms, library {m['library_ms']:.6f} ms, bound "
+              f"{bound(m['bytes'], m['ops'])[0]:.6f} ms, max_abs_err "
+              f"{max(m['max_abs_err'], cert['edges']['max_abs_err'])}")
     print("cert.cu ptxas: " + " | ".join(cert["ptxas"]))
+    print("cert fused grid: " + json.dumps(cert["grid"]))
     report["kernel_detail"] = {
         "pair_join": pair, "row_join": row, "tick_join": tick, "commit_ring": ring,
         "take_n": take,
@@ -3243,6 +3397,9 @@ def main() -> int:
           f"{json.dumps({k: round(v['device_us'], 3) for k, v in cprof['kernels'].items()})}, "
           f"device busy {cprof['device_busy_share']}, scrapes {json.dumps(cphase['scrapes'])}; "
           f"equal to the CPU replay; phase {cphase['phase_s']:.1f} s")
+    print("cert 3i host us a call by step, p50 / p99: " + json.dumps({
+        f: {k: [round(v["p50"], 1), round(v["p99"], 1)] for k, v in steps.items()}
+        for f, steps in cphase["call_steps_us"].items()}))
     torch.cuda.empty_cache()
 
     # 3h. The bucket lifecycle at the defaults: bind, sweep, re-create,
@@ -3315,18 +3472,18 @@ def main() -> int:
         # are those of phase 3h's sweeps.
         ("lifecycle_probe", "patrol_tpu_torch/csrc/lifecycle.cu",
          "patrol_tpu/ops/lifecycle.py:69", life, lc["launches"]["lifecycle_probe"]),
-        # Each family timed as one call (its admit launch and the commit)
-        # at K = 8192 on the 1M x 64 state; launches are phase 3i's.
+        # Each family timed as one call (GCRA: its admit launch and the
+        # commit; the other two: their one fused launch) at K = 8192 on the
+        # 1M x 64 state; launches are phase 3i's.
         ("gcra_admit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/gcra.py:69",
          cert["gcra"], cphase["launches"]["gcra_admit"]),
         ("conc_admit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/concurrency.py:73",
          cert["conc"], cphase["launches"]["conc_admit"]),
         ("quota_admit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/hierquota.py:79",
          cert["quota"], cphase["launches"]["quota_admit"]),
-        # The commit alone, on quota's 3 x 8192 entries; its launches are
-        # the three families' in 3i. It replaces the reference's scatters
-        # (gcra.py:108, concurrency.py:112, hierquota.py:117).
-        ("own_lane_commit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/hierquota.py:117",
+        # The commit alone, on GCRA's 8192 entries (concurrency and quota
+        # commit inside their one launch); its launches are GCRA's in 3i.
+        ("own_lane_commit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/gcra.py:108",
          cert["commit"], cphase["launches"]["own_lane_commit"]),
     ):
         b_ms, b_by = bound(m["bytes"], m["ops"])
@@ -3395,8 +3552,11 @@ def main() -> int:
             entry["padding_only_ms"] = m["padding_only_ms"]
         if name in ("gcra_admit", "conc_admit", "quota_admit", "own_lane_commit"):
             entry["max_abs_err"] = max(m["max_abs_err"], cert["edges"]["max_abs_err"])
-            entry.update({key: m[key] for key in ("floor_ms", "ms_admit", "ms_cold", "k")
+            entry.update({key: m[key] for key in ("floor_ms", "ms_admit", "ms_cold", "ms_k512",
+                                                   "k", "entries")
                           if key in m})
+            if name.split("_")[0] in cert["grid"]:
+                entry["grid"] = cert["grid"][name.split("_")[0]]
         if name == "lifecycle_probe":
             entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
             entry.update({key: m[key] for key in ("floor_ms", "ms_cold", "ms_cold_contig",

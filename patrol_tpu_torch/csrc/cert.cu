@@ -1,5 +1,5 @@
 // The certified families on Hopper (sm_90a): GCRA, concurrency and
-// hierarchical quota, each an admit kernel, and one own-lane commit.
+// hierarchical quota.
 //
 // Replaces three functions that are plain XLA in the reference, not
 // Pallas, and are the device work behind the engine's gcra_take,
@@ -16,24 +16,63 @@
 // What bounds it on this card. Bytes: each distinct gathered row's N x
 // 16 B lane plane once (the TAKEN lanes interleave with ADDED, so a plane
 // is read whole at the 32 B sector), the request and result matrices
-// once, 8 B written per updated lane: about 8.9 MB, 2.7 us of HBM time,
-// at K = 8192 x 64 lanes for GCRA and concurrency, three times the rows
-// for quota. In practice a column is a chain of its request, its rows'
-// lanes, a reduction and a scalar tail, as in take.cu.
+// once, 8 B written per updated lane: about 4-5 MB, 1.3-1.5 us of HBM
+// time, at K = 8192 x 64 lanes on phase 2's corpus, whose rows repeat.
+// A launch that does little costs 2.2-2.8 us back to back, and a column
+// is a chain of its request, its rows' lanes, a reduction and a scalar
+// tail, so the launches and the chain's latency set the time, not the
+// bytes.
 //
-// Design: two launches on one stream.
-//  * The admit kernel, one warp per column, 8 columns per block (take.cu's
-//    first design). Lane r < P loads packed[r, k]; the warp reads each
-//    field by shuffle. Lane l loads lane pairs n = l, l + 32, ... of the
-//    column's row (quota: of all three rows in one pass) as 16-byte
-//    vectors, all in flight before any is used; the warp reduces with a
-//    __shfl_xor_sync tree (wrapping int64 sums: any order of a sum mod
-//    2^64 is the same value; GCRA's max is a signed max). Lane 0 does the
-//    scalar tail, writes the result column and the column's commit
-//    entries: a flat pn offset (or -1) and a value each.
-//  * own_lane_commit, one thread per entry: atomicMax on signed int64
-//    (GCRA) or atomicAdd on unsigned long long (concurrency, quota: it
-//    wraps mod 2^64 as XLA's int64 add does).
+// Concurrency and quota: one launch a call (conc_admit_kernel,
+// quota_admit_kernel), the admit and the own-lane commit fused.
+//  * Reads before commits. A commit may land on a row another column
+//    reads (below), so every block finishes its reads, the grid meets at
+//    one barrier (arrive, wait), and only then does any block commit. A
+//    block arrives as soon as its last tile's lanes are summed and runs
+//    its tails while the others arrive. The grid is persistent so that the
+//    barrier can be met: launched cooperatively, with no more blocks than
+//    the card holds resident (the occupancy call's blocks an SM x the SMs,
+//    patrol_cert_occupancy) and no more than K needs (K <= 32 is one block,
+//    which needs no grid barrier); a block walks tiles b, b + grid, ... .
+//  * One wave at K = 8192: 32 columns a block of 256 threads gives 256
+//    blocks, resident at two blocks an SM (__launch_bounds__ caps the
+//    registers at 128 a thread for that), so every column's chain is in
+//    flight at once (the first design ran 1,024 blocks of one warp a
+//    column, and quota's and concurrency's registers made that two waves).
+//  * Eight lanes a column (lifecycle.cu's layout). Thread t < 32 is column
+//    t's own thread and loads its fields, so each row of the request is
+//    read as the block's 32 contiguous values; the 8 threads 8c .. 8c + 7
+//    are column c's lane group, which loads the column's row(s) itself in
+//    the same trip. Lane l of a group loads lane pairs l, l + 8, ..., a
+//    pass of 8 in flight before any is used (quota: the TAKEN word of all
+//    three rows, 24 loads; concurrency: 16-byte pairs). Groups reduce by a
+//    3-step __shfl_xor_sync tree (wrapping int64 sums: any order of a sum
+//    mod 2^64 is the same value) and hand sums and the own pair to the own
+//    threads through shared memory.
+//  * The scalar tail one column a thread: warp 0 runs 32 tails at once
+//    (the first design ran one a warp, on lane 0), writes the result
+//    columns coalesced, and appends the column's commit entries (a flat pn
+//    offset and a value) only where there is something to commit, in
+//    column order by ballot: a column that admits and releases nothing
+//    writes none (the first design wrote and re-read 2 or 3 a column).
+//    The block keeps its entries in shared memory, one tile's worth, and
+//    the rest in its own stretch of a global spill buffer the wrapper
+//    sizes for the tiles the block walks (any K).
+//  * After the barrier the block's 256 threads apply its entries with
+//    atomicAdd on unsigned long long (wrapping, as XLA's int64 add).
+// Tried for quota and not kept: lane groups of 4 and 16, and loads marked
+// L2-only (__ldcg), read-only (__ldg) or streaming (__ldcs), none faster
+// warm at K = 8192; the streaming loads were faster on cold rows, as the
+// probe's are (lifecycle.cu), and slower warm, where quota's shared
+// global and tenant rows are read again and again.
+//
+// GCRA: two launches on one stream, as first built. gcra_admit_kernel,
+// one warp a column, 8 columns a block: lane 0 loads the request, lane l
+// loads lane pairs n = l, l + 32, ... of the row as 16-byte vectors, the
+// warp reduces by shuffle, lane 0 runs the tail and writes the result
+// column and one commit entry (a flat pn offset, or -1, and a value).
+// Then own_lane_commit_kernel, one thread an entry: atomicMax on signed
+// int64.
 //
 // Hazards, and what the design does about each:
 //  * Every read sees the pre-batch state. Unlike take-n's, these inputs
@@ -41,8 +80,9 @@
 //    tenant and global rows (and a row may be a tenant in one path and a
 //    user in another), GCRA and concurrency columns may repeat a row, a
 //    padding column may alias a live one, and a clamped row aliases
-//    row B - 1. So the admit kernel writes no state at all and the
-//    commit is a second launch, ordered after it on the stream.
+//    row B - 1. So no write reaches pn before every read of the call is
+//    done: the grid barrier (concurrency, quota) or the second launch
+//    (GCRA).
 //  * Index semantics (ROADMAP C1): the gather clamps into [0, B), the
 //    commit drops a row outside it (the wrap is the wrapper's).
 //  * int64 wrap: every sum, difference and product uses unsigned
@@ -54,9 +94,11 @@
 //  * A commit entry with nothing to change is skipped: an add of 0, or
 //    GCRA's max of the pre-batch own lane when nothing is admitted (within
 //    one call the lane only grows, so that max is a no-op).
+//  * Any N >= 1: a group's lanes past N load nothing and add 0; a plane of
+//    more than 64 lanes takes more passes.
 //
 // C interface (ctypes): device pointers of contiguous int64 tensors; each
-// function returns the cudaError_t of its launch (0 on success).
+// launch returns the cudaError_t of its launch (0 on success).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -64,13 +106,20 @@
 
 namespace {
 
-constexpr int kCols = 8;            // columns (warps) per admit block
+constexpr int kCols = 8;            // GCRA: columns (warps) per admit block
 constexpr int kThreads = 32 * kCols;
-constexpr int kPass = 2;            // lane-pair loads a lane has in flight per row
+constexpr int kPass = 2;            // GCRA: lane-pair loads a lane has in flight per row
 constexpr int kCommitThreads = 256;
 constexpr unsigned kAll = 0xFFFFFFFFu;
 constexpr int kAdded = 0;
 constexpr int kTaken = 1;
+
+// The fused kernels' shape.
+constexpr int kTile = 32;                  // columns a block takes at a time
+constexpr int kGroup = 8;                  // a column's lane group
+constexpr int kFusedThreads = kTile * kGroup;
+constexpr int kFusedPass = 8;              // lane-pair loads a lane has in flight per row
+constexpr int kMinBlocks = 2;              // blocks an SM: K = 8192 in one wave
 
 __device__ __forceinline__ long long wadd(long long a, long long b) {
   return (long long)((unsigned long long)a + (unsigned long long)b);
@@ -107,18 +156,16 @@ __device__ __forceinline__ long long commit_off(long long r, long long B, long l
   return (write && r >= 0 && r < B) ? (r * N + slot) * 2 + kind : -1;
 }
 
-// One row's lanes, read by a whole warp and reduced: wrapping sums of
-// ADDED and TAKEN, the signed max of TAKEN, and the own pair (every lane
-// ends with all of them).
+// One row's lanes, read by a whole warp and reduced: the signed max of
+// TAKEN and the own TAKEN lane (every lane ends with both).
 struct RowView {
-  unsigned long long sa, st;
-  long long max_t, own_a, own_t;
+  long long max_t, own_t;
 };
 
 __device__ __forceinline__ RowView read_row(const long long* __restrict__ pn, long long row,
                                             long long N, long long slot, int lane) {
   const longlong2* lanes = reinterpret_cast<const longlong2*>(pn + row * N * 2);
-  RowView v{0, 0, LLONG_MIN, 0, 0};
+  RowView v{LLONG_MIN, 0};
   for (long long base = lane; base < N; base += 32 * kPass) {
     longlong2 x[kPass];
 #pragma unroll
@@ -130,25 +177,14 @@ __device__ __forceinline__ RowView read_row(const long long* __restrict__ pn, lo
     for (int j = 0; j < kPass; ++j) {
       const long long n = base + 32 * j;
       if (n < N) {
-        v.sa += (unsigned long long)x[j].x;
-        v.st += (unsigned long long)x[j].y;
         v.max_t = lmax(v.max_t, x[j].y);
-        if (n == slot) {
-          v.own_a = x[j].x;
-          v.own_t = x[j].y;
-        }
+        if (n == slot) v.own_t = x[j].y;
       }
     }
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v.sa += __shfl_xor_sync(kAll, v.sa, o);
-    v.st += __shfl_xor_sync(kAll, v.st, o);
-    v.max_t = lmax(v.max_t, __shfl_xor_sync(kAll, v.max_t, o));
-  }
-  const int own_src = (int)(slot & 31);  // lane n is loaded by lane n % 32
-  v.own_a = __shfl_sync(kAll, v.own_a, own_src);
-  v.own_t = __shfl_sync(kAll, v.own_t, own_src);
+  for (int o = 16; o > 0; o >>= 1) v.max_t = lmax(v.max_t, __shfl_xor_sync(kAll, v.max_t, o));
+  v.own_t = __shfl_sync(kAll, v.own_t, (int)(slot & 31));  // lane n is loaded by lane n % 32
   return v;
 }
 
@@ -190,168 +226,367 @@ gcra_admit_kernel(const long long* __restrict__ pn, long long B, long long N,
   commit[K + k] = new_own;
 }
 
-// Concurrency: packed (rows, limit, count, nreq, releases) -> out
-// (admitted, released, inflight, own_acquired, own_released, clamped); two
-// commit entries a column (the own ADDED and TAKEN lanes, added).
-__global__ void __launch_bounds__(kThreads)
-conc_admit_kernel(const long long* __restrict__ pn, long long B, long long N,
-                  long long slot, const long long* __restrict__ packed,
-                  long long* __restrict__ out, long long* __restrict__ commit,
-                  long long K) {
-  const int lane = threadIdx.x & 31;
-  const long long k = (long long)blockIdx.x * kCols + (threadIdx.x >> 5);
-  if (k >= K) return;
-  const long long mine = lane < 5 ? packed[lane * K + k] : 0;
-  const long long row = __shfl_sync(kAll, mine, 0);
-  const RowView v = read_row(pn, gather_row(row, B), N, slot, lane);
-  const long long limit = __shfl_sync(kAll, mine, 1);
-  const long long count = __shfl_sync(kAll, mine, 2);
-  const long long nreq = __shfl_sync(kAll, mine, 3);
-  const long long releases = __shfl_sync(kAll, mine, 4);
-  if (lane != 0) return;
+// The grid barrier between reads and commits, split so that a block
+// arrives as soon as its last tile's reads are done and runs its tails
+// while the others arrive. One 32-bit word a stream, zero at first use
+// (the wrapper's): block 0 adds 2^31 - (blocks - 1), every other block 1,
+// so the arrivals together flip bit 31 and leave the low bits as they were
+// (cooperative groups' scheme), and each block waits until bit 31 differs
+// from what it saw when it arrived. A grid of one block needs only its
+// __syncthreads. The atomic and the polling load are relaxed: the barrier
+// orders reads before writes and carries no data (a block's spill entries
+// are its own, ordered by __syncthreads), and every load of a block has
+// returned its value before it arrives (its shuffles and the block barrier
+// consume them), so no read can see a commit. At K = 8192 a release
+// arrival with an acquiring poll measured 0.2-0.5 us slower a call,
+// cooperative groups' grid sync 0.6-0.8 us, and a second launch for the
+// commits in place of the barrier 1.5-1.7 us (PERF.md, cert_ab.py).
+__device__ __forceinline__ void grid_arrive(unsigned* bar, unsigned& arrival) {
+  if (gridDim.x > 1 && threadIdx.x == 0) {
+    arrival = atomicAdd(bar, blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u);
+  }
+}
 
-  const long long sum_added = (long long)v.sa, sum_taken = (long long)v.st;
-  const long long want_rel = wmul(lmax(releases, 0), lmax(count, 0));
-  const long long held_own = lmax(wsub(v.own_t, v.own_a), 0);
-  const long long d_rel = lmin(want_rel, held_own);
-  const long long inflight = wsub(sum_taken, wadd(sum_added, d_rel));
-  const long long headroom = wsub(limit, inflight);
-  const long long safe_count = count <= 0 ? 1 : count;
-  long long adm = clip0(floordiv64(headroom, safe_count), nreq);
-  if (count <= 0) adm = 0;
-  const long long d_acq = wmul(adm, count);
-  out[0 * K + k] = adm;
-  out[1 * K + k] = d_rel;
-  out[2 * K + k] = wadd(inflight, d_acq);
-  out[3 * K + k] = wadd(v.own_t, d_acq);
-  out[4 * K + k] = wadd(v.own_a, d_rel);
-  out[5 * K + k] = wsub(want_rel, d_rel);
-  const long long M = 2 * K;
-  commit[2 * k] = commit_off(row, B, N, slot, kAdded, d_rel != 0);
-  commit[2 * k + 1] = commit_off(row, B, N, slot, kTaken, d_acq != 0);
-  commit[M + 2 * k] = d_rel;
-  commit[M + 2 * k + 1] = d_acq;
+__device__ __forceinline__ void grid_wait(const unsigned* bar, unsigned arrival) {
+  if (gridDim.x > 1 && threadIdx.x == 0) {
+    unsigned now;
+    do {
+      asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(now) : "l"(bar) : "memory");
+    } while (((now ^ arrival) & 0x80000000u) == 0);
+  }
+  __syncthreads();
+}
+
+// A block's commit entries: the first kCap in shared memory, the rest in
+// the block's stretch of the global spill buffer. Warp 0 appends (in
+// column order, by ballot); after the grid barrier the whole block applies
+// them.
+template <int kCap>
+struct Entries {
+  longlong2 smem[kCap];
+  long long n;
+};
+
+// Warp 0: append each lane's entry (off >= 0) in lane order; n is the
+// block's running count, the same in every lane of the warp.
+template <int kCap>
+__device__ __forceinline__ void append(Entries<kCap>& e, long long& n,
+                                       longlong2* __restrict__ spill, long long off,
+                                       long long val, int lane) {
+  const unsigned live = __ballot_sync(kAll, off >= 0);
+  if (off >= 0) {
+    const long long pos = n + __popc(live & ((1u << lane) - 1u));
+    const longlong2 ent = make_longlong2(off, val);
+    if (pos < kCap) {
+      e.smem[pos] = ent;
+    } else {
+      spill[pos - kCap] = ent;
+    }
+  }
+  n += __popc(live);
+}
+
+// After every block's reads: the block's entries as wrapping adds.
+template <int kCap>
+__device__ __forceinline__ void commit_adds(long long* pn, const Entries<kCap>& e,
+                                            const longlong2* __restrict__ spill) {
+  const long long n = e.n;
+  for (long long i = threadIdx.x; i < n; i += kFusedThreads) {
+    const longlong2 ent = i < kCap ? e.smem[i] : spill[i - kCap];
+    atomicAdd(reinterpret_cast<unsigned long long*>(pn + ent.x),
+              (unsigned long long)ent.y);
+  }
+}
+
+// Concurrency: packed (rows, limit, count, nreq, releases) -> out
+// (admitted, released, inflight, own_acquired, own_released, clamped); the
+// own ADDED and TAKEN lanes added, in one cooperative launch.
+constexpr int kConcCap = 2 * kTile;
+
+__global__ void __launch_bounds__(kFusedThreads, kMinBlocks)
+conc_admit_kernel(long long* pn, unsigned* bar, long long B, long long N,
+                  long long slot,
+                  const long long* __restrict__ packed, long long* __restrict__ out,
+                  longlong2* __restrict__ spill, long long spill_len, long long K) {
+  __shared__ unsigned long long s_sum[2][kTile];
+  __shared__ long long s_own[2][kTile];
+  __shared__ Entries<kConcCap> ents;
+
+  const int t = threadIdx.x;
+  const int c = t / kGroup;
+  const int l = t % kGroup;
+  const long long tiles = (K + kTile - 1) / kTile;
+  longlong2* my_spill = spill + (long long)blockIdx.x * spill_len;
+  long long n_ent = 0;  // warp 0's running count
+  unsigned arrival = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long k0 = tile * kTile;
+    const int live = (int)(K - k0 < kTile ? K - k0 : kTile);
+    const bool own = t < live;  // column t's own thread
+    const long long k = k0 + t;
+    long long row = 0, limit = 0, count = 0, nreq = 0, releases = 0;
+    if (own) {
+      row = packed[k];
+      limit = packed[K + k];
+      count = packed[2 * K + k];
+      nreq = packed[3 * K + k];
+      releases = packed[4 * K + k];
+    }
+    // The lane group's row, loaded by the group itself in the same trip.
+    const long long n_end = c < live ? N : 0;
+    const longlong2* lanes = reinterpret_cast<const longlong2*>(
+        pn + (c < live ? gather_row(packed[k0 + c], B) : 0) * N * 2);
+    unsigned long long sa = 0, st = 0;
+    long long own_a = 0, own_t = 0;
+    for (long long base = l; base < n_end; base += kGroup * kFusedPass) {
+      longlong2 x[kFusedPass];
+#pragma unroll
+      for (int j = 0; j < kFusedPass; ++j) {
+        const long long n = base + kGroup * j;
+        x[j] = n < n_end ? lanes[n] : make_longlong2(0, 0);
+      }
+#pragma unroll
+      for (int j = 0; j < kFusedPass; ++j) {
+        sa += (unsigned long long)x[j].x;
+        st += (unsigned long long)x[j].y;
+        if (base + kGroup * j == slot) {
+          own_a = x[j].x;
+          own_t = x[j].y;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = kGroup / 2; o > 0; o >>= 1) {
+      sa += __shfl_xor_sync(kAll, sa, o);
+      st += __shfl_xor_sync(kAll, st, o);
+    }
+    if (c < live) {
+      if (l == 0) {
+        s_sum[0][c] = sa;
+        s_sum[1][c] = st;
+      }
+      if (l == slot % kGroup) {
+        s_own[0][c] = own_a;
+        s_own[1][c] = own_t;
+      }
+    }
+    __syncthreads();
+    if (tile + gridDim.x >= tiles) grid_arrive(bar, arrival);  // the block's reads are done
+    if (t < 32) {  // warp 0: the tails
+      long long d_rel = 0, d_acq = 0;
+      if (own) {
+        const long long sum_added = (long long)s_sum[0][t], sum_taken = (long long)s_sum[1][t];
+        const long long own_added = s_own[0][t], own_taken = s_own[1][t];
+        const long long want_rel = wmul(lmax(releases, 0), lmax(count, 0));
+        const long long held_own = lmax(wsub(own_taken, own_added), 0);
+        d_rel = lmin(want_rel, held_own);
+        const long long inflight = wsub(sum_taken, wadd(sum_added, d_rel));
+        const long long headroom = wsub(limit, inflight);
+        const long long safe_count = count <= 0 ? 1 : count;
+        long long adm = clip0(floordiv64(headroom, safe_count), nreq);
+        if (count <= 0) adm = 0;
+        d_acq = wmul(adm, count);
+        out[0 * K + k] = adm;
+        out[1 * K + k] = d_rel;
+        out[2 * K + k] = wadd(inflight, d_acq);
+        out[3 * K + k] = wadd(own_taken, d_acq);
+        out[4 * K + k] = wadd(own_added, d_rel);
+        out[5 * K + k] = wsub(want_rel, d_rel);
+      }
+      append(ents, n_ent, my_spill,
+             own ? commit_off(row, B, N, slot, kAdded, d_rel != 0) : -1, d_rel, t);
+      append(ents, n_ent, my_spill,
+             own ? commit_off(row, B, N, slot, kTaken, d_acq != 0) : -1, d_acq, t);
+    }
+    __syncthreads();  // the sums' shared memory is the next tile's
+  }
+  if (t == 0) ents.n = n_ent;
+  grid_wait(bar, arrival);  // every read of the call is done
+  commit_adds(pn, ents, my_spill);
 }
 
 // Hierarchical quota: packed (rows_global, rows_tenant, rows_user,
 // limit_global, limit_tenant, limit_user, count, nreq) -> out (admitted,
-// three headrooms, own_taken_user); three commit entries a column (the own
-// TAKEN lane of each level's row, added).
-__global__ void __launch_bounds__(kThreads)
-quota_admit_kernel(const long long* __restrict__ pn, long long B, long long N,
-                   long long slot, const long long* __restrict__ packed,
-                   long long* __restrict__ out, long long* __restrict__ commit,
-                   long long K) {
-  const int lane = threadIdx.x & 31;
-  const long long k = (long long)blockIdx.x * kCols + (threadIdx.x >> 5);
-  if (k >= K) return;
-  const long long mine = lane < 8 ? packed[lane * K + k] : 0;
-  long long rows[3];
-  const longlong2* planes[3];
+// three headrooms, own_taken_user); the own TAKEN lane of each level's row
+// added, in one cooperative launch.
+constexpr int kQuotaCap = 3 * kTile;
+
+__global__ void __launch_bounds__(kFusedThreads, kMinBlocks)
+quota_admit_kernel(long long* pn, unsigned* bar, long long B, long long N,
+                   long long slot,
+                   const long long* __restrict__ packed, long long* __restrict__ out,
+                   longlong2* __restrict__ spill, long long spill_len, long long K) {
+  __shared__ unsigned long long s_spend[3][kTile];
+  __shared__ long long s_own[kTile];
+  __shared__ Entries<kQuotaCap> ents;
+
+  const int t = threadIdx.x;
+  const int c = t / kGroup;
+  const int l = t % kGroup;
+  const long long tiles = (K + kTile - 1) / kTile;
+  longlong2* my_spill = spill + (long long)blockIdx.x * spill_len;
+  long long n_ent = 0;  // warp 0's running count
+  unsigned arrival = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long k0 = tile * kTile;
+    const int live = (int)(K - k0 < kTile ? K - k0 : kTile);
+    const bool own = t < live;  // column t's own thread
+    const long long k = k0 + t;
+    long long rows[3] = {0, 0, 0}, lim[3] = {0, 0, 0}, count = 0, nreq = 0;
+    if (own) {
 #pragma unroll
-  for (int l = 0; l < 3; ++l) {
-    rows[l] = __shfl_sync(kAll, mine, l);
-    planes[l] = reinterpret_cast<const longlong2*>(pn + gather_row(rows[l], B) * N * 2);
-  }
-  // The three rows' lanes in one pass: every load of the path in flight
-  // before any is used. Only TAKEN is summed; the user row's own TAKEN
-  // lane is kept.
-  unsigned long long spend[3] = {0, 0, 0};
-  long long own_u = 0;
-  for (long long base = lane; base < N; base += 32 * kPass) {
-    longlong2 x[3][kPass];
+      for (int v = 0; v < 3; ++v) {
+        rows[v] = packed[v * K + k];
+        lim[v] = packed[(3 + v) * K + k];
+      }
+      count = packed[6 * K + k];
+      nreq = packed[7 * K + k];
+    }
+    // The group's three rows; only their TAKEN words are read.
+    const long long n_end = c < live ? N : 0;
+    const long long* taken[3];
 #pragma unroll
-    for (int l = 0; l < 3; ++l) {
+    for (int v = 0; v < 3; ++v) {
+      const long long r = c < live ? gather_row(packed[v * K + k0 + c], B) : 0;
+      taken[v] = pn + r * N * 2 + kTaken;
+    }
+    unsigned long long spend[3] = {0, 0, 0};
+    long long own_u = 0;
+    for (long long base = l; base < n_end; base += kGroup * kFusedPass) {
+      long long x[3][kFusedPass];
 #pragma unroll
-      for (int j = 0; j < kPass; ++j) {
-        const long long n = base + 32 * j;
-        x[l][j] = n < N ? planes[l][n] : make_longlong2(0, 0);
+      for (int v = 0; v < 3; ++v) {
+#pragma unroll
+        for (int j = 0; j < kFusedPass; ++j) {
+          const long long n = base + kGroup * j;
+          x[v][j] = n < n_end ? taken[v][2 * n] : 0;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kFusedPass; ++j) {
+#pragma unroll
+        for (int v = 0; v < 3; ++v) spend[v] += (unsigned long long)x[v][j];
+        if (base + kGroup * j == slot) own_u = x[2][j];
       }
     }
 #pragma unroll
-    for (int j = 0; j < kPass; ++j) {
+    for (int o = kGroup / 2; o > 0; o >>= 1) {
 #pragma unroll
-      for (int l = 0; l < 3; ++l) spend[l] += (unsigned long long)x[l][j].y;
-      if (base + 32 * j == slot) own_u = x[2][j].y;
+      for (int v = 0; v < 3; ++v) spend[v] += __shfl_xor_sync(kAll, spend[v], o);
     }
-  }
+    if (c < live) {
+      if (l == 0) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
+        for (int v = 0; v < 3; ++v) s_spend[v][c] = spend[v];
+      }
+      if (l == slot % kGroup) s_own[c] = own_u;
+    }
+    __syncthreads();
+    if (tile + gridDim.x >= tiles) grid_arrive(bar, arrival);  // the block's reads are done
+    if (t < 32) {  // warp 0: the tails
+      long long d = 0;
+      if (own) {
+        const long long head_g = wsub(lim[0], (long long)s_spend[0][t]);
+        const long long head_t = wsub(lim[1], (long long)s_spend[1][t]);
+        const long long head_u = wsub(lim[2], (long long)s_spend[2][t]);
+        const long long head_min = lmin(lmin(head_g, head_t), head_u);
+        const long long safe_count = count <= 0 ? 1 : count;
+        long long adm = clip0(floordiv64(head_min, safe_count), nreq);
+        if (count <= 0) adm = 0;
+        d = wmul(adm, count);
+        out[0 * K + k] = adm;
+        out[1 * K + k] = wsub(head_g, d);
+        out[2 * K + k] = wsub(head_t, d);
+        out[3 * K + k] = wsub(head_u, d);
+        out[4 * K + k] = wadd(s_own[t], d);
+      }
 #pragma unroll
-    for (int l = 0; l < 3; ++l) spend[l] += __shfl_xor_sync(kAll, spend[l], o);
+      for (int v = 0; v < 3; ++v) {
+        append(ents, n_ent, my_spill,
+               own ? commit_off(rows[v], B, N, slot, kTaken, d != 0) : -1, d, t);
+      }
+    }
+    __syncthreads();  // the sums' shared memory is the next tile's
   }
-  own_u = __shfl_sync(kAll, own_u, (int)(slot & 31));
-  const long long lim_g = __shfl_sync(kAll, mine, 3);
-  const long long lim_t = __shfl_sync(kAll, mine, 4);
-  const long long lim_u = __shfl_sync(kAll, mine, 5);
-  const long long count = __shfl_sync(kAll, mine, 6);
-  const long long nreq = __shfl_sync(kAll, mine, 7);
-  if (lane != 0) return;
-
-  const long long head_g = wsub(lim_g, (long long)spend[0]);
-  const long long head_t = wsub(lim_t, (long long)spend[1]);
-  const long long head_u = wsub(lim_u, (long long)spend[2]);
-  const long long head_min = lmin(lmin(head_g, head_t), head_u);
-  const long long safe_count = count <= 0 ? 1 : count;
-  long long adm = clip0(floordiv64(head_min, safe_count), nreq);
-  if (count <= 0) adm = 0;
-  const long long d = wmul(adm, count);
-  out[0 * K + k] = adm;
-  out[1 * K + k] = wsub(head_g, d);
-  out[2 * K + k] = wsub(head_t, d);
-  out[3 * K + k] = wsub(head_u, d);
-  out[4 * K + k] = wadd(own_u, d);
-  const long long M = 3 * K;
-#pragma unroll
-  for (int l = 0; l < 3; ++l) {
-    commit[l * K + k] = commit_off(rows[l], B, N, slot, kTaken, d != 0);
-    commit[M + l * K + k] = d;
-  }
+  if (t == 0) ents.n = n_ent;
+  grid_wait(bar, arrival);  // every read of the call is done
+  commit_adds(pn, ents, my_spill);
 }
 
-// commit: int64[2, M], flat pn offsets (-1: none) then values. op 0: a
-// signed max; op 1: a wrapping add.
+// commit: int64[2, M], flat pn offsets (-1: none) then values; a signed
+// max (GCRA's commit).
 __global__ void __launch_bounds__(kCommitThreads)
 own_lane_commit_kernel(long long* __restrict__ pn, long long numel,
-                       const long long* __restrict__ commit, long long M, int op) {
+                       const long long* __restrict__ commit, long long M) {
   const long long i = (long long)blockIdx.x * kCommitThreads + threadIdx.x;
   if (i >= M) return;
   const long long off = commit[i];
   if (off < 0 || off >= numel) return;
-  const long long val = commit[M + i];
-  if (op == 0) {
-    atomicMax(pn + off, val);
-  } else {
-    atomicAdd(reinterpret_cast<unsigned long long*>(pn + off), (unsigned long long)val);
+  atomicMax(pn + off, commit[M + i]);
+}
+
+const void* fused_kernel(int family) {
+  switch (family) {
+    case 1: return reinterpret_cast<const void*>(conc_admit_kernel);
+    case 2: return reinterpret_cast<const void*>(quota_admit_kernel);
+    default: return nullptr;
   }
 }
 
 }  // namespace
 
-extern "C" int patrol_cert_admit(int family, const void* pn, long long B, long long N,
-                                 long long slot, const void* packed, void* out,
-                                 void* commit, long long K, void* stream) {
+extern "C" int patrol_gcra_admit(const void* pn, long long B, long long N, long long slot,
+                                 const void* packed, void* out, void* commit, long long K,
+                                 void* stream) {
   if (K <= 0) return 0;
   const unsigned blocks = (unsigned)((K + kCols - 1) / kCols);
-  const long long* p = (const long long*)pn;
-  const long long* q = (const long long*)packed;
-  long long* o = (long long*)out;
-  long long* c = (long long*)commit;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (family) {
-    case 0: gcra_admit_kernel<<<blocks, kThreads, 0, s>>>(p, B, N, slot, q, o, c, K); break;
-    case 1: conc_admit_kernel<<<blocks, kThreads, 0, s>>>(p, B, N, slot, q, o, c, K); break;
-    case 2: quota_admit_kernel<<<blocks, kThreads, 0, s>>>(p, B, N, slot, q, o, c, K); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  gcra_admit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const long long*)pn, B, N, slot, (const long long*)packed, (long long*)out,
+      (long long*)commit, K);
   return (int)cudaGetLastError();
 }
 
+// The fused kernel's residency: blocks an SM (the occupancy call, at its
+// block size and static shared memory) and the SMs of the current device.
+extern "C" int patrol_cert_occupancy(int family, int* blocks_per_sm, int* sms) {
+  const void* fn = fused_kernel(family);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kFusedThreads, 0);
+  }
+  return (int)rc;
+}
+
+// One fused call (family 1: concurrency, 2: quota) as one cooperative
+// launch of `blocks` blocks (cooperative: the runtime refuses a grid the
+// card cannot hold resident, which the barrier needs); bar is the stream's
+// barrier word; spill holds blocks x spill_len entries (int64 pairs).
+extern "C" int patrol_cert_fused(int family, void* pn, void* bar, long long B, long long N,
+                                 long long slot, const void* packed, void* out, void* spill,
+                                 long long spill_len, long long K, int blocks, void* stream) {
+  if (K <= 0) return 0;
+  const void* fn = fused_kernel(family);
+  if (fn == nullptr || blocks <= 0) return (int)cudaErrorInvalidValue;
+  long long* p = (long long*)pn;
+  unsigned* w = (unsigned*)bar;
+  const long long* q = (const long long*)packed;
+  long long* o = (long long*)out;
+  longlong2* s = (longlong2*)spill;
+  void* args[] = {&p, &w, &B, &N, &slot, &q, &o, &s, &spill_len, &K};
+  const cudaError_t rc = cudaLaunchCooperativeKernel(fn, dim3((unsigned)blocks),
+                                                     dim3(kFusedThreads), args, 0,
+                                                     (cudaStream_t)stream);
+  return (int)(rc != cudaSuccess ? rc : cudaGetLastError());
+}
+
 extern "C" int patrol_own_lane_commit(void* pn, long long numel, const void* commit,
-                                      long long M, int op, void* stream) {
+                                      long long M, void* stream) {
   if (M <= 0) return 0;
   const unsigned blocks = (unsigned)((M + kCommitThreads - 1) / kCommitThreads);
   own_lane_commit_kernel<<<blocks, kCommitThreads, 0, (cudaStream_t)stream>>>(
-      (long long*)pn, numel, (const long long*)commit, M, op);
+      (long long*)pn, numel, (const long long*)commit, M);
   return (int)cudaGetLastError();
 }

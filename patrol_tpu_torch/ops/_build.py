@@ -157,13 +157,18 @@ def lib() -> ctypes.CDLL:
             cdll.patrol_lifecycle_probe.argtypes = [
                 p, p, i64, i64, i64, p, p, p, p, p, p, i64, p,
             ]
-            cdll.patrol_cert_admit.argtypes = [
-                ctypes.c_int, p, i64, i64, i64, p, p, p, i64, p,
+            cdll.patrol_gcra_admit.argtypes = [p, i64, i64, i64, p, p, p, i64, p]
+            cdll.patrol_cert_occupancy.argtypes = [
+                ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
             ]
-            cdll.patrol_own_lane_commit.argtypes = [p, i64, p, i64, ctypes.c_int, p]
+            cdll.patrol_cert_fused.argtypes = [
+                ctypes.c_int, p, p, i64, i64, i64, p, p, p, i64, i64, ctypes.c_int, p,
+            ]
+            cdll.patrol_own_lane_commit.argtypes = [p, i64, p, i64, p]
             for fn in (cdll.patrol_join, cdll.patrol_take_n,
                        cdll.patrol_decode_fold, cdll.patrol_row_rmw,
-                       cdll.patrol_lifecycle_probe, cdll.patrol_cert_admit,
+                       cdll.patrol_lifecycle_probe, cdll.patrol_gcra_admit,
+                       cdll.patrol_cert_occupancy, cdll.patrol_cert_fused,
                        cdll.patrol_own_lane_commit):
                 fn.restype = ctypes.c_int
             _lib = cdll

@@ -1,43 +1,57 @@
 """The certified families' kernels: the wrapper over ``csrc/cert.cu``.
 
-One family call is two launches on the current stream. The family's
-admit kernel (``gcra_admit``, ``conc_admit`` or ``quota_admit``) gathers
-every column's rows from the pre-batch state, writes the result matrix
-and one commit entry per own-lane update (a flat ``pn`` offset, or -1,
-and a value); then ``own_lane_commit`` applies the entries with atomics
-(a signed max for GCRA, a wrapping add for the other two). Reads finish
-before any write, so duplicate, aliased, shared-ancestor and clamped
-rows all read the pre-batch state, as the reference's gather-then-scatter
-does.
+A concurrency or quota call is one cooperative launch on the current
+stream (``conc_admit``, ``quota_admit``): a persistent grid gathers every
+column's rows from the pre-batch state and writes the result matrix, the
+grid meets at one barrier (on the stream's word, :func:`barrier_word`),
+and then each block applies its columns' own-lane commits (wrapping adds,
+only for columns that have something to commit). The grid is no larger
+than the card holds resident (:func:`resident_blocks`) and no larger than
+K needs (:func:`grid`). A GCRA call is two launches: ``gcra_admit`` writes the results and one
+commit entry per column (a flat ``pn`` offset, or -1, and a value), then
+``own_lane_commit`` applies the entries with a signed max. Either way,
+reads finish before any write, so duplicate, aliased, shared-ancestor and
+clamped rows all read the pre-batch state, as the reference's
+gather-then-scatter does.
 
 The packed request carries rows already cast to int32 and wrapped
 (``[-B, 0)`` → ``+B``, :func:`wrap_rows`); the kernels clamp a row into
 ``[0, B)`` to gather and drop a commit outside it. The plain versions of
-the three admits are in :mod:`~patrol_tpu_torch.ops.gcra`,
+the three families are in :mod:`~patrol_tpu_torch.ops.gcra`,
 :mod:`~patrol_tpu_torch.ops.concurrency` and
-:mod:`~patrol_tpu_torch.ops.hierquota`; the commit's is
+:mod:`~patrol_tpu_torch.ops.hierquota`; GCRA's commit's is
 :func:`own_lane_commit_plain`. On a CUDA state these launch the kernels
 or raise.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import threading
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from patrol_tpu_torch.ops import _build
 
-# family → (packed rows, result rows, commit entries per column, commit op);
-# the row counts are the family modules' *_PACK_ROWS and *_RESULT_ROWS.
+# family → (packed rows, result rows, own lanes a column commits); the row
+# counts are the family modules' *_PACK_ROWS and *_RESULT_ROWS.
 FAMILIES = {
-    "gcra": (5, 4, 1, "max"),
-    "conc": (5, 6, 2, "add"),
-    "quota": (8, 5, 3, "add"),
+    "gcra": (5, 4, 1),
+    "conc": (5, 6, 2),
+    "quota": (8, 5, 3),
 }
-_FAMILY_IDS = {"gcra": 0, "conc": 1, "quota": 2}  # patrol_cert_admit's switch
-_OPS = {"max": 0, "add": 1}
+_FUSED_IDS = {"conc": 1, "quota": 2}  # patrol_cert_fused's family argument
+TILE = 32  # columns a fused block takes at a time (cert.cu kTile)
+
+# (family, device index) → blocks the card holds resident at once.
+_RESIDENT: Dict[Tuple[str, int], int] = {}
+# (device index, stream) → the fused kernels' grid barrier word: int32,
+# zeroed once; every launch's barrier leaves its low 31 bits at zero.
+# Launches on one stream never overlap, so they can share it.
+_BARRIERS: Dict[Tuple[int, int], torch.Tensor] = {}
+_BARRIERS_MU = threading.Lock()
 
 
 def wrap_rows(rows: torch.Tensor, b: int) -> torch.Tensor:
@@ -65,17 +79,48 @@ def gather_index(rows: torch.Tensor, b: int) -> Tuple[torch.Tensor, torch.Tensor
     return rows.clamp(0, b - 1), (rows >= 0) & (rows < b)
 
 
-def own_lane_commit_plain(pn: torch.Tensor, commit: torch.Tensor, op: str) -> None:
+def own_lane_commit_plain(pn: torch.Tensor, commit: torch.Tensor) -> None:
     """The commit kernel's plain version: ``commit`` is int64[2, M] (flat
-    ``pn`` offsets, -1 for none; values); a scatter-max or a scatter-add
-    (wrapping) into ``pn`` in place."""
+    ``pn`` offsets, -1 for none; values); a scatter-max into ``pn`` in
+    place."""
     live = commit[0] >= 0
-    off, val = commit[0][live], commit[1][live]
-    flat = pn.view(-1)
-    if op == "max":
-        flat.scatter_reduce_(0, off, val, reduce="amax")
-    else:
-        flat.index_put_((off,), val, accumulate=True)
+    pn.view(-1).scatter_reduce_(0, commit[0][live], commit[1][live], reduce="amax")
+
+
+def grid(k: int, resident: int) -> Tuple[int, int]:
+    """A fused call's grid for K columns on a card that holds ``resident``
+    blocks: → (blocks, the most tiles a block walks). K's tiles of
+    :data:`TILE` columns go round-robin: block b takes tiles b,
+    b + blocks, ... (the kernels' loop)."""
+    tiles = -(-k // TILE)
+    blocks = min(tiles, resident)
+    return blocks, -(-tiles // blocks)
+
+
+def resident_blocks(family: str, device: torch.device) -> int:
+    """Blocks of a family's fused kernel the card holds at once (the
+    occupancy call's blocks an SM times the SMs), asked once a process."""
+    key = (family, device.index or 0)
+    if key not in _RESIDENT:
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = _build.lib().patrol_cert_occupancy(
+                _FUSED_IDS[family], ctypes.byref(per_sm), ctypes.byref(sms))
+        _build.check_rc(rc, f"{family}_admit occupancy")
+        if per_sm.value < 1:
+            raise RuntimeError(f"{family}_admit: no block fits an SM")
+        _RESIDENT[key] = per_sm.value * sms.value
+    return _RESIDENT[key]
+
+
+def barrier_word(device: torch.device, stream: int) -> torch.Tensor:
+    """The grid barrier word of ``stream``, the current stream on
+    ``device`` (made and zeroed on it at its first use)."""
+    key = (device.index or 0, stream)
+    with _BARRIERS_MU:
+        if key not in _BARRIERS:
+            _BARRIERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+        return _BARRIERS[key]
 
 
 def _check(pn: torch.Tensor, packed: torch.Tensor, family: str, node_slot: int):
@@ -97,29 +142,29 @@ def _check(pn: torch.Tensor, packed: torch.Tensor, family: str, node_slot: int):
     return b, n
 
 
-def admit(
-    family: str, pn: torch.Tensor, packed: torch.Tensor, node_slot: int
+def gcra_admit(
+    pn: torch.Tensor, packed: torch.Tensor, node_slot: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch one family's admit kernel: → (result int64[RESULT_ROWS, K],
-    commit int64[2, per_col * K]). Reads ``pn`` only."""
-    b, n = _check(pn, packed, family, node_slot)
-    _, rows_out, per_col, _ = FAMILIES[family]
+    """Launch GCRA's admit kernel: → (result int64[4, K], commit
+    int64[2, K]). Reads ``pn`` only."""
+    b, n = _check(pn, packed, "gcra", node_slot)
     k = packed.shape[1]
-    out = torch.empty((rows_out, k), dtype=torch.int64, device=pn.device)
-    commit = torch.empty((2, per_col * k), dtype=torch.int64, device=pn.device)
+    out = torch.empty((FAMILIES["gcra"][1], k), dtype=torch.int64, device=pn.device)
+    commit = torch.empty((2, k), dtype=torch.int64, device=pn.device)
     if k == 0:
         return out, commit
-    rc = _build.lib().patrol_cert_admit(
-        _FAMILY_IDS[family], pn.data_ptr(), b, n, node_slot, packed.data_ptr(),
-        out.data_ptr(), commit.data_ptr(), k, _build.stream_handle(pn),
+    rc = _build.lib().patrol_gcra_admit(
+        pn.data_ptr(), b, n, node_slot, packed.data_ptr(), out.data_ptr(),
+        commit.data_ptr(), k, _build.stream_handle(pn),
     )
-    _build.check_rc(rc, f"{family}_admit")
-    _build.count_launch(f"{family}_admit")
+    _build.check_rc(rc, "gcra_admit")
+    _build.count_launch("gcra_admit")
     return out, commit
 
 
-def own_lane_commit(pn: torch.Tensor, commit: torch.Tensor, op: str) -> None:
-    """Launch the commit kernel over ``commit`` (int64[2, M]) into ``pn``."""
+def own_lane_commit(pn: torch.Tensor, commit: torch.Tensor) -> None:
+    """Launch the commit kernel (a signed max) over ``commit``
+    (int64[2, M]) into ``pn``."""
     dev = pn.device
     if dev.type != "cuda":
         raise ValueError(f"the cert kernels run on CUDA tensors, got {dev}")
@@ -131,15 +176,43 @@ def own_lane_commit(pn: torch.Tensor, commit: torch.Tensor, op: str) -> None:
     if m == 0:
         return
     rc = _build.lib().patrol_own_lane_commit(
-        pn.data_ptr(), pn.numel(), commit.data_ptr(), m, _OPS[op], _build.stream_handle(pn),
+        pn.data_ptr(), pn.numel(), commit.data_ptr(), m, _build.stream_handle(pn),
     )
     _build.check_rc(rc, "own_lane_commit")
     _build.count_launch("own_lane_commit")
 
 
+def fused(family: str, pn: torch.Tensor, packed: torch.Tensor, node_slot: int) -> torch.Tensor:
+    """One concurrency or quota call as one cooperative launch: → the
+    result matrix; ``pn`` is updated in place."""
+    b, n = _check(pn, packed, family, node_slot)
+    _, rows_out, per_col = FAMILIES[family]
+    k = packed.shape[1]
+    out = torch.empty((rows_out, k), dtype=torch.int64, device=pn.device)
+    if k == 0:
+        return out
+    blocks, tiles = grid(k, resident_blocks(family, pn.device))
+    # A block keeps one tile's entries in shared memory; the rest of what
+    # its tiles can commit goes to its own stretch of the spill buffer.
+    spill_len = per_col * TILE * (tiles - 1)
+    spill = torch.empty(2 * blocks * spill_len, dtype=torch.int64, device=pn.device)
+    stream = _build.stream_handle(pn)
+    rc = _build.lib().patrol_cert_fused(
+        _FUSED_IDS[family], pn.data_ptr(), barrier_word(pn.device, stream).data_ptr(), b, n,
+        node_slot, packed.data_ptr(), out.data_ptr(), spill.data_ptr(), spill_len, k, blocks,
+        stream,
+    )
+    _build.check_rc(rc, f"{family}_admit")
+    _build.count_launch(f"{family}_admit")
+    return out
+
+
 def run(family: str, pn: torch.Tensor, packed: torch.Tensor, node_slot: int) -> torch.Tensor:
-    """One family call on a CUDA state: admit, then commit; → the result
-    matrix. ``pn`` is updated in place."""
-    out, commit = admit(family, pn, packed, node_slot)
-    own_lane_commit(pn, commit, FAMILIES[family][3])
+    """One family call on a CUDA state: → the result matrix; ``pn`` is
+    updated in place. GCRA admits, then commits; the other two fuse both
+    into one launch."""
+    if family != "gcra":
+        return fused(family, pn, packed, node_slot)
+    out, commit = gcra_admit(pn, packed, node_slot)
+    own_lane_commit(pn, commit)
     return out

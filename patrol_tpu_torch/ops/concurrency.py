@@ -10,9 +10,10 @@ the bucket's do. A release is clamped to what the own lane holds
 which keeps ``ADDED[slot] <= TAKEN[slot]`` per lane (the phantom-release
 guard). Releases apply before acquires.
 
-:func:`conc_acquire_batch` runs the hand-written kernels
-(:mod:`patrol_tpu_torch.ops.cert_kernel`, ``csrc/cert.cu``) on a CUDA
-state, or raises; on a CPU state it runs :func:`conc_acquire_batch_plain`.
+:func:`conc_acquire_batch` runs the hand-written kernel
+(:mod:`patrol_tpu_torch.ops.cert_kernel`, ``csrc/cert.cu``'s
+``conc_admit``, one launch that reads, then commits) on a CUDA state, or
+raises; on a CPU state it runs :func:`conc_acquire_batch_plain`.
 State is updated IN PLACE (the reference donated it).
 """
 

@@ -11,9 +11,10 @@ levels, all or nothing. Paths sharing a tenant or global row (or one row
 serving as two levels) each read the pre-batch spend, and every debit
 lands.
 
-:func:`quota_take_batch` runs the hand-written kernels
-(:mod:`patrol_tpu_torch.ops.cert_kernel`, ``csrc/cert.cu``) on a CUDA
-state, or raises; on a CPU state it runs :func:`quota_take_batch_plain`.
+:func:`quota_take_batch` runs the hand-written kernel
+(:mod:`patrol_tpu_torch.ops.cert_kernel`, ``csrc/cert.cu``'s
+``quota_admit``, one launch that reads, then commits) on a CUDA state, or
+raises; on a CPU state it runs :func:`quota_take_batch_plain`.
 State is updated IN PLACE (the reference donated it).
 """
 

@@ -21,6 +21,8 @@ themselves (``csrc/cert.cu``) are held to the plain versions on the card
 by the ``cuda``-marked test here and by ``chip_smoke.py``.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -34,7 +36,7 @@ from patrol_tpu.ops import gcra as jgcra
 from patrol_tpu.ops import hierquota as jquota
 from patrol_tpu.runtime.engine import DeviceEngine as JEngine
 from patrol_tpu_torch.models.limiter import ADDED, TAKEN, LimiterConfig, LimiterState
-from patrol_tpu_torch.ops import cert_kernel
+from patrol_tpu_torch.ops import _build, cert_kernel
 from patrol_tpu_torch.ops import concurrency as tconc
 from patrol_tpu_torch.ops import gcra as tgcra
 from patrol_tpu_torch.ops import hierquota as tquota
@@ -322,21 +324,19 @@ def test_out_of_range_rows_alias_as_the_reference_does():
 
 
 def test_commit_plain_matches_a_loop():
-    """own_lane_commit's plain version: a signed max or a wrapping add per
+    """own_lane_commit's plain version (GCRA's commit): a signed max per
     entry, -1 entries skipped, repeated offsets combined."""
     rng = np.random.default_rng(3)
     pn = rng.integers(-(1 << 63), (1 << 63) - 1, (16, 2, 2), dtype=np.int64)
     off = rng.integers(-1, pn.size, 200)
     val = rng.integers(-(1 << 63), (1 << 63) - 1, 200, dtype=np.int64)
-    for op in ("max", "add"):
-        want = pn.copy().reshape(-1)
-        for o, v in zip(off, val):
-            if o >= 0:
-                want[o] = max(want[o], v) if op == "max" else np.int64(
-                    (int(want[o]) + int(v) + (1 << 63)) % (1 << 64) - (1 << 63))
-        got = torch.from_numpy(pn.copy())
-        cert_kernel.own_lane_commit_plain(got, torch.from_numpy(np.stack([off, val])), op)
-        np.testing.assert_array_equal(got.numpy().reshape(-1), want)
+    want = pn.copy().reshape(-1)
+    for o, v in zip(off, val):
+        if o >= 0:
+            want[o] = max(want[o], v)
+    got = torch.from_numpy(pn.copy())
+    cert_kernel.own_lane_commit_plain(got, torch.from_numpy(np.stack([off, val])))
+    np.testing.assert_array_equal(got.numpy().reshape(-1), want)
 
 
 def test_packed_layouts_match_reference():
@@ -354,34 +354,69 @@ def test_packed_layouts_match_reference():
 
 def test_kernel_wrappers_refuse_a_cpu_state():
     pn = torch.zeros((8, 2, 2), dtype=torch.int64)
+    for family, (rows_in, _, _) in cert_kernel.FAMILIES.items():
+        with pytest.raises(ValueError, match="CUDA"):
+            cert_kernel.run(family, pn, torch.zeros((rows_in, 4), dtype=torch.int64), 0)
     with pytest.raises(ValueError, match="CUDA"):
-        cert_kernel.run("gcra", pn, torch.zeros((5, 4), dtype=torch.int64), 0)
-    with pytest.raises(ValueError, match="CUDA"):
-        cert_kernel.own_lane_commit(pn, torch.zeros((2, 4), dtype=torch.int64), "add")
+        cert_kernel.own_lane_commit(pn, torch.zeros((2, 4), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("k,resident", [
+    (1, 264), (8, 264), (32, 264), (33, 264), (8192, 264), (8192, 256), (8192, 100),
+    (264 * 32 - 1, 264), (264 * 32, 264), (264 * 32 + 1, 264), (1 << 16, 264), (1 << 16, 1),
+    (12345, 7),
+])
+def test_fused_grid_covers_every_column_once(k, resident):
+    """The fused kernels' persistent grid: never more blocks than the card
+    holds resident or than K's tiles, every block has a tile (each must
+    arrive at the grid barrier), every column is taken exactly once, and
+    no block walks more tiles than the spill buffer is sized for."""
+    blocks, tiles = cert_kernel.grid(k, resident)
+    tile = cert_kernel.TILE
+    assert 1 <= blocks <= resident and blocks <= -(-k // tile)
+    taken = np.zeros(k, np.int64)
+    for b in range(blocks):
+        # cert.cu's loop: tiles b, b + blocks, ... below ceil(K / TILE);
+        # tile t is columns [t * TILE, min(K, (t + 1) * TILE)).
+        walk = range(b, -(-k // tile), blocks)
+        assert 1 <= len(walk) <= tiles
+        for t in walk:
+            taken[t * tile:min(k, (t + 1) * tile)] += 1
+    assert (taken == 1).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_kernels_match_plain_on_the_card(family):
-    """The admit and commit kernels against the plain version on a CUDA
-    state over the hazard corpus, bit for bit (a card run; the full size
+    """The kernels against the plain version on a CUDA state over the
+    hazard corpus, bit for bit, at K = 0, 1, 8, 8,192, 2^16 and the fused
+    grid's resident columns and one either side; a concurrency or quota
+    call is one launch (GCRA two), none at K = 0 (a card run; the full size
     is chip_smoke.py's)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels do not run on the CPU")
     rng = np.random.default_rng(11)
     tmod = FAMILIES[family][2]
-    for n, slot in ((1, 0), (33, 32), (64, 5)):
+    batch = FAMILIES[family][3].__name__
+    ks = [0, 1, 8, 8192, 1 << 16]
+    if family != "gcra":
+        cols = cert_kernel.resident_blocks(family, torch.device("cuda", 0)) * cert_kernel.TILE
+        ks += [cols - 1, cols, cols + 1]
+    launches = {"gcra": {"gcra_admit": 1, "own_lane_commit": 1}}.get(family, {f"{family}_admit": 1})
+    for k, (n, slot) in zip(ks, itertools.cycle(((1, 0), (33, 32), (64, 5)))):
         pn = torch.from_numpy(hazard_state(rng, n)).cuda()
-        fields = hazard_request(rng, family, 512)
-        req = getattr(tmod, REQUEST[family])(*(torch.from_numpy(np.asarray(f)).cuda()
-                                               for f in fields))
+        fields = [np.asarray(f)[:k] for f in hazard_request(rng, family, max(k, 8))]
+        req = getattr(tmod, REQUEST[family])(*(torch.from_numpy(f.copy()).cuda() for f in fields))
         kstate = LimiterState(pn.clone(), torch.zeros(B, dtype=torch.int64, device="cuda"))
         pstate = LimiterState(pn.clone(), kstate.elapsed.clone())
-        _, kres = getattr(tmod, FAMILIES[family][3].__name__)(kstate, req, slot)
-        _, pres = getattr(tmod, FAMILIES[family][3].__name__ + "_plain")(pstate, req, slot)
+        before = dict(_build.LAUNCHES)
+        _, kres = getattr(tmod, batch)(kstate, req, slot)
+        made = {name: _build.LAUNCHES[name] - before[name] for name in before}
+        assert made == {name: (launches.get(name, 0) if k else 0) for name in before}, (k, made)
+        _, pres = getattr(tmod, batch + "_plain")(pstate, req, slot)
         for a, b in zip(kres, pres):
-            assert torch.equal(a, b)
-        assert torch.equal(kstate.pn, pstate.pn)
+            assert torch.equal(a, b), k
+        assert torch.equal(kstate.pn, pstate.pn), k
 
 
 # -- the engines ---------------------------------------------------------------

@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax():
     assert {"patrol_tpu_torch.ops.row_rmw_kernel",
             "patrol_tpu_torch.scripts.probe_dma_scatter",
             "patrol_tpu_torch.scripts.delta_timer",
-            "patrol_tpu_torch.scripts.lifecycle_ab"} <= set(mods)
+            "patrol_tpu_torch.scripts.lifecycle_ab",
+            "patrol_tpu_torch.scripts.cert_ab"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r}\n"
