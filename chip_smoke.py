@@ -55,26 +55,26 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    row sets past L2, and of consecutive ones), at K = 512 and at its floor
    (K = 8, one block), beside its plain version and its bound; its
    ``-Xptxas -v`` line (registers, shared memory) is printed. Then the
-   certified families (``csrc/cert.cu``: GCRA's admit kernel, then
-   ``own_lane_commit``; concurrency's and quota's one fused launch each)
+   certified families (``csrc/cert.cu``: GCRA's, concurrency's and
+   quota's one cooperative launch each)
    at K = 8,192 on the 1M x 64 state (quota over 24,576 row gathers),
    each held bit for bit (results and final planes) to its plain version
    at ``node_slot`` 0 and 63, over its hazards: remote lanes preset
-   (holds, spends, TAT watermarks, raw int64 near 2^63), repeated rows and
+   (holds, spends, TAT watermarks, raw int64 near 2^63, every TAKEN lane
+   near -2^63), repeated rows and
    padding columns aliasing live ones, rows in ``[-B, 0)``, past ``B`` and
    below ``-B``, shared tenant and global rows and a row at two levels,
    ``nreq``, ``count`` and ``T`` <= 0, negative ``nreq``, releases above
    the held amount, wrapping products; again at K = 0 (no launch), 1, 8
-   and 2^16, the fused families also at the resident grid's columns and
-   one either side (the persistent loop's wrap) and at 2^16 with every
-   column committing (the spill buffer), each fused call one launch; and
-   at N = 1, 31, 33 and 256 lanes on a small state; GCRA's commit kernel
-   alone against its plain version. Each family is timed warm, cold (16
-   requests on fresh random rows), at K = 512 and at K = 8 (its floor),
-   GCRA's admit launch alone, beside its plain version, the library calls
-   (``index_select``, ``amax`` or ``sum``, ``scatter_reduce_``) and its
-   bound; the ``-Xptxas -v`` lines and the fused kernels' grid (blocks an
-   SM from the occupancy call, resident blocks) print.
+   and 2^16, at the resident grid's columns and one either side (the
+   persistent loop's wrap) and at 2^16 with every column committing (the
+   spill buffer), each call one launch; and at N = 1, 31, 33 and 256
+   lanes on a small state. Each family is timed warm, cold (16 requests
+   on fresh random rows), at K = 512 and at K = 8 (its floor), beside its
+   plain version, the library calls (``index_select``, ``amax`` or
+   ``sum``, ``scatter_reduce_``) and its bound; the ``-Xptxas -v`` lines
+   and each kernel's grid (blocks an SM from the occupancy call, resident
+   blocks) print.
 3. The main path: the port's ``Command`` serving on the asyncio front
    (host fast path off, see 3f)
    (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
@@ -170,8 +170,8 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    K = 8,192 over random rows in ``[B/2, B)``, each round followed by 16
    host-served takes and 16 peer deltas on other names, under the
    profiler; a microbatch of each family on rows 0..11 must show in the
-   next scrape. Each family's kernel must have launched once a call and
-   the commit once a GCRA call. Each call's host time is split into its
+   next scrape. Each family's kernel must have launched once a call, and
+   no other kernel. Each call's host time is split into its
    steps (packing, staging lease, ship, launch, readback; p50 and p99 per
    family). Then 1,000 scrapes of unchanged state must be mirror hits
    with no device gather. The sequence replays on a CPU engine: every
@@ -795,13 +795,14 @@ def cert_rows(rng, k, buckets, pool):
 
 def cert_fill(rng, pn_t, rows, torch):
     """Preset the lanes of every row the columns gather (remote lanes
-    included), a quarter each: zeros, small holds and spends (sparse),
-    TAT watermarks around ``CERT_NOW``, and raw int64 (values near 2^63,
-    negative ones, wrapping sums)."""
+    included), a fifth each: zeros, small holds and spends (sparse), TAT
+    watermarks around ``CERT_NOW``, raw int64 (values near 2^63, negative
+    ones, wrapping sums), and every TAKEN lane near -2^63 (GCRA's max over
+    lanes, whose identity must be -2^63, not 0)."""
     b, n, _ = pn_t.shape
     r = rows.astype(np.int32).astype(np.int64)
     r = np.unique(np.clip(np.where(r < 0, r + b, r), 0, b - 1))
-    case = rng.integers(0, 4, len(r))
+    case = rng.integers(0, 5, len(r))
     vals = np.zeros((len(r), n, 2), np.int64)
     small = case == 1
     mask = rng.random((int(small.sum()), n, 1)) < 0.3
@@ -812,6 +813,8 @@ def cert_fill(rng, pn_t, rows, torch):
     raw = case == 3
     vals[raw] = rng.integers(-(1 << 63), _I64_MAX, (int(raw.sum()), n, 2), dtype=np.int64)
     vals[raw, 0, 1] = _I64_MAX - rng.integers(0, 1000, int(raw.sum()))
+    neg = case == 4
+    vals[neg, :, 1] = -_I64_MAX - 1 + rng.integers(0, 1000, (int(neg.sum()), n))
     pn_t[torch.from_numpy(r).to(pn_t.device)] = torch.from_numpy(vals).to(pn_t.device)
 
 
@@ -869,7 +872,7 @@ def cert_pack(torch, family, p, b, dev):
 
 
 def cert_compare(torch, family, base, packed, slot, tag):
-    """Kernel (admit, then commit) against the plain version from the same
+    """Kernel (one launch) against the plain version from the same
     base planes: results and final planes bit for bit. → (max_abs_err,
     kernel result, kernel planes)."""
     ck, mods = cert_modules()
@@ -901,7 +904,9 @@ def cert_saturating(rng, family, k, buckets):
     releases nothing): the most commit entries a call can make, so a
     block's entries overflow its shared memory into the spill buffer."""
     p = cert_request(rng, family, k, buckets)
-    if family == "conc":
+    if family == "gcra":
+        p[2:5] = np.array([1 << 40, 0, 1])[:, None]  # one emission a column, no burst
+    elif family == "conc":
         p[1:5] = np.array([1 << 40, 1, 1, 0])[:, None]
     elif family == "quota":
         p[3:8] = np.array([1 << 40, 1 << 40, 1 << 40, 1, 1])[:, None]
@@ -911,15 +916,13 @@ def cert_saturating(rng, family, k, buckets):
 def cert_checks(torch, dev, rng):
     """Each family at K = 8,192 on the 1M x 64 state against its plain
     version at ``node_slot`` 0 and 63, then at K = 0 (no launch), 1, 8
-    and 2^16; the fused families (concurrency, quota) also at the resident
-    grid's columns and one either side (a block's second tile), and at
-    2^16 with every column committing (the spill buffer), each call one
-    launch; GCRA's commit kernel alone against its plain version. Timed
-    warm (the same request each call), cold (a cycle of 16 requests on
-    fresh random rows, 134 MB of planes for GCRA, past the 50 MB L2), at
-    K = 512 and at its floor (K = 8), beside its plain version, the
-    library calls and its bound. → {family: numbers, "commit": numbers,
-    "grid": the fused kernels' residency}."""
+    and 2^16, at the resident grid's columns and one either side (a
+    block's second tile), and at 2^16 with every column committing (the
+    spill buffer), each call one launch. Timed warm (the same request
+    each call), cold (a cycle of 16 requests on fresh random rows, 134 MB
+    of planes for GCRA, past the 50 MB L2), at K = 512 and at its floor
+    (K = 8), beside its plain version, the library calls and its bound.
+    → {family: numbers, "grid": each kernel's residency}."""
     from patrol_tpu_torch.ops import _build
 
     ck, mods = cert_modules()
@@ -950,15 +953,13 @@ def cert_checks(torch, dev, rng):
                                     f"{family} K={kk}")
             err = max(err, e)
             del pk
-        sizes = [(1 << 16, cert_request)]
-        if family != "gcra":
-            resident = ck.resident_blocks(family, dev)
-            cols = resident * ck.TILE
-            res["grid"][family] = {"blocks_per_sm": resident // sms, "sms": sms,
-                                   "resident_blocks": resident, "resident_columns": cols,
-                                   "blocks_at_k": ck.grid(CERT_K, resident)[0]}
-            sizes += [(cols - 1, cert_request), (cols, cert_request), (cols + 1, cert_request),
-                      (1 << 16, cert_saturating)]
+        resident = ck.resident_blocks(family, dev)
+        cols = resident * ck.TILE
+        res["grid"][family] = {"blocks_per_sm": resident // sms, "sms": sms,
+                               "resident_blocks": resident, "resident_columns": cols,
+                               "blocks_at_k": ck.grid(CERT_K, resident)[0]}
+        sizes = [(1 << 16, cert_request), (cols - 1, cert_request), (cols, cert_request),
+                 (cols + 1, cert_request), (1 << 16, cert_saturating)]
         for kk, make in sizes:
             q = make(rng, family, kk, BUCKETS)
             base.zero_()
@@ -969,10 +970,9 @@ def cert_checks(torch, dev, rng):
             e, out_k, pk = cert_compare(torch, family, base, packed_q, 7,
                                         f"{family} K={kk} ({make.__name__})")
             err = max(err, e)
-            if family != "gcra":
-                check(_build.LAUNCHES[f"{family}_admit"] == launches[f"{family}_admit"] + 1
-                      and _build.LAUNCHES["own_lane_commit"] == launches["own_lane_commit"],
-                      f"{family} K={kk}: not one launch")
+            made = {name: _build.LAUNCHES[name] - launches[name] for name in launches}
+            check(made == {name: int(name == f"{family}_admit") for name in launches},
+                  f"{family} K={kk}: not one launch: {made}")
             if make is cert_saturating:
                 check(bool((out_k[0] == 1).all()), f"{family}: a saturating column did not admit")
             del pk
@@ -1019,34 +1019,6 @@ def cert_checks(torch, dev, rng):
             "updated_lanes": n_updated,
             "k": CERT_K,
         }
-        if family == "gcra":
-            # The commit kernel alone, against its plain version, on
-            # GCRA's entries (the one family that still commits in a
-            # launch of its own).
-            _, commit = ck.gcra_admit(base, packed, 0)
-            cc, cd = base.clone(), base.clone()
-            ck.own_lane_commit(cc, commit)
-            ck.own_lane_commit_plain(cd, commit)
-            torch.cuda.synchronize()
-            err_commit = check_equal(torch, "gcra own_lane_commit", cc, cd)
-            del cd
-            live_mask = commit[0] >= 0
-            live, live_val = commit[0][live_mask], commit[1][live_mask]
-            n_live = int(live.unique().numel())
-            res["commit"] = {
-                "ms": device_ms(torch, lambda: ck.own_lane_commit(cc, commit)),
-                "plain_ms": device_ms(torch, lambda: ck.own_lane_commit_plain(cc, commit)),
-                # One scatter_reduce_ over the live entries, masked beforehand.
-                "library_ms": device_ms(torch, lambda: cc.view(-1).scatter_reduce_(
-                    0, live, live_val, reduce="amax")),
-                "bytes": 16 * commit.shape[1] + 16 * n_live,
-                "ops": commit.shape[1],
-                "entries": commit.shape[1],
-                "updated": n_live,
-                "max_abs_err": err_commit,
-            }
-            res[family]["ms_admit"] = device_ms(torch, lambda: ck.gcra_admit(ca, packed, 0))
-            del cc, commit, live, live_val
         del ca, pp, cold
         torch.cuda.empty_cache()
     del base
@@ -2579,9 +2551,9 @@ CERT_BATCHES = 64  # microbatches of each family, K = CERT_K each
 CERT_LEG_NAMES = [f"cert-leg-{i}" for i in range(12)]  # bind rows 0..11
 CERT_SERVE_TAKES, CERT_SERVE_DELTAS = 16, 16  # serving traffic a round
 CERT_SCRAPES = 1_000
-CERT_PROFILE_KERNELS = ("gcra_admit_kernel", "conc_admit_kernel", "quota_admit_kernel",
-                        "own_lane_commit_kernel")
+CERT_PROFILE_KERNELS = ("gcra_admit_kernel", "conc_admit_kernel", "quota_admit_kernel")
 CERT_METHODS = {"gcra": "gcra_take", "conc": "conc_acquire", "quota": "quota_take"}
+CERT_LAUNCHES = ("gcra_admit", "conc_admit", "quota_admit")
 
 
 def cert_engine_batches(rng) -> list:
@@ -2884,12 +2856,13 @@ def run_cert_phase(Command, LimiterConfig, engine_mod, torch) -> dict:
           and scrapes["scrape_mirror_hits"] >= CERT_SCRAPES // 2,
           f"3i: scrapes of unchanged state gathered: {scrapes}")
     # Each family: two calls of the leg, the rounds, one on the leg's rows;
-    # one launch a call (concurrency and quota commit inside it), and one
-    # commit launch a GCRA call.
+    # one launch a call, which commits inside it: no other cert launch.
     calls_each = 2 + CERT_BATCHES + 1
-    for name in ("gcra_admit", "conc_admit", "quota_admit", "own_lane_commit"):
+    for name in CERT_LAUNCHES:
         check(gpu["launches"][name] == calls_each,
               f"3i: {name} launched {gpu['launches'][name]} times, not {calls_each}")
+    check(not [k for k, v in gpu["launches"].items() if "commit" in k and v],
+          f"3i: a commit kernel launched: {gpu['launches']}")
     del gpu_planes, cpu_planes
     calls = {f: statistics.median(v) for f, v in gpu["call_us"].items()}
     p99 = {f: float(np.percentile(v, 99)) for f, v in gpu["call_us"].items()}
@@ -3165,17 +3138,14 @@ def main() -> int:
                      if "Used" in ln or "entry function" in ln]
     for family in CERT_FAMILIES:
         m = cert[family]
-        call = ("gcra_admit + own_lane_commit" if family == "gcra"
-                else f"{family}_admit (one launch)")
-        split = (f" (admit {m['ms_admit']:.6f}, commit {cert['commit']['ms']:.6f})"
-                 if family == "gcra" else "")
-        print(f"{call} K={m['k']}: warm {m['ms']:.6f} ms{split}, cold {m['ms_cold']:.6f} ms, "
+        print(f"{family}_admit (one launch) K={m['k']}: warm {m['ms']:.6f} ms, cold "
+              f"{m['ms_cold']:.6f} ms, "
               f"K=512 {m['ms_k512']:.6f} ms, K=8 {m['floor_ms']:.6f} ms, plain "
               f"{m['plain_ms']:.6f} ms, library {m['library_ms']:.6f} ms, bound "
               f"{bound(m['bytes'], m['ops'])[0]:.6f} ms, max_abs_err "
               f"{max(m['max_abs_err'], cert['edges']['max_abs_err'])}")
     print("cert.cu ptxas: " + " | ".join(cert["ptxas"]))
-    print("cert fused grid: " + json.dumps(cert["grid"]))
+    print("cert grid: " + json.dumps(cert["grid"]))
     report["kernel_detail"] = {
         "pair_join": pair, "row_join": row, "tick_join": tick, "commit_ring": ring,
         "take_n": take,
@@ -3392,7 +3362,7 @@ def main() -> int:
           f"K={CERT_K} in {cphase['seconds']:.2f} s, host us a call p50 "
           f"{json.dumps(cphase['call_us_p50'])} p99 {json.dumps(cphase['call_us_p99'])} (idle "
           f"engine, gcra: {cphase['idle_gcra_call_us_p50']:.1f}), launches "
-          f"{json.dumps({k: cphase['launches'][k] for k in ('gcra_admit', 'conc_admit', 'quota_admit', 'own_lane_commit')})}, "
+          f"{json.dumps({k: cphase['launches'][k] for k in CERT_LAUNCHES})}, "
           f"profiled {json.dumps({k: v['count'] for k, v in cprof['kernels'].items()})} device us "
           f"{json.dumps({k: round(v['device_us'], 3) for k, v in cprof['kernels'].items()})}, "
           f"device busy {cprof['device_busy_share']}, scrapes {json.dumps(cphase['scrapes'])}; "
@@ -3472,8 +3442,7 @@ def main() -> int:
         # are those of phase 3h's sweeps.
         ("lifecycle_probe", "patrol_tpu_torch/csrc/lifecycle.cu",
          "patrol_tpu/ops/lifecycle.py:69", life, lc["launches"]["lifecycle_probe"]),
-        # Each family timed as one call (GCRA: its admit launch and the
-        # commit; the other two: their one fused launch) at K = 8192 on the
+        # Each family timed as one call (its one launch) at K = 8192 on the
         # 1M x 64 state; launches are phase 3i's.
         ("gcra_admit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/gcra.py:69",
          cert["gcra"], cphase["launches"]["gcra_admit"]),
@@ -3481,10 +3450,6 @@ def main() -> int:
          cert["conc"], cphase["launches"]["conc_admit"]),
         ("quota_admit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/hierquota.py:79",
          cert["quota"], cphase["launches"]["quota_admit"]),
-        # The commit alone, on GCRA's 8192 entries (concurrency and quota
-        # commit inside their one launch); its launches are GCRA's in 3i.
-        ("own_lane_commit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/gcra.py:108",
-         cert["commit"], cphase["launches"]["own_lane_commit"]),
     ):
         b_ms, b_by = bound(m["bytes"], m["ops"])
         entry = {
@@ -3550,13 +3515,10 @@ def main() -> int:
         if name == "take_n":
             entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
             entry["padding_only_ms"] = m["padding_only_ms"]
-        if name in ("gcra_admit", "conc_admit", "quota_admit", "own_lane_commit"):
+        if name in CERT_LAUNCHES:
             entry["max_abs_err"] = max(m["max_abs_err"], cert["edges"]["max_abs_err"])
-            entry.update({key: m[key] for key in ("floor_ms", "ms_admit", "ms_cold", "ms_k512",
-                                                   "k", "entries")
-                          if key in m})
-            if name.split("_")[0] in cert["grid"]:
-                entry["grid"] = cert["grid"][name.split("_")[0]]
+            entry.update({key: m[key] for key in ("floor_ms", "ms_cold", "ms_k512", "k")})
+            entry["grid"] = cert["grid"][name.split("_")[0]]
         if name == "lifecycle_probe":
             entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
             entry.update({key: m[key] for key in ("floor_ms", "ms_cold", "ms_cold_contig",

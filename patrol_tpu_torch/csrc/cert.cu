@@ -23,12 +23,12 @@
 // tail, so the launches and the chain's latency set the time, not the
 // bytes.
 //
-// Concurrency and quota: one launch a call (conc_admit_kernel,
+// Every family: one launch a call (gcra_admit_kernel, conc_admit_kernel,
 // quota_admit_kernel), the admit and the own-lane commit fused.
 //  * Reads before commits. A commit may land on a row another column
 //    reads (below), so every block finishes its reads, the grid meets at
 //    one barrier (arrive, wait), and only then does any block commit. A
-//    block arrives as soon as its last tile's lanes are summed and runs
+//    block arrives as soon as its last tile's lanes are reduced and runs
 //    its tails while the others arrive. The grid is persistent so that the
 //    barrier can be met: launched cooperatively, with no more blocks than
 //    the card holds resident (the occupancy call's blocks an SM x the SMs,
@@ -43,36 +43,36 @@
 //    t's own thread and loads its fields, so each row of the request is
 //    read as the block's 32 contiguous values; the 8 threads 8c .. 8c + 7
 //    are column c's lane group, which loads the column's row(s) itself in
-//    the same trip. Lane l of a group loads lane pairs l, l + 8, ..., a
-//    pass of 8 in flight before any is used (quota: the TAKEN word of all
-//    three rows, 24 loads; concurrency: 16-byte pairs). Groups reduce by a
-//    3-step __shfl_xor_sync tree (wrapping int64 sums: any order of a sum
-//    mod 2^64 is the same value) and hand sums and the own pair to the own
-//    threads through shared memory.
+//    the same trip. Lane l of a group loads lanes l, l + 8, ..., a pass of
+//    8 in flight before any is used (GCRA: the TAKEN word of its row;
+//    quota: the TAKEN word of all three rows, 24 loads; concurrency:
+//    16-byte pairs). Groups reduce by a 3-step __shfl_xor_sync tree and
+//    hand the reductions and the own lane to the own threads through
+//    shared memory: wrapping int64 sums (any order of a sum mod 2^64 is
+//    the same value), and for GCRA the signed max of TAKEN, whose identity
+//    is LLONG_MIN (a TAT or a preset remote lane may be negative, so a
+//    lane past N or an idle group must not contribute 0).
 //  * The scalar tail one column a thread: warp 0 runs 32 tails at once
 //    (the first design ran one a warp, on lane 0), writes the result
 //    columns coalesced, and appends the column's commit entries (a flat pn
 //    offset and a value) only where there is something to commit, in
 //    column order by ballot: a column that admits and releases nothing
-//    writes none (the first design wrote and re-read 2 or 3 a column).
+//    writes none (the first design wrote and re-read 1 to 3 a column).
 //    The block keeps its entries in shared memory, one tile's worth, and
 //    the rest in its own stretch of a global spill buffer the wrapper
 //    sizes for the tiles the block walks (any K).
-//  * After the barrier the block's 256 threads apply its entries with
-//    atomicAdd on unsigned long long (wrapping, as XLA's int64 add).
+//  * After the barrier the block's 256 threads apply its entries: atomicAdd
+//    on unsigned long long (wrapping, as XLA's int64 add) for concurrency
+//    and quota, atomicMax on signed long long for GCRA (the reference's
+//    scatter-max; max is commutative and idempotent, so repeated rows
+//    combine the same in any order).
 // Tried for quota and not kept: lane groups of 4 and 16, and loads marked
 // L2-only (__ldcg), read-only (__ldg) or streaming (__ldcs), none faster
 // warm at K = 8192; the streaming loads were faster on cold rows, as the
 // probe's are (lifecycle.cu), and slower warm, where quota's shared
-// global and tenant rows are read again and again.
-//
-// GCRA: two launches on one stream, as first built. gcra_admit_kernel,
-// one warp a column, 8 columns a block: lane 0 loads the request, lane l
-// loads lane pairs n = l, l + 32, ... of the row as 16-byte vectors, the
-// warp reduces by shuffle, lane 0 runs the tail and writes the result
-// column and one commit entry (a flat pn offset, or -1, and a value).
-// Then own_lane_commit_kernel, one thread an entry: atomicMax on signed
-// int64.
+// global and tenant rows are read again and again. Tried for GCRA and
+// not kept: 16-byte lane pairs in place of the TAKEN word alone (PERF.md,
+// cert_ab.py).
 //
 // Hazards, and what the design does about each:
 //  * Every read sees the pre-batch state. Unlike take-n's, these inputs
@@ -81,8 +81,7 @@
 //    user in another), GCRA and concurrency columns may repeat a row, a
 //    padding column may alias a live one, and a clamped row aliases
 //    row B - 1. So no write reaches pn before every read of the call is
-//    done: the grid barrier (concurrency, quota) or the second launch
-//    (GCRA).
+//    done: the grid barrier.
 //  * Index semantics (ROADMAP C1): the gather clamps into [0, B), the
 //    commit drops a row outside it (the wrap is the wrapper's).
 //  * int64 wrap: every sum, difference and product uses unsigned
@@ -94,8 +93,9 @@
 //  * A commit entry with nothing to change is skipped: an add of 0, or
 //    GCRA's max of the pre-batch own lane when nothing is admitted (within
 //    one call the lane only grows, so that max is a no-op).
-//  * Any N >= 1: a group's lanes past N load nothing and add 0; a plane of
-//    more than 64 lanes takes more passes.
+//  * Any N >= 1: a group's lanes past N load nothing and contribute the
+//    identity (0 to a sum, LLONG_MIN to GCRA's max); a plane of more than
+//    64 lanes takes more passes.
 //
 // C interface (ctypes): device pointers of contiguous int64 tensors; each
 // launch returns the cudaError_t of its launch (0 on success).
@@ -106,19 +106,15 @@
 
 namespace {
 
-constexpr int kCols = 8;            // GCRA: columns (warps) per admit block
-constexpr int kThreads = 32 * kCols;
-constexpr int kPass = 2;            // GCRA: lane-pair loads a lane has in flight per row
-constexpr int kCommitThreads = 256;
 constexpr unsigned kAll = 0xFFFFFFFFu;
 constexpr int kAdded = 0;
 constexpr int kTaken = 1;
 
-// The fused kernels' shape.
+// The kernels' shape.
 constexpr int kTile = 32;                  // columns a block takes at a time
 constexpr int kGroup = 8;                  // a column's lane group
-constexpr int kFusedThreads = kTile * kGroup;
-constexpr int kFusedPass = 8;              // lane-pair loads a lane has in flight per row
+constexpr int kThreads = kTile * kGroup;
+constexpr int kPass = 8;                   // lane loads a lane has in flight per row
 constexpr int kMinBlocks = 2;              // blocks an SM: K = 8192 in one wave
 
 __device__ __forceinline__ long long wadd(long long a, long long b) {
@@ -154,76 +150,6 @@ __device__ __forceinline__ long long gather_row(long long r, long long B) {
 __device__ __forceinline__ long long commit_off(long long r, long long B, long long N,
                                                 long long slot, int kind, bool write) {
   return (write && r >= 0 && r < B) ? (r * N + slot) * 2 + kind : -1;
-}
-
-// One row's lanes, read by a whole warp and reduced: the signed max of
-// TAKEN and the own TAKEN lane (every lane ends with both).
-struct RowView {
-  long long max_t, own_t;
-};
-
-__device__ __forceinline__ RowView read_row(const long long* __restrict__ pn, long long row,
-                                            long long N, long long slot, int lane) {
-  const longlong2* lanes = reinterpret_cast<const longlong2*>(pn + row * N * 2);
-  RowView v{LLONG_MIN, 0};
-  for (long long base = lane; base < N; base += 32 * kPass) {
-    longlong2 x[kPass];
-#pragma unroll
-    for (int j = 0; j < kPass; ++j) {
-      const long long n = base + 32 * j;
-      x[j] = n < N ? lanes[n] : make_longlong2(0, 0);
-    }
-#pragma unroll
-    for (int j = 0; j < kPass; ++j) {
-      const long long n = base + 32 * j;
-      if (n < N) {
-        v.max_t = lmax(v.max_t, x[j].y);
-        if (n == slot) v.own_t = x[j].y;
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v.max_t = lmax(v.max_t, __shfl_xor_sync(kAll, v.max_t, o));
-  v.own_t = __shfl_sync(kAll, v.own_t, (int)(slot & 31));  // lane n is loaded by lane n % 32
-  return v;
-}
-
-// GCRA: packed (rows, now, T, tol, nreq) -> out (admitted, tat, own_tat,
-// allow_at); one commit entry a column (scatter-max of the own TAKEN lane).
-__global__ void __launch_bounds__(kThreads)
-gcra_admit_kernel(const long long* __restrict__ pn, long long B, long long N,
-                  long long slot, const long long* __restrict__ packed,
-                  long long* __restrict__ out, long long* __restrict__ commit,
-                  long long K) {
-  const int lane = threadIdx.x & 31;
-  const long long k = (long long)blockIdx.x * kCols + (threadIdx.x >> 5);
-  if (k >= K) return;  // warp-uniform
-  const long long mine = lane < 5 ? packed[lane * K + k] : 0;
-  const long long row = __shfl_sync(kAll, mine, 0);
-  const RowView v = read_row(pn, gather_row(row, B), N, slot, lane);
-  const long long now = __shfl_sync(kAll, mine, 1);
-  const long long t = __shfl_sync(kAll, mine, 2);
-  const long long tol = __shfl_sync(kAll, mine, 3);
-  const long long nreq = __shfl_sync(kAll, mine, 4);
-  if (lane != 0) return;
-
-  const long long tat = v.max_t, own_tat = v.own_t;
-  const long long base = lmax(tat, now);
-  const long long deadline = wadd(now, tol);
-  const bool conforms = tat <= deadline;
-  const long long safe_t = t <= 0 ? 1 : t;
-  const long long extras = floordiv64(lmax(wsub(deadline, base), 0), safe_t);
-  long long adm = conforms ? wadd(1, extras) : 0;
-  if (t <= 0) adm = 0;
-  adm = clip0(adm, nreq);
-  const long long new_own = adm >= 1 ? wadd(base, wmul(adm, t)) : own_tat;
-  const long long tat_out = lmax(tat, new_own);
-  out[0 * K + k] = adm;
-  out[1 * K + k] = tat_out;
-  out[2 * K + k] = lmax(own_tat, new_own);
-  out[3 * K + k] = wsub(tat_out, tol);
-  commit[k] = commit_off(row, B, N, slot, kTaken, adm >= 1);
-  commit[K + k] = new_own;
 }
 
 // The grid barrier between reads and commits, split so that a block
@@ -286,16 +212,110 @@ __device__ __forceinline__ void append(Entries<kCap>& e, long long& n,
   n += __popc(live);
 }
 
-// After every block's reads: the block's entries as wrapping adds.
-template <int kCap>
-__device__ __forceinline__ void commit_adds(long long* pn, const Entries<kCap>& e,
-                                            const longlong2* __restrict__ spill) {
+// After every block's reads: the block's entries as wrapping adds, or
+// (kMax, GCRA) as signed maxima.
+template <bool kMax, int kCap>
+__device__ __forceinline__ void commit(long long* pn, const Entries<kCap>& e,
+                                       const longlong2* __restrict__ spill) {
   const long long n = e.n;
-  for (long long i = threadIdx.x; i < n; i += kFusedThreads) {
+  for (long long i = threadIdx.x; i < n; i += kThreads) {
     const longlong2 ent = i < kCap ? e.smem[i] : spill[i - kCap];
-    atomicAdd(reinterpret_cast<unsigned long long*>(pn + ent.x),
-              (unsigned long long)ent.y);
+    if constexpr (kMax) {
+      atomicMax(pn + ent.x, ent.y);
+    } else {
+      atomicAdd(reinterpret_cast<unsigned long long*>(pn + ent.x),
+                (unsigned long long)ent.y);
+    }
   }
+}
+
+// GCRA: packed (rows, now, T, tol, nreq) -> out (admitted, tat, own_tat,
+// allow_at); the own TAKEN lane max-committed, in one cooperative launch.
+constexpr int kGcraCap = kTile;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gcra_admit_kernel(long long* pn, unsigned* bar, long long B, long long N,
+                  long long slot,
+                  const long long* __restrict__ packed, long long* __restrict__ out,
+                  longlong2* __restrict__ spill, long long spill_len, long long K) {
+  __shared__ long long s_max[kTile];
+  __shared__ long long s_own[kTile];
+  __shared__ Entries<kGcraCap> ents;
+
+  const int t = threadIdx.x;
+  const int c = t / kGroup;
+  const int l = t % kGroup;
+  const long long tiles = (K + kTile - 1) / kTile;
+  longlong2* my_spill = spill + (long long)blockIdx.x * spill_len;
+  long long n_ent = 0;  // warp 0's running count
+  unsigned arrival = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long k0 = tile * kTile;
+    const int live = (int)(K - k0 < kTile ? K - k0 : kTile);
+    const bool own = t < live;  // column t's own thread
+    const long long k = k0 + t;
+    long long row = 0, now = 0, em = 0, tol = 0, nreq = 0;
+    if (own) {
+      row = packed[k];
+      now = packed[K + k];
+      em = packed[2 * K + k];
+      tol = packed[3 * K + k];
+      nreq = packed[4 * K + k];
+    }
+    // The group's row; only its TAKEN words are read. A lane past N
+    // contributes LLONG_MIN, the identity of the max.
+    const long long n_end = c < live ? N : 0;
+    const long long* taken =
+        pn + (c < live ? gather_row(packed[k0 + c], B) : 0) * N * 2 + kTaken;
+    long long mx = LLONG_MIN, own_t = 0;
+    for (long long base = l; base < n_end; base += kGroup * kPass) {
+      long long x[kPass];
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) {
+        const long long n = base + kGroup * j;
+        x[j] = n < n_end ? taken[2 * n] : LLONG_MIN;
+      }
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) {
+        mx = lmax(mx, x[j]);
+        if (base + kGroup * j == slot) own_t = x[j];
+      }
+    }
+#pragma unroll
+    for (int o = kGroup / 2; o > 0; o >>= 1) mx = lmax(mx, __shfl_xor_sync(kAll, mx, o));
+    if (c < live) {
+      if (l == 0) s_max[c] = mx;
+      if (l == slot % kGroup) s_own[c] = own_t;
+    }
+    __syncthreads();
+    if (tile + gridDim.x >= tiles) grid_arrive(bar, arrival);  // the block's reads are done
+    if (t < 32) {  // warp 0: the tails
+      long long adm = 0, new_own = 0;
+      if (own) {
+        const long long tat = s_max[t], own_tat = s_own[t];
+        const long long base = lmax(tat, now);
+        const long long deadline = wadd(now, tol);
+        const bool conforms = tat <= deadline;
+        const long long safe_t = em <= 0 ? 1 : em;
+        const long long extras = floordiv64(lmax(wsub(deadline, base), 0), safe_t);
+        adm = conforms ? wadd(1, extras) : 0;
+        if (em <= 0) adm = 0;
+        adm = clip0(adm, nreq);
+        new_own = adm >= 1 ? wadd(base, wmul(adm, em)) : own_tat;
+        const long long tat_out = lmax(tat, new_own);
+        out[0 * K + k] = adm;
+        out[1 * K + k] = tat_out;
+        out[2 * K + k] = lmax(own_tat, new_own);
+        out[3 * K + k] = wsub(tat_out, tol);
+      }
+      append(ents, n_ent, my_spill,
+             own ? commit_off(row, B, N, slot, kTaken, adm >= 1) : -1, new_own, t);
+    }
+    __syncthreads();  // the reductions' shared memory is the next tile's
+  }
+  if (t == 0) ents.n = n_ent;
+  grid_wait(bar, arrival);  // every read of the call is done
+  commit<true>(pn, ents, my_spill);
 }
 
 // Concurrency: packed (rows, limit, count, nreq, releases) -> out
@@ -303,7 +323,7 @@ __device__ __forceinline__ void commit_adds(long long* pn, const Entries<kCap>& 
 // own ADDED and TAKEN lanes added, in one cooperative launch.
 constexpr int kConcCap = 2 * kTile;
 
-__global__ void __launch_bounds__(kFusedThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 conc_admit_kernel(long long* pn, unsigned* bar, long long B, long long N,
                   long long slot,
                   const long long* __restrict__ packed, long long* __restrict__ out,
@@ -338,15 +358,15 @@ conc_admit_kernel(long long* pn, unsigned* bar, long long B, long long N,
         pn + (c < live ? gather_row(packed[k0 + c], B) : 0) * N * 2);
     unsigned long long sa = 0, st = 0;
     long long own_a = 0, own_t = 0;
-    for (long long base = l; base < n_end; base += kGroup * kFusedPass) {
-      longlong2 x[kFusedPass];
+    for (long long base = l; base < n_end; base += kGroup * kPass) {
+      longlong2 x[kPass];
 #pragma unroll
-      for (int j = 0; j < kFusedPass; ++j) {
+      for (int j = 0; j < kPass; ++j) {
         const long long n = base + kGroup * j;
         x[j] = n < n_end ? lanes[n] : make_longlong2(0, 0);
       }
 #pragma unroll
-      for (int j = 0; j < kFusedPass; ++j) {
+      for (int j = 0; j < kPass; ++j) {
         sa += (unsigned long long)x[j].x;
         st += (unsigned long long)x[j].y;
         if (base + kGroup * j == slot) {
@@ -402,7 +422,7 @@ conc_admit_kernel(long long* pn, unsigned* bar, long long B, long long N,
   }
   if (t == 0) ents.n = n_ent;
   grid_wait(bar, arrival);  // every read of the call is done
-  commit_adds(pn, ents, my_spill);
+  commit<false>(pn, ents, my_spill);
 }
 
 // Hierarchical quota: packed (rows_global, rows_tenant, rows_user,
@@ -411,7 +431,7 @@ conc_admit_kernel(long long* pn, unsigned* bar, long long B, long long N,
 // added, in one cooperative launch.
 constexpr int kQuotaCap = 3 * kTile;
 
-__global__ void __launch_bounds__(kFusedThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 quota_admit_kernel(long long* pn, unsigned* bar, long long B, long long N,
                    long long slot,
                    const long long* __restrict__ packed, long long* __restrict__ out,
@@ -452,18 +472,18 @@ quota_admit_kernel(long long* pn, unsigned* bar, long long B, long long N,
     }
     unsigned long long spend[3] = {0, 0, 0};
     long long own_u = 0;
-    for (long long base = l; base < n_end; base += kGroup * kFusedPass) {
-      long long x[3][kFusedPass];
+    for (long long base = l; base < n_end; base += kGroup * kPass) {
+      long long x[3][kPass];
 #pragma unroll
       for (int v = 0; v < 3; ++v) {
 #pragma unroll
-        for (int j = 0; j < kFusedPass; ++j) {
+        for (int j = 0; j < kPass; ++j) {
           const long long n = base + kGroup * j;
           x[v][j] = n < n_end ? taken[v][2 * n] : 0;
         }
       }
 #pragma unroll
-      for (int j = 0; j < kFusedPass; ++j) {
+      for (int j = 0; j < kPass; ++j) {
 #pragma unroll
         for (int v = 0; v < 3; ++v) spend[v] += (unsigned long long)x[v][j];
         if (base + kGroup * j == slot) own_u = x[2][j];
@@ -510,23 +530,12 @@ quota_admit_kernel(long long* pn, unsigned* bar, long long B, long long N,
   }
   if (t == 0) ents.n = n_ent;
   grid_wait(bar, arrival);  // every read of the call is done
-  commit_adds(pn, ents, my_spill);
-}
-
-// commit: int64[2, M], flat pn offsets (-1: none) then values; a signed
-// max (GCRA's commit).
-__global__ void __launch_bounds__(kCommitThreads)
-own_lane_commit_kernel(long long* __restrict__ pn, long long numel,
-                       const long long* __restrict__ commit, long long M) {
-  const long long i = (long long)blockIdx.x * kCommitThreads + threadIdx.x;
-  if (i >= M) return;
-  const long long off = commit[i];
-  if (off < 0 || off >= numel) return;
-  atomicMax(pn + off, commit[M + i]);
+  commit<false>(pn, ents, my_spill);
 }
 
 const void* fused_kernel(int family) {
   switch (family) {
+    case 0: return reinterpret_cast<const void*>(gcra_admit_kernel);
     case 1: return reinterpret_cast<const void*>(conc_admit_kernel);
     case 2: return reinterpret_cast<const void*>(quota_admit_kernel);
     default: return nullptr;
@@ -535,18 +544,7 @@ const void* fused_kernel(int family) {
 
 }  // namespace
 
-extern "C" int patrol_gcra_admit(const void* pn, long long B, long long N, long long slot,
-                                 const void* packed, void* out, void* commit, long long K,
-                                 void* stream) {
-  if (K <= 0) return 0;
-  const unsigned blocks = (unsigned)((K + kCols - 1) / kCols);
-  gcra_admit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)pn, B, N, slot, (const long long*)packed, (long long*)out,
-      (long long*)commit, K);
-  return (int)cudaGetLastError();
-}
-
-// The fused kernel's residency: blocks an SM (the occupancy call, at its
+// A family's kernel's residency: blocks an SM (the occupancy call, at its
 // block size and static shared memory) and the SMs of the current device.
 extern "C" int patrol_cert_occupancy(int family, int* blocks_per_sm, int* sms) {
   const void* fn = fused_kernel(family);
@@ -555,12 +553,12 @@ extern "C" int patrol_cert_occupancy(int family, int* blocks_per_sm, int* sms) {
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc == cudaSuccess) {
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kFusedThreads, 0);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kThreads, 0);
   }
   return (int)rc;
 }
 
-// One fused call (family 1: concurrency, 2: quota) as one cooperative
+// One call (family 0: GCRA, 1: concurrency, 2: quota) as one cooperative
 // launch of `blocks` blocks (cooperative: the runtime refuses a grid the
 // card cannot hold resident, which the barrier needs); bar is the stream's
 // barrier word; spill holds blocks x spill_len entries (int64 pairs).
@@ -577,16 +575,7 @@ extern "C" int patrol_cert_fused(int family, void* pn, void* bar, long long B, l
   longlong2* s = (longlong2*)spill;
   void* args[] = {&p, &w, &B, &N, &slot, &q, &o, &s, &spill_len, &K};
   const cudaError_t rc = cudaLaunchCooperativeKernel(fn, dim3((unsigned)blocks),
-                                                     dim3(kFusedThreads), args, 0,
+                                                     dim3(kThreads), args, 0,
                                                      (cudaStream_t)stream);
   return (int)(rc != cudaSuccess ? rc : cudaGetLastError());
-}
-
-extern "C" int patrol_own_lane_commit(void* pn, long long numel, const void* commit,
-                                      long long M, void* stream) {
-  if (M <= 0) return 0;
-  const unsigned blocks = (unsigned)((M + kCommitThreads - 1) / kCommitThreads);
-  own_lane_commit_kernel<<<blocks, kCommitThreads, 0, (cudaStream_t)stream>>>(
-      (long long*)pn, numel, (const long long*)commit, M);
-  return (int)cudaGetLastError();
 }

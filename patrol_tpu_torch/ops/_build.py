@@ -42,7 +42,7 @@ NVCC_FLAGS = [
 LAUNCHES: Dict[str, int] = {
     "pair_join": 0, "row_join": 0, "tick_join": 0, "take_n": 0, "decode_fold": 0,
     "row_rmw": 0, "lifecycle_probe": 0,
-    "gcra_admit": 0, "conc_admit": 0, "quota_admit": 0, "own_lane_commit": 0,
+    "gcra_admit": 0, "conc_admit": 0, "quota_admit": 0,
 }
 
 _lib = None
@@ -157,19 +157,16 @@ def lib() -> ctypes.CDLL:
             cdll.patrol_lifecycle_probe.argtypes = [
                 p, p, i64, i64, i64, p, p, p, p, p, p, i64, p,
             ]
-            cdll.patrol_gcra_admit.argtypes = [p, i64, i64, i64, p, p, p, i64, p]
             cdll.patrol_cert_occupancy.argtypes = [
                 ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
             ]
             cdll.patrol_cert_fused.argtypes = [
                 ctypes.c_int, p, p, i64, i64, i64, p, p, p, i64, i64, ctypes.c_int, p,
             ]
-            cdll.patrol_own_lane_commit.argtypes = [p, i64, p, i64, p]
             for fn in (cdll.patrol_join, cdll.patrol_take_n,
                        cdll.patrol_decode_fold, cdll.patrol_row_rmw,
-                       cdll.patrol_lifecycle_probe, cdll.patrol_gcra_admit,
-                       cdll.patrol_cert_occupancy, cdll.patrol_cert_fused,
-                       cdll.patrol_own_lane_commit):
+                       cdll.patrol_lifecycle_probe, cdll.patrol_cert_occupancy,
+                       cdll.patrol_cert_fused):
                 fn.restype = ctypes.c_int
             _lib = cdll
         return _lib

@@ -1,27 +1,24 @@
 """The certified families' kernels: the wrapper over ``csrc/cert.cu``.
 
-A concurrency or quota call is one cooperative launch on the current
-stream (``conc_admit``, ``quota_admit``): a persistent grid gathers every
-column's rows from the pre-batch state and writes the result matrix, the
-grid meets at one barrier (on the stream's word, :func:`barrier_word`),
-and then each block applies its columns' own-lane commits (wrapping adds,
-only for columns that have something to commit). The grid is no larger
-than the card holds resident (:func:`resident_blocks`) and no larger than
-K needs (:func:`grid`). A GCRA call is two launches: ``gcra_admit`` writes the results and one
-commit entry per column (a flat ``pn`` offset, or -1, and a value), then
-``own_lane_commit`` applies the entries with a signed max. Either way,
-reads finish before any write, so duplicate, aliased, shared-ancestor and
-clamped rows all read the pre-batch state, as the reference's
-gather-then-scatter does.
+A family call is one cooperative launch on the current stream
+(``gcra_admit``, ``conc_admit``, ``quota_admit``): a persistent grid
+gathers every column's rows from the pre-batch state and writes the
+result matrix, the grid meets at one barrier (on the stream's word,
+:func:`barrier_word`), and then each block applies its columns' own-lane
+commits, only for columns that have something to commit: a signed max
+for GCRA, wrapping adds for the other two. The grid is no larger than the
+card holds resident (:func:`resident_blocks`) and no larger than K needs
+(:func:`grid`). Reads finish before any write, so duplicate, aliased,
+shared-ancestor and clamped rows all read the pre-batch state, as the
+reference's gather-then-scatter does.
 
 The packed request carries rows already cast to int32 and wrapped
 (``[-B, 0)`` → ``+B``, :func:`wrap_rows`); the kernels clamp a row into
 ``[0, B)`` to gather and drop a commit outside it. The plain versions of
 the three families are in :mod:`~patrol_tpu_torch.ops.gcra`,
 :mod:`~patrol_tpu_torch.ops.concurrency` and
-:mod:`~patrol_tpu_torch.ops.hierquota`; GCRA's commit's is
-:func:`own_lane_commit_plain`. On a CUDA state these launch the kernels
-or raise.
+:mod:`~patrol_tpu_torch.ops.hierquota`. On a CUDA state these launch
+the kernels or raise.
 """
 
 from __future__ import annotations
@@ -42,12 +39,12 @@ FAMILIES = {
     "conc": (5, 6, 2),
     "quota": (8, 5, 3),
 }
-_FUSED_IDS = {"conc": 1, "quota": 2}  # patrol_cert_fused's family argument
-TILE = 32  # columns a fused block takes at a time (cert.cu kTile)
+_FUSED_IDS = {"gcra": 0, "conc": 1, "quota": 2}  # patrol_cert_fused's family argument
+TILE = 32  # columns a block takes at a time (cert.cu kTile)
 
 # (family, device index) → blocks the card holds resident at once.
 _RESIDENT: Dict[Tuple[str, int], int] = {}
-# (device index, stream) → the fused kernels' grid barrier word: int32,
+# (device index, stream) → the kernels' grid barrier word: int32,
 # zeroed once; every launch's barrier leaves its low 31 bits at zero.
 # Launches on one stream never overlap, so they can share it.
 _BARRIERS: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -79,16 +76,8 @@ def gather_index(rows: torch.Tensor, b: int) -> Tuple[torch.Tensor, torch.Tensor
     return rows.clamp(0, b - 1), (rows >= 0) & (rows < b)
 
 
-def own_lane_commit_plain(pn: torch.Tensor, commit: torch.Tensor) -> None:
-    """The commit kernel's plain version: ``commit`` is int64[2, M] (flat
-    ``pn`` offsets, -1 for none; values); a scatter-max into ``pn`` in
-    place."""
-    live = commit[0] >= 0
-    pn.view(-1).scatter_reduce_(0, commit[0][live], commit[1][live], reduce="amax")
-
-
 def grid(k: int, resident: int) -> Tuple[int, int]:
-    """A fused call's grid for K columns on a card that holds ``resident``
+    """A call's grid for K columns on a card that holds ``resident``
     blocks: → (blocks, the most tiles a block walks). K's tiles of
     :data:`TILE` columns go round-robin: block b takes tiles b,
     b + blocks, ... (the kernels' loop)."""
@@ -98,7 +87,7 @@ def grid(k: int, resident: int) -> Tuple[int, int]:
 
 
 def resident_blocks(family: str, device: torch.device) -> int:
-    """Blocks of a family's fused kernel the card holds at once (the
+    """Blocks of a family's kernel the card holds at once (the
     occupancy call's blocks an SM times the SMs), asked once a process."""
     key = (family, device.index or 0)
     if key not in _RESIDENT:
@@ -142,49 +131,9 @@ def _check(pn: torch.Tensor, packed: torch.Tensor, family: str, node_slot: int):
     return b, n
 
 
-def gcra_admit(
-    pn: torch.Tensor, packed: torch.Tensor, node_slot: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch GCRA's admit kernel: → (result int64[4, K], commit
-    int64[2, K]). Reads ``pn`` only."""
-    b, n = _check(pn, packed, "gcra", node_slot)
-    k = packed.shape[1]
-    out = torch.empty((FAMILIES["gcra"][1], k), dtype=torch.int64, device=pn.device)
-    commit = torch.empty((2, k), dtype=torch.int64, device=pn.device)
-    if k == 0:
-        return out, commit
-    rc = _build.lib().patrol_gcra_admit(
-        pn.data_ptr(), b, n, node_slot, packed.data_ptr(), out.data_ptr(),
-        commit.data_ptr(), k, _build.stream_handle(pn),
-    )
-    _build.check_rc(rc, "gcra_admit")
-    _build.count_launch("gcra_admit")
-    return out, commit
-
-
-def own_lane_commit(pn: torch.Tensor, commit: torch.Tensor) -> None:
-    """Launch the commit kernel (a signed max) over ``commit``
-    (int64[2, M]) into ``pn``."""
-    dev = pn.device
-    if dev.type != "cuda":
-        raise ValueError(f"the cert kernels run on CUDA tensors, got {dev}")
-    _build.check_int64("pn", pn, dev)
-    _build.check_int64("commit", commit, dev)
-    if commit.dim() != 2 or commit.shape[0] != 2:
-        raise ValueError(f"commit must be [2, M], got {tuple(commit.shape)}")
-    m = commit.shape[1]
-    if m == 0:
-        return
-    rc = _build.lib().patrol_own_lane_commit(
-        pn.data_ptr(), pn.numel(), commit.data_ptr(), m, _build.stream_handle(pn),
-    )
-    _build.check_rc(rc, "own_lane_commit")
-    _build.count_launch("own_lane_commit")
-
-
 def fused(family: str, pn: torch.Tensor, packed: torch.Tensor, node_slot: int) -> torch.Tensor:
-    """One concurrency or quota call as one cooperative launch: → the
-    result matrix; ``pn`` is updated in place."""
+    """One family call as one cooperative launch: → the result matrix;
+    ``pn`` is updated in place."""
     b, n = _check(pn, packed, family, node_slot)
     _, rows_out, per_col = FAMILIES[family]
     k = packed.shape[1]
@@ -207,12 +156,5 @@ def fused(family: str, pn: torch.Tensor, packed: torch.Tensor, node_slot: int) -
     return out
 
 
-def run(family: str, pn: torch.Tensor, packed: torch.Tensor, node_slot: int) -> torch.Tensor:
-    """One family call on a CUDA state: → the result matrix; ``pn`` is
-    updated in place. GCRA admits, then commits; the other two fuse both
-    into one launch."""
-    if family != "gcra":
-        return fused(family, pn, packed, node_slot)
-    out, commit = gcra_admit(pn, packed, node_slot)
-    own_lane_commit(pn, commit)
-    return out
+# The family modules' entry (ops/gcra.py, ops/concurrency.py, ops/hierquota.py).
+run = fused

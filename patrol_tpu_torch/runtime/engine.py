@@ -70,7 +70,7 @@ with :class:`OverloadedError` at the hard one.
 The certified families (:meth:`DeviceEngine.gcra_take`,
 :meth:`~DeviceEngine.conc_acquire`, :meth:`~DeviceEngine.quota_take`) are
 synchronous microbatch entry points on the caller's thread: one packed
-request shipped in one copy, the family's two launches under
+request shipped in one copy, the family's one launch under
 ``_state_mu`` on the same stream as the feeder's ticks, one readback.
 
 Scrape mirror (``SCRAPE_MIRROR``): the stats and debug reads
@@ -2891,7 +2891,7 @@ class DeviceEngine:
             self._state_gen += 1
         if self._cuda:
             res_buf = self._staging.lease((result_rows, kp))
-            res_buf.copy_(out)  # the one readback; waits for the launches
+            res_buf.copy_(out)  # the one readback; waits for the launch
             res = res_buf.numpy()[:, :k].copy()
             self._staging.release(res_buf)
             return res

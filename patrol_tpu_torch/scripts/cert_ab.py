@@ -18,7 +18,8 @@ state of 1,000,000 buckets × 64 lanes, K = 8,192 columns:
   each call finds its rows past L2;
 * ``k512``: the first 512 columns; ``floor``: the first 8.
 
-GCRA is the control: its design is the same in both. Each time is the
+A change to one family's kernel reads the other two as its control:
+the three share only the grid barrier and the commit step. Each time is the
 median over 5 batches of the mean device time of 20 back-to-back calls
 queued behind a spin kernel (``chip_smoke.py``'s ``device_ms``), in ms.
 Each turn also digests the result and the planes of one call from the

@@ -13,7 +13,9 @@ kernels are built around: repeated rows and padding columns aliasing live
 ones, shared tenant and global rows (and one row at two levels),
 out-of-range and negative rows, zero and negative ``nreq``, ``count`` and
 ``T``, releases above the held amount, lanes near 2^63 and wrapping
-products. Then the engines: the port's ``DeviceEngine(device="cpu")`` and
+products; again at N in {1, 31, 33} with rows whose every TAKEN lane lies
+near -2^63, and GCRA columns that repeat a row with different ``now``,
+``T`` and ``nreq``. Then the engines: the port's ``DeviceEngine(device="cpu")`` and
 the JAX ``DeviceEngine`` take the same ``gcra_take`` / ``conc_acquire`` /
 ``quota_take`` sequences (the bench's cert leg, 15 / 21 / 8, scalar
 arguments broadcast across K) with equal results and planes. The kernels
@@ -230,12 +232,14 @@ B = 64
 BIG = 1 << 62
 
 
-def hazard_state(rng, n):
+def hazard_state(rng, n, negative=False):
     """B x N planes, a quarter of rows each: zeros, small holds and
     spends, TAT watermarks around 10^6, raw int64 (negative values and
-    values near 2^63, so sums and maxima wrap)."""
+    values near 2^63, so sums and maxima wrap). ``negative``: a fifth
+    case, every TAKEN lane near -2^63 (GCRA's max over lanes, whose
+    identity must be -2^63, not 0)."""
     pn = np.zeros((B, n, 2), np.int64)
-    case = rng.integers(0, 4, B)
+    case = rng.integers(0, 5 if negative else 4, B)
     small = case == 1
     pn[small] = rng.integers(0, 60, (int(small.sum()), n, 2))
     tat = case == 2
@@ -243,6 +247,8 @@ def hazard_state(rng, n):
     raw = case == 3
     pn[raw] = rng.integers(-(1 << 63), (1 << 63) - 1, (int(raw.sum()), n, 2), dtype=np.int64)
     pn[raw, 0, TAKEN] = (1 << 63) - 1 - rng.integers(0, 100, int(raw.sum()))
+    neg = case == 4
+    pn[neg, :, TAKEN] = -(1 << 63) + rng.integers(0, 100, (int(neg.sum()), n))
     return pn
 
 
@@ -292,6 +298,18 @@ def test_hazards_match_reference(family, n, slot_at, seed):
     assert admitted > 0
 
 
+@pytest.mark.parametrize("family", list(FAMILIES))
+@pytest.mark.parametrize("n", [1, 31, 33])
+def test_negative_lanes_match_reference(family, n):
+    """The hazard corpus with its fifth case, rows whose every TAKEN lane
+    lies near -2^63, at the own lane first and last: GCRA's max over lanes
+    has no floor at 0, and the sums wrap."""
+    rng = np.random.default_rng([n, ord(family[0]), 5])
+    tw = Twin(hazard_state(rng, n, negative=True))
+    for slot in sorted({0, n - 1}):
+        tw.call(family, hazard_request(rng, family, 48), slot=slot)
+
+
 def test_int64_wrap_matches_reference():
     """Products and sums past 2^63: GCRA's k*T, the concurrency release
     units and in-flight sum, quota's debit and spend."""
@@ -323,20 +341,34 @@ def test_out_of_range_rows_alias_as_the_reference_does():
     assert tw.pn[3, SLOT, TAKEN] == 200
 
 
-def test_commit_plain_matches_a_loop():
-    """own_lane_commit's plain version (GCRA's commit): a signed max per
-    entry, -1 entries skipped, repeated offsets combined."""
-    rng = np.random.default_rng(3)
-    pn = rng.integers(-(1 << 63), (1 << 63) - 1, (16, 2, 2), dtype=np.int64)
-    off = rng.integers(-1, pn.size, 200)
-    val = rng.integers(-(1 << 63), (1 << 63) - 1, 200, dtype=np.int64)
-    want = pn.copy().reshape(-1)
-    for o, v in zip(off, val):
-        if o >= 0:
-            want[o] = max(want[o], v)
-    got = torch.from_numpy(pn.copy())
-    cert_kernel.own_lane_commit_plain(got, torch.from_numpy(np.stack([off, val])))
-    np.testing.assert_array_equal(got.numpy().reshape(-1), want)
+@pytest.mark.parametrize("slot_at", ["first", "last"])
+def test_repeated_rows_match_reference(slot_at):
+    """GCRA columns that repeat a row with different ``now``, ``T`` and
+    ``nreq > 0``, at node slot 0 and N - 1, over remote lanes preset near
+    -2^63 and near +2^63: every column reads the pre-batch row, and the
+    repeats' own-lane commits combine by max, as the reference's
+    gather-then-scatter-max does."""
+    n = 4
+    slot = 0 if slot_at == "first" else n - 1
+    lo, hi = -(1 << 63), (1 << 63) - 1
+    pn = np.zeros((8, n, 2), np.int64)
+    pn[0, :, TAKEN] = [lo, lo + 7, lo + 3, lo + 1]  # every lane near -2^63
+    pn[1, :, TAKEN] = lo + 5
+    pn[1, (slot + 1) % n, TAKEN] = hi - 2  # a remote lane near +2^63 denies
+    pn[2, :, TAKEN] = [lo, 900, lo + 2, 40]
+    pn[2, slot, TAKEN] = lo + 9  # the own lane below the remote watermark
+    pn[3, slot, TAKEN] = 1_500  # the own lane ahead of now
+    pn[:, :, ADDED] = np.arange(8 * n).reshape(8, n) - 3
+    tw = Twin(pn)
+    rows = [0, 2, 0, 1, 3, 2, 0, 3, 2 - 8, 1]
+    now = [1_000, 500, 1_300, 1_000, 900, 2_000, 700, 1_200, 950, 5_000]
+    emit = [100, 7, 60, 1, 250, 1_000, BIG, 3, 9, 100]
+    tol = [300, 0, 1_000, 10**6, 700, 50, BIG, 20, 400, 300]
+    nreq = [5, 1, 3, 2, 4, 1000, 2, BIG, 7, 1]
+    res = tw.call("gcra", [rows, now, emit, tol, nreq], slot=slot)
+    assert (res.admitted[[0, 2, 4, 5, 6, 8]] > 0).all() and not res.admitted[[1, 3, 7, 9]].any()
+    assert tw.pn[0, slot, TAKEN] == max(res.own_tat_ns[[0, 2, 6]])
+    assert tw.pn[1, slot, TAKEN] == pn[1, slot, TAKEN]
 
 
 def test_packed_layouts_match_reference():
@@ -358,7 +390,7 @@ def test_kernel_wrappers_refuse_a_cpu_state():
         with pytest.raises(ValueError, match="CUDA"):
             cert_kernel.run(family, pn, torch.zeros((rows_in, 4), dtype=torch.int64), 0)
     with pytest.raises(ValueError, match="CUDA"):
-        cert_kernel.own_lane_commit(pn, torch.zeros((2, 4), dtype=torch.int64))
+        cert_kernel.fused("gcra", pn, torch.zeros((5, 4), dtype=torch.int64), 0)
 
 
 @pytest.mark.parametrize("k,resident", [
@@ -367,7 +399,7 @@ def test_kernel_wrappers_refuse_a_cpu_state():
     (12345, 7),
 ])
 def test_fused_grid_covers_every_column_once(k, resident):
-    """The fused kernels' persistent grid: never more blocks than the card
+    """The kernels' persistent grid: never more blocks than the card
     holds resident or than K's tiles, every block has a tile (each must
     arrive at the grid barrier), every column is taken exactly once, and
     no block walks more tiles than the spill buffer is sized for."""
@@ -389,22 +421,19 @@ def test_fused_grid_covers_every_column_once(k, resident):
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_kernels_match_plain_on_the_card(family):
     """The kernels against the plain version on a CUDA state over the
-    hazard corpus, bit for bit, at K = 0, 1, 8, 8,192, 2^16 and the fused
-    grid's resident columns and one either side; a concurrency or quota
-    call is one launch (GCRA two), none at K = 0 (a card run; the full size
-    is chip_smoke.py's)."""
+    hazard corpus, bit for bit, at K = 0, 1, 8, 8,192, 2^16 and the
+    grid's resident columns and one either side; a call is one launch,
+    none at K = 0 (a card run; the full size is chip_smoke.py's)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels do not run on the CPU")
     rng = np.random.default_rng(11)
     tmod = FAMILIES[family][2]
     batch = FAMILIES[family][3].__name__
-    ks = [0, 1, 8, 8192, 1 << 16]
-    if family != "gcra":
-        cols = cert_kernel.resident_blocks(family, torch.device("cuda", 0)) * cert_kernel.TILE
-        ks += [cols - 1, cols, cols + 1]
-    launches = {"gcra": {"gcra_admit": 1, "own_lane_commit": 1}}.get(family, {f"{family}_admit": 1})
+    cols = cert_kernel.resident_blocks(family, torch.device("cuda", 0)) * cert_kernel.TILE
+    ks = [0, 1, 8, 8192, 1 << 16, cols - 1, cols, cols + 1]
+    launches = {f"{family}_admit": 1}
     for k, (n, slot) in zip(ks, itertools.cycle(((1, 0), (33, 32), (64, 5)))):
-        pn = torch.from_numpy(hazard_state(rng, n)).cuda()
+        pn = torch.from_numpy(hazard_state(rng, n, negative=True)).cuda()
         fields = [np.asarray(f)[:k] for f in hazard_request(rng, family, max(k, 8))]
         req = getattr(tmod, REQUEST[family])(*(torch.from_numpy(f.copy()).cuda() for f in fields))
         kstate = LimiterState(pn.clone(), torch.zeros(B, dtype=torch.int64, device="cuda"))
