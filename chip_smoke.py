@@ -74,7 +74,14 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    plain version, the library calls (``index_select``, ``amax`` or
    ``sum``, ``scatter_reduce_``) and its bound; the ``-Xptxas -v`` lines
    and each kernel's grid (blocks an SM from the occupancy call, resident
-   blocks) print.
+   blocks) print. Last, the mesh converge (``csrc/converge.cu``): the
+   scratch gather and the converge, each against its plain version bit
+   for bit over the whole int64 range (words near +2^63 and -2^63) at
+   R = 2, 3, 4, 8 replicas, T = 1, 512, 4,096, 32,768 take rows and N = 1,
+   33, 64 lanes on a 1,000,000-row state, each call one launch; both timed
+   at R = 2, T = 4,096, N = 64 warm, cold (8 row sets, past L2) and at
+   T = 1, beside the plain versions, the library calls (``amax`` +
+   ``index_copy_``; ``index_select`` + ``copy_``) and their bound.
 3. The main path: the port's ``Command`` serving on the asyncio front
    (host fast path off, see 3f)
    (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
@@ -176,6 +183,20 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    family). Then 1,000 scrapes of unchanged state must be mirror hits
    with no device gather. The sequence replays on a CPU engine: every
    result, serving outcome and the final planes equal.
+3j. The mesh: ``MeshEngine`` over ``cuda:0`` x 8 at 1M x 64 (host fast
+   path and GC off, as phase 3), phase 3's trace through a ``TPURepo``
+   with its held bursts. R = 2 (2 x 4 blocks) over the whole trace, then
+   6,000 takes submitted from one thread while the mesh resizes 2 -> 4 ->
+   2; R = 4 (4 x 2) and R = 1 (1 x 8) over its first 30,000 deltas (and
+   the hot burst) and 10,000 takes. Each leg replays on a CPU MeshEngine
+   at the same R: take outcomes and the planes (after the trace and at
+   the end) must be equal. Each leg must split a tick past
+   ``MESH_WARM_MAX`` (``mesh_split_ticks`` > 0); take-n must launch once
+   for each dispatch with takes, and the gather and the converge as often
+   at R > 1 and never at R = 1; the join must launch; every take across
+   the resize must be answered. Per leg: deltas/s, takes/s, a dispatch's
+   host time by step (route, prepare, ship, launch, other; p50 and p99),
+   the tick fold's, and the device busy share under ``torch.profiler``.
 3d. The probe's entry point (``patrol_tpu_torch.scripts.probe_dma_scatter``,
    ``--device cuda``) at 1M × 256 lanes, K = 8192: ``row_rmw`` must have
    launched exactly once per call the probe made, and ``pairmax`` through
@@ -1042,6 +1063,120 @@ def cert_edge_checks(torch, dev, rng):
                                        f"{family} N={n} node_slot={slot}")
                 err, cases = max(err, e), cases + 1
     return {"cases": cases, "max_abs_err": err}
+
+
+# -- phase 2: the mesh converge against its plain versions --------------------
+
+CONVERGE_R = (2, 3, 4, 8)
+CONVERGE_T = (1, 512, 4096, 32768)
+CONVERGE_N = (1, 33, 64)
+CONVERGE_MAIN = (2, 4096, LANES)  # (R, T, N) timed: a 3j take tick's rows at R = 2
+
+
+def full_range_t(torch, shape, dev, gen):
+    """int64 words over the whole range, made on the device from two
+    32-bit halves: a tenth near +2^63, a tenth near -2^63, a twentieth 0."""
+    hi = torch.randint(-(2**31), 2**31, shape, dtype=torch.int64, device=dev, generator=gen)
+    lo = torch.randint(0, 2**32, shape, dtype=torch.int64, device=dev, generator=gen)
+    x = (hi << 32) | lo
+    u = torch.rand(shape, device=dev, generator=gen)
+    off = torch.randint(0, 4, shape, dtype=torch.int64, device=dev, generator=gen)
+    x = torch.where(u < 0.1, (2**63 - 1) - off, x)
+    x = torch.where((u >= 0.1) & (u < 0.2), -(2**63) + off, x)
+    return torch.where((u >= 0.2) & (u < 0.25), torch.zeros_like(x), x)
+
+
+def exact_err(torch, name: str, a, b) -> float:
+    """Hold a kernel's output to its plain version's over the whole int64
+    range: → max |a - b| (in float64, so nothing wraps); raises unless 0."""
+    if not torch.equal(a, b):
+        diff = int((a != b).sum())
+        raise AssertionError(f"{name}: kernel and plain version differ in {diff} elements")
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def converge_checks(torch, ck, _build, dev):
+    """The gather and the converge (``csrc/converge.cu``) against their
+    plain versions at every (R, T, N) of CONVERGE_R x CONVERGE_T x
+    CONVERGE_N on a 1,000,000-row state, over the whole int64 range; each
+    call must be one launch. Then both are timed at CONVERGE_MAIN, warm (the
+    same rows and scratch), cold (a cycle of 8 row sets and scratches, 100
+    MB, past the 50 MB L2) and at T = 1 (the floor), beside the plain
+    versions and the library calls."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261019)
+    err = 0.0
+    shapes = 0
+    for n in CONVERGE_N:
+        kp = full_range_t(torch, (BUCKETS, n, 2), dev, gen)
+        ke = full_range_t(torch, (BUCKETS,), dev, gen)
+        pp, pe = kp.clone(), ke.clone()
+        for r in CONVERGE_R:
+            for t in CONVERGE_T:
+                rows = torch.randperm(BUCKETS, device=dev, generator=gen)[:t].contiguous()
+                spn = full_range_t(torch, (r, t, n, 2), dev, gen)
+                sel = full_range_t(torch, (r, t), dev, gen)
+                before = dict(_build.LAUNCHES)
+                ck.converge(kp, ke, rows, spn, sel)
+                ck.converge_plain(pp, pe, rows, spn, sel)
+                gs, gl = torch.empty_like(spn), torch.empty_like(sel)
+                ck.gather(kp, ke, rows, gs, gl)
+                ps, pl = torch.empty_like(spn), torch.empty_like(sel)
+                ck.gather_plain(pp, pe, rows, ps, pl)
+                torch.cuda.synchronize()
+                made = {k: _build.LAUNCHES[k] - before[k] for k in before}
+                check(made == {**{k: 0 for k in before}, "converge": 1, "mesh_gather": 1},
+                      f"converge R={r} T={t} N={n}: launches {made}")
+                tag = f"R={r} T={t} N={n}"
+                err = max(err, exact_err(torch, f"converge pn {tag}", kp, pp),
+                          exact_err(torch, f"converge elapsed {tag}", ke, pe),
+                          exact_err(torch, f"gather spn {tag}", gs, ps),
+                          exact_err(torch, f"gather sel {tag}", gl, pl))
+                shapes += 1
+        del kp, ke, pp, pe, spn, sel, gs, gl, ps, pl
+        torch.cuda.empty_cache()
+
+    r, t, n = CONVERGE_MAIN
+    pn = full_range_t(torch, (BUCKETS, n, 2), dev, gen)
+    el = full_range_t(torch, (BUCKETS,), dev, gen)
+
+    def operands(tt):
+        rows = torch.randperm(BUCKETS, device=dev, generator=gen)[:tt].contiguous()
+        return (rows, full_range_t(torch, (r, tt, n, 2), dev, gen),
+                full_range_t(torch, (r, tt), dev, gen))
+
+    warm = operands(t)
+    cold = itertools.cycle([operands(t) for _ in range(8)])
+    floor = operands(1)
+
+    def library_converge(rows, spn, sel):
+        pn.index_copy_(0, rows, spn.amax(dim=0))
+        el.index_copy_(0, rows, sel.amax(dim=0))
+
+    def library_gather(rows, spn, sel):
+        spn.copy_(pn.index_select(0, rows).unsqueeze(0).expand_as(spn))
+        sel.copy_(el.index_select(0, rows).unsqueeze(0).expand_as(sel))
+
+    nbytes = (r + 1) * t * (16 * n + 8) + 8 * t
+    res = {}
+    for name, kern, plain, lib in (("converge", ck.converge, ck.converge_plain, library_converge),
+                                   ("mesh_gather", ck.gather, ck.gather_plain, library_gather)):
+        res[name] = {
+            "ms": device_ms(torch, lambda: kern(pn, el, *warm)),
+            "ms_cold": device_ms(torch, lambda: kern(pn, el, *next(cold))),
+            "floor_ms": device_ms(torch, lambda: kern(pn, el, *floor)),
+            "plain_ms": device_ms(torch, lambda: plain(pn, el, *warm)),
+            "library_ms": device_ms(torch, lambda: lib(*warm)),
+            "bytes": nbytes,
+            # One signed max per word and copy for the converge; the gather
+            # only moves words.
+            "ops": (r - 1) * t * (2 * n + 1) if name == "converge" else 0,
+            "max_abs_err": err,
+            "shape": {"R": r, "T": t, "N": n},
+            "shapes_checked": shapes,
+        }
+    del pn, el, warm, cold, floor
+    return res
 
 
 # -- phase 2: decode_fold against its plain version --------------------------
@@ -2985,6 +3120,259 @@ def run_lifecycle_phase(engine_mod, torch) -> dict:
     return gpu
 
 
+# -- phase 3j: the mesh ----------------------------------------------------------
+
+MESH_DEVICES = 8  # cuda:0 x 8: R x (8 / R) blocks on the one card
+MESH_SHORT = (30_000, 10_000)  # the R = 4 and R = 1 legs: the trace's first deltas, takes
+MESH_RESIZE_TAKES = 6_000
+MESH_PROFILE_KERNELS = ("join_kernel", "take_n_kernel", "gather_kernel", "converge_kernel")
+
+
+class MeshSteps:
+    """Times a MeshEngine's dispatches on its feeder, by step: ``route``
+    (``route_packed`` into the leased matrices), ``prepare`` (the host
+    classification, ``prepare_step``), ``ship`` (one staging copy),
+    ``launch`` (``run_step`` under the state lock: the gather, joins,
+    take-n and converge launches, with any wait for the lock) and
+    ``other`` (the rest of ``_dispatch_fused``: packing the takes, the
+    result readback's enqueue, the completion hand-off); and the tick fold
+    apart. It counts the dispatches that carried takes (and so, at R > 1,
+    a gather and a converge)."""
+
+    def __init__(self, eng, topo):
+        self.eng, self.topo = eng, topo
+        self.cur = None
+        self.rows, self.folds = [], []
+        self._undo = []
+        for name, step in (("route_packed", "route"), ("prepare_step", "prepare")):
+            self._patch(topo, name, self._timed(step, getattr(topo, name)))
+        self._patch(topo, "run_step", self._timed("launch", topo.run_step, note=True))
+        self._patch(eng, "_ship_flat", self._timed("ship", eng._ship_flat))
+        dispatch, fold = eng._dispatch_fused, eng._fold_core
+
+        def dispatch_timed(*a, **kw):
+            self.cur = cur = {}
+            t0 = time.perf_counter()
+            try:
+                return dispatch(*a, **kw)
+            finally:
+                self.cur = None
+                cur["total"] = time.perf_counter() - t0
+                self.rows.append(cur)
+
+        def fold_timed(deltas):
+            t0 = time.perf_counter()
+            try:
+                return fold(deltas)
+            finally:
+                self.folds.append(time.perf_counter() - t0)
+
+        self._patch(eng, "_dispatch_fused", dispatch_timed)
+        self._patch(eng, "_fold_core", fold_timed)
+
+    def _patch(self, obj, attr, fn):
+        self._undo.append((obj, attr, getattr(obj, attr), attr in vars(obj)))
+        setattr(obj, attr, fn)
+
+    def _timed(self, step, fn, note=False):
+        def timed(*args, **kwargs):
+            cur = self.cur
+            if cur is None:
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                cur[step] = cur.get(step, 0.0) + time.perf_counter() - t0
+                if note:
+                    cur["takes"], cur["T"] = args[1].L, args[1].T
+
+        return timed
+
+    def close(self) -> dict:
+        for obj, attr, orig, own in reversed(self._undo):
+            if own:
+                setattr(obj, attr, orig)
+            else:
+                delattr(obj, attr)
+        steps = ("route", "prepare", "ship", "launch")
+        us = {k: [r.get(k, 0.0) * 1e6 for r in self.rows] for k in steps + ("total",)}
+        us["other"] = [r["total"] * 1e6 - sum(r.get(k, 0.0) * 1e6 for k in steps)
+                       for r in self.rows]
+
+        def pct(v):
+            return {"p50": statistics.median(v), "p99": float(np.percentile(v, 99))} if v else None
+
+        return {
+            "dispatches": len(self.rows),
+            "with_takes": sum(1 for r in self.rows if r.get("takes")),
+            "scratch_rows_p50": statistics.median([r["T"] for r in self.rows if r.get("T")] or [0]),
+            "dispatch_us": {k: pct(v) for k, v in us.items()},
+            "fold_us": pct([f * 1e6 for f in self.folds]),
+        }
+
+
+def mesh_trace(trace, short):
+    """The trace cut to its first ``short`` = (deltas, takes), hot burst whole."""
+    deltas, hot_burst, vals, caps, takes = trace
+    return deltas[:short[0]], hot_burst, vals, caps, takes[:short[1]]
+
+
+def resize_takes(repo, trace, eng=None, at=1_000):
+    """MESH_RESIZE_TAKES of the trace's takes submitted from one thread in
+    order; with ``eng``, the mesh is resized 2 -> 4 once ``at`` are
+    submitted and back 4 -> 2 once twice that are. → (outcomes, receipts)."""
+    names = trace[4][-MESH_RESIZE_TAKES:]
+    tickets, receipts = [], []
+    submitted = threading.Semaphore(0)
+
+    def submit():
+        for i, name in enumerate(names):
+            rate, count = rate_of(name)
+            tickets.append(repo.submit_take(name, rate, count))
+            if i in (at, 2 * at):
+                submitted.release()
+
+    th = threading.Thread(target=submit)
+    th.start()
+    if eng is not None:
+        for replicas in (4, 2):
+            check(submitted.acquire(timeout=120), "3j: the take stream stalled")
+            receipts.append(eng.resize(replicas=replicas, devices=[eng.device] * MESH_DEVICES))
+    th.join(300)
+    check(not th.is_alive(), "3j: the take stream did not finish")
+    for t in tickets:
+        check(t.wait(120), "3j: a take across the resize was never answered")
+    return [(t.ok, t.remaining) for t in tickets], receipts
+
+
+def mesh_leg(torch, topo, MeshEngine, TPURepo, cfg, replicas, trace, clock_now, device,
+             resize=False):
+    """One meshed engine over ``device`` x MESH_DEVICES at ``replicas``:
+    the trace through a TPURepo (held bursts, as phase 3), timed by step
+    and, on the card, under the profiler, with the launch counters zeroed
+    just before; with
+    ``resize``, then the take stream across 2 -> 4 -> 2. → (result, final
+    planes, planes after the trace)."""
+    from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.utils import profiling
+
+    eng = MeshEngine(cfg, replicas=replicas, node_slot=0, clock=Clock(clock_now),
+                     devices=[torch.device(device)] * MESH_DEVICES)
+    try:
+        eng.warmup()
+        repo = TPURepo(eng)
+        steps = MeshSteps(eng, topo)
+        _build.reset_launches()
+        window = ProfileWindow(MESH_PROFILE_KERNELS) if device == "cuda" else None
+        outcomes, t_d, t_t, _ = run_trace(eng, repo, trace, hold=True)
+        res = {"outcomes": outcomes, "deltas_per_s": (len(trace[0]) + len(trace[1])) / t_d,
+               "takes_per_s": len(trace[4]) / t_t, "stats": eng.stats()}
+        res["profile"] = window.close() if window else None
+        res["launches"] = dict(_build.LAUNCHES)
+        res["steps"] = steps.close()
+        trace_planes = eng.snapshot_planes()
+        if resize:
+            resizes0 = profiling.COUNTERS.get("mesh_resizes")
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res["resize_outcomes"], res["receipts"] = resize_takes(repo, trace, eng)
+            res["resize_s"] = time.perf_counter() - t0
+            check(eng.flush(120), "3j: flush after the resize timed out")
+            res["resize_launches"] = dict(_build.LAUNCHES)
+            check(profiling.COUNTERS.get("mesh_resizes") == resizes0 + 2, "3j: two resizes")
+            check((eng.plan.replicas, eng.plan.shards) == (2, MESH_DEVICES // 2),
+                  f"3j: the mesh did not resize back ({eng.plan})")
+        planes = eng.snapshot_planes()
+    finally:
+        eng.stop()
+    return res, planes, trace_planes
+
+
+def mesh_replay(torch, MeshEngine, TPURepo, cfg, replicas, trace, clock_now, resize=False):
+    """The same calls on a CPU MeshEngine (the plain versions), no resize:
+    with no merges in flight the take results do not depend on the mesh's
+    shape. → (outcomes, resize outcomes, final planes, planes after the
+    trace)."""
+    ceng = MeshEngine(cfg, replicas=replicas, node_slot=0, clock=Clock(clock_now),
+                      devices=[torch.device("cpu")] * MESH_DEVICES)
+    try:
+        crepo = TPURepo(ceng)
+        outcomes, _, _, _ = run_trace(ceng, crepo, trace)
+        trace_planes = ceng.snapshot_planes()
+        more = resize_takes(crepo, trace)[0] if resize else None
+        check(ceng.flush(600), "3j: CPU replay flush timed out")
+        planes = ceng.snapshot_planes()
+    finally:
+        ceng.stop()
+    return outcomes, more, planes, trace_planes
+
+
+def run_mesh_phase(torch, device="cuda", buckets=BUCKETS, lanes=LANES, trace=None,
+                   short=MESH_SHORT) -> dict:
+    """3j: the mesh engine on ``device`` x 8 at 1,000,000 x 64 (GC off and
+    the host fast path off, as in phase 3): R = 2 (2 x 4 blocks) over
+    phase 3's whole trace, then the take stream across a resize 2 -> 4 ->
+    2; R = 4 (4 x 2) and R = 1 (1 x 8) over the trace's first
+    ``short`` deltas and takes. Every leg replays on a CPU MeshEngine at
+    the same R: outcomes and planes equal. Each leg's held first burst
+    splits (mesh_split_ticks > 0); take-n launches once for each dispatch
+    with takes, and at R > 1 the gather and the converge too (none at
+    R = 1); the join launches. (On ``device="cpu"``, a rehearsal at a
+    small size, the launch counts are not held.)"""
+    from patrol_tpu_torch.models.limiter import LimiterConfig
+    from patrol_tpu_torch.parallel import topology as topo
+    from patrol_tpu_torch.runtime.mesh_engine import MeshEngine
+    from patrol_tpu_torch.runtime.repo import TPURepo
+
+    cfg = LimiterConfig(buckets=buckets, nodes=lanes)
+    trace = trace if trace is not None else make_trace(np.random.default_rng(7))
+    clock_now = 1_700_000_000 * NANO
+    out = {}
+    for key, replicas, leg_trace, resize in (
+        ("r2", 2, trace, True),
+        ("r4", 4, mesh_trace(trace, short), False),
+        ("r1", 1, mesh_trace(trace, short), False),
+    ):
+        t0 = time.perf_counter()
+        res, planes, trace_planes = mesh_leg(torch, topo, MeshEngine, TPURepo, cfg, replicas,
+                                             leg_trace, clock_now, device, resize)
+        res["device_s"] = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        c_out, c_more, c_planes, c_trace_planes = mesh_replay(
+            torch, MeshEngine, TPURepo, cfg, replicas, leg_trace, clock_now, resize)
+        res["replay_s"] = time.perf_counter() - t0
+        check(res.pop("outcomes") == c_out, f"3j R={replicas}: take outcomes differ from the CPU replay")
+        for mine, theirs, what in ((trace_planes, c_trace_planes, "after the trace"),
+                                   (planes, c_planes, "at the end")):
+            check(all(np.array_equal(x, y) for x, y in zip(mine, theirs)),
+                  f"3j R={replicas}: planes {what} differ from the CPU replay")
+        del planes, trace_planes, c_planes, c_trace_planes
+        if resize:
+            check(res.pop("resize_outcomes") == c_more,
+                  "3j: take outcomes across the resize differ from the CPU replay")
+        st = res["stats"]
+        check(st["mesh_split_ticks"] > 0, f"3j R={replicas}: no tick split ({st})")
+        check(st["mesh_replicas"] == replicas, f"3j: {st['mesh_replicas']} replicas")
+        if device == "cuda":
+            la, n_takes = res["launches"], res["steps"]["with_takes"]
+            check(n_takes > 0 and la["take_n"] == n_takes,
+                  f"3j R={replicas}: take_n {la['take_n']} for {n_takes} dispatches with takes")
+            want = n_takes if replicas > 1 else 0
+            check(la["converge"] == want and la["mesh_gather"] == want,
+                  f"3j R={replicas}: converge {la['converge']}, gather {la['mesh_gather']}, "
+                  f"want {want}")
+            check(la["pair_join"] > 0, f"3j R={replicas}: the join was not launched")
+            if resize:
+                rl = res["resize_launches"]
+                check(rl["take_n"] > 0 and rl["converge"] == rl["mesh_gather"] > 0,
+                      f"3j: launches across the resize {rl}")
+        out[key] = res
+    return out
+
+
 def fold_timing(engine_mod, reps: int = 5) -> dict:
     """The tick fold on one clustered batch, 131,072 deltas over 64 rows
     and 64 lanes (the reference's motivating shape): host ns of the numpy
@@ -3033,6 +3421,7 @@ def main() -> int:
     from patrol_tpu_torch.command import Command
     from patrol_tpu_torch.models.limiter import LimiterConfig
     from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.ops import converge_kernel as ck
     from patrol_tpu_torch.ops import ingest_kernel as ik
     from patrol_tpu_torch.ops import join_kernel as jk
     from patrol_tpu_torch.ops import lifecycle as lops
@@ -3081,7 +3470,7 @@ def main() -> int:
     report["build_log"] = (so.parent / "build.log").read_text() if (so.parent / "build.log").exists() else ""
     report["ptxas"] = ptxas_lines(report["build_log"],
                                   ("take.cu", "decode_fold.cu", "join.cu", "lifecycle.cu",
-                                   "cert.cu"))
+                                   "cert.cu", "converge.cu"))
     report["join_sass"] = join_sass(so)
     sass = report["join_sass"]
     if sass is not None:
@@ -3115,6 +3504,8 @@ def main() -> int:
     cert = cert_checks(torch, dev, crng)
     cert["edges"] = cert_edge_checks(torch, dev, crng)
     torch.cuda.empty_cache()
+    conv = converge_checks(torch, ck, _build, dev)
+    torch.cuda.empty_cache()
     log(f"joins: {json.dumps(joins)}")
     log(f"pair_join {pair['ms']:.4f} ms, row_join {row['ms']:.4f} ms, tick_join "
         f"{tick['ms']:.4f} ms (two launches {tick['two_launches_ms']:.4f} ms), ring warm "
@@ -3145,6 +3536,15 @@ def main() -> int:
               f"{bound(m['bytes'], m['ops'])[0]:.6f} ms, max_abs_err "
               f"{max(m['max_abs_err'], cert['edges']['max_abs_err'])}")
     print("cert.cu ptxas: " + " | ".join(cert["ptxas"]))
+    conv_ptxas = [ln for ln in report["ptxas"].get("converge.cu", []) if "Used" in ln]
+    for name in ("converge", "mesh_gather"):
+        m = conv[name]
+        print(f"{name} R={m['shape']['R']} T={m['shape']['T']} N={m['shape']['N']}: warm "
+              f"{m['ms']:.6f} ms, cold {m['ms_cold']:.6f} ms, T=1 {m['floor_ms']:.6f} ms, plain "
+              f"{m['plain_ms']:.6f} ms, library {m['library_ms']:.6f} ms, bound "
+              f"{bound(m['bytes'], m['ops'])[0]:.6f} ms, max_abs_err {m['max_abs_err']} over "
+              f"{m['shapes_checked']} shapes")
+    print("converge.cu ptxas: " + " | ".join(conv_ptxas))
     print("cert grid: " + json.dumps(cert["grid"]))
     report["kernel_detail"] = {
         "pair_join": pair, "row_join": row, "tick_join": tick, "commit_ring": ring,
@@ -3154,6 +3554,7 @@ def main() -> int:
         "row_rmw_bcast": rmw["bcast"], "row_rmw_pairmax": rmw["pairmax"],
         "lifecycle_probe": life,
         "cert": cert,
+        "converge": conv,
     }
 
     # 3. The main path. Phases 3, 3b, 3c and 3e run the asyncio front with
@@ -3372,6 +3773,34 @@ def main() -> int:
         for f, steps in cphase["call_steps_us"].items()}))
     torch.cuda.empty_cache()
 
+    # 3j. The mesh: MeshEngine over cuda:0 x 8 at R = 2, 4 and 1 and a
+    # resize, the device path as phase 3 runs it (host fast path and GC
+    # off); each leg replayed on a CPU MeshEngine.
+    engine_mod.HOST_FASTPATH = False
+    t0 = time.perf_counter()
+    mesh = run_mesh_phase(torch)
+    mesh["phase_s"] = time.perf_counter() - t0
+    engine_mod.HOST_FASTPATH = True
+    report["mesh"] = mesh
+    log(f"3j mesh: {json.dumps(mesh, default=str)}")
+    for key in ("r2", "r4", "r1"):
+        m = mesh[key]
+        st, prof = m["stats"], m["profile"]
+        print(f"mesh 3j {key}: deltas/s {m['deltas_per_s']:.1f} takes/s {m['takes_per_s']:.1f} "
+              f"dispatches {m['steps']['dispatches']} ({m['steps']['with_takes']} with takes, "
+              f"{st['mesh_split_ticks']} split ticks), launches "
+              f"{json.dumps({k: m['launches'][k] for k in ('pair_join', 'take_n', 'mesh_gather', 'converge')})}, "
+              f"device busy {prof['device_busy_share']}, profiled "
+              f"{json.dumps({k: [v['count'], round(v['device_us'], 3)] for k, v in prof['kernels'].items()})}; "
+              f"host us a dispatch p50 "
+              f"{json.dumps({k: round(v['p50'], 1) for k, v in m['steps']['dispatch_us'].items() if v})}, "
+              f"fold p50 {m['steps']['fold_us']['p50']:.1f}; equal to the CPU replay")
+    print(f"mesh 3j resize 2 -> 4 -> 2 under {MESH_RESIZE_TAKES} takes in "
+          f"{mesh['r2']['resize_s']:.3f} s, launches "
+          f"{json.dumps({k: v for k, v in mesh['r2']['resize_launches'].items() if v})}, every take "
+          f"answered and equal to the CPU replay; phase {mesh['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # 3h. The bucket lifecycle at the defaults: bind, sweep, re-create,
     # shed, checkpoint; replayed on a CPU engine.
     engine_mod.GC_WINDOW_NS = gc_window
@@ -3450,6 +3879,14 @@ def main() -> int:
          cert["conc"], cphase["launches"]["conc_admit"]),
         ("quota_admit", "patrol_tpu_torch/csrc/cert.cu", "patrol_tpu/ops/hierquota.py:79",
          cert["quota"], cphase["launches"]["quota_admit"]),
+        # Timed at R = 2, T = 4,096 take rows on the 1M x 64 state;
+        # launches are phase 3j's R = 2 leg (once a dispatch with takes).
+        ("converge", "patrol_tpu_torch/csrc/converge.cu", "patrol_tpu/parallel/topology.py:182",
+         conv["converge"], mesh["r2"]["launches"]["converge"]),
+        # The scratch gather beside it: inside the reference's jitted
+        # cluster_step (topology.py:199), not a kernel of its own there.
+        ("mesh_gather", "patrol_tpu_torch/csrc/converge.cu", "patrol_tpu/parallel/topology.py:199",
+         conv["mesh_gather"], mesh["r2"]["launches"]["mesh_gather"]),
     ):
         b_ms, b_by = bound(m["bytes"], m["ops"])
         entry = {
@@ -3492,7 +3929,11 @@ def main() -> int:
                              ("3f_promotion", promo["launches"]),
                              ("3g", two_d["launches"]),
                              ("3i", cphase["launches"]),
-                             ("3h", lc["launches"])):
+                             ("3h", lc["launches"]),
+                             ("3j_r2", mesh["r2"]["launches"]),
+                             ("3j_r4", mesh["r4"]["launches"]),
+                             ("3j_r1", mesh["r1"]["launches"]),
+                             ("3j_resize", mesh["r2"]["resize_launches"])):
             if name in ("pair_join", "row_join", "tick_join"):
                 entry[f"launches_{path}"] = sum(counts[k] for k in ("pair_join", "row_join", "tick_join"))
             elif name != "row_rmw":
@@ -3519,6 +3960,9 @@ def main() -> int:
             entry["max_abs_err"] = max(m["max_abs_err"], cert["edges"]["max_abs_err"])
             entry.update({key: m[key] for key in ("floor_ms", "ms_cold", "ms_k512", "k")})
             entry["grid"] = cert["grid"][name.split("_")[0]]
+        if name in ("converge", "mesh_gather"):
+            entry.update({key: m[key] for key in ("floor_ms", "ms_cold", "shape",
+                                                   "shapes_checked")})
         if name == "lifecycle_probe":
             entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
             entry.update({key: m[key] for key in ("floor_ms", "ms_cold", "ms_cold_contig",

@@ -6,9 +6,11 @@ repeatable ``--peer-addr``, ``--clock-offset``, ``--log-env``,
 (``cuda`` by default, ``cpu`` for the kernels' plain versions),
 ``--wire-mode``, ``--udp-backend`` and ``--http-front`` (``native``
 builds the C++ host library with g++ and exits 1 if it cannot; ``auto``,
-the default, takes it when it loads, else the asyncio path). Options
-whose parts are not ported yet (``--mesh-replicas``,
-``--checkpoint-dir``) exit 2 with a clear error.
+the default, takes it when it loads, else the asyncio path),
+``--checkpoint-dir`` and ``--mesh-replicas`` (R × shards blocks over the
+local devices of ``--device``, which must divide by R; on one card or
+the CPU that is R = 1). A mesh over several distinct devices is not
+ported yet and exits 2 with a clear error.
 
 Run as ``python -m patrol_tpu_torch [flags]``.
 """
@@ -111,7 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--mesh-replicas",
         type=int,
         default=0,
-        help="multi-device serving (not yet ported; 0 = single device)",
+        help="mesh serving: replicas of each bucket shard over the local devices "
+        "of --device (must divide their count; 0 = the single-device engine)",
     )
     return p
 
@@ -170,6 +173,9 @@ def main(argv=None) -> int:
         asyncio.run(cmd.run())
     except KeyboardInterrupt:
         pass
+    except NotPortedError as exc:
+        print(f"not yet ported: {exc}", file=sys.stderr)
+        return 2
     except NativeBuildError as exc:
         print(f"native host library: {exc}", file=sys.stderr)
         return 1

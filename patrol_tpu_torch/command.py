@@ -11,8 +11,11 @@ With ``checkpoint_dir`` set, a node restores the checkpoint found there at
 boot (back on the lane its membership view names), saves one every
 ``checkpoint_interval_s`` (0: only at shutdown) and one at shutdown.
 
-The multi-device mesh engine is not ported yet: asking for it raises
-:class:`NotPortedError` before anything starts.
+With ``mesh_replicas`` > 0 the engine is the mesh engine
+(``runtime/mesh_engine.py``): ``mesh_replicas`` × shards blocks over
+``mesh_devices`` (default: every local device of ``device``'s platform),
+which may repeat one device. A list that names more than one distinct
+device raises :class:`NotPortedError` before anything starts.
 """
 
 from __future__ import annotations
@@ -27,14 +30,13 @@ from typing import List, Optional
 from patrol_tpu_torch.models.limiter import SMALL, LimiterConfig
 from patrol_tpu_torch.net.api import API, serve
 from patrol_tpu_torch.net.replication import Replicator, SlotTable
+from patrol_tpu_torch.parallel import topology as topo
+from patrol_tpu_torch.parallel.topology import NotPortedError
 from patrol_tpu_torch.runtime.bucket import ClockFn, system_clock
 from patrol_tpu_torch.runtime import engine as engine_mod
 from patrol_tpu_torch.runtime.engine import DeviceEngine
+from patrol_tpu_torch.runtime.mesh_engine import MeshEngine
 from patrol_tpu_torch.runtime.repo import TPURepo
-
-
-class NotPortedError(ValueError):
-    """A configuration that needs a part of the system not ported yet."""
 
 
 @dataclasses.dataclass
@@ -73,6 +75,10 @@ class Command:
     # Build the kernels and launch each once at boot.
     warmup: bool = False
     mesh_replicas: int = 0
+    # The mesh's device list (no CLI flag); None: every local device of
+    # ``device``'s platform. ``[torch.device("cpu")] * 8`` is a 2 × 4 mesh
+    # at mesh_replicas=2.
+    mesh_devices: Optional[list] = None
     # "cuda" (default) or "cpu" (the kernels' plain versions, for tests).
     device: str = "cuda"
 
@@ -94,8 +100,8 @@ class Command:
             raise ValueError(f"unknown udp backend {self.udp_backend!r}")
         if self.http_front not in ("auto", "native", "python"):
             raise ValueError(f"unknown http front {self.http_front!r}")
-        if self.mesh_replicas > 0:
-            raise NotPortedError("--mesh-replicas > 0 is not yet ported")
+        if self.mesh_replicas > 0 and self.mesh_devices is not None:
+            topo.check_one_device(self.mesh_devices)
 
     async def run(self, stop: Optional[asyncio.Event] = None) -> None:
         """Run until ``stop`` is set or SIGINT/SIGTERM arrives; then shut
@@ -139,12 +145,19 @@ class Command:
             native.load(required=True)  # raises with g++'s error
         elif http_front == "auto":
             http_front = "native" if native_http.available() else "python"
-        engine = DeviceEngine(
-            self.config, node_slot=slots.self_slot, clock=self.clock, device=self.device,
-            # The native front serves host-resident takes from the C++
-            # store; the asyncio front keeps the Python host lanes.
-            native_host=(http_front == "native"),
-        )
+        if self.mesh_replicas > 0:
+            engine = MeshEngine(
+                self.config, replicas=self.mesh_replicas, node_slot=slots.self_slot,
+                clock=self.clock,
+                devices=self.mesh_devices or topo.local_devices(self.device),
+            )
+        else:
+            engine = DeviceEngine(
+                self.config, node_slot=slots.self_slot, clock=self.clock, device=self.device,
+                # The native front serves host-resident takes from the C++
+                # store; the asyncio front keeps the Python host lanes.
+                native_host=(http_front == "native"),
+            )
         from patrol_tpu_torch.net import native_replication
 
         use_native = self.udp_backend == "native" or (
@@ -218,6 +231,9 @@ class Command:
                 # Bucket lifecycle: reclaims, sheds, sweeps, compactions,
                 # tombstones, bytes in use against the budget, pressure.
                 **engine.lifecycle_stats(),
+                # Mesh serving (MeshEngine only): geometry, fused-dispatch
+                # accounting, ``mesh_demotion: unsupported``.
+                **(engine.stats() if isinstance(engine, MeshEngine) else {}),
                 **profiling.COUNTERS.snapshot(),
                 **replicator.stats(),
                 "histograms": hist_mod.HISTOGRAMS.snapshot(),

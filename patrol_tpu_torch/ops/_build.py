@@ -43,6 +43,7 @@ LAUNCHES: Dict[str, int] = {
     "pair_join": 0, "row_join": 0, "tick_join": 0, "take_n": 0, "decode_fold": 0,
     "row_rmw": 0, "lifecycle_probe": 0,
     "gcra_admit": 0, "conc_admit": 0, "quota_admit": 0,
+    "mesh_gather": 0, "converge": 0,
 }
 
 _lib = None
@@ -163,10 +164,13 @@ def lib() -> ctypes.CDLL:
             cdll.patrol_cert_fused.argtypes = [
                 ctypes.c_int, p, p, i64, i64, i64, p, p, p, i64, i64, ctypes.c_int, p,
             ]
+            cdll.patrol_converge.argtypes = [
+                ctypes.c_int, p, p, i64, i64, p, p, i64, i64, p, p,
+            ]
             for fn in (cdll.patrol_join, cdll.patrol_take_n,
                        cdll.patrol_decode_fold, cdll.patrol_row_rmw,
                        cdll.patrol_lifecycle_probe, cdll.patrol_cert_occupancy,
-                       cdll.patrol_cert_fused):
+                       cdll.patrol_cert_fused, cdll.patrol_converge):
                 fn.restype = ctypes.c_int
             _lib = cdll
         return _lib

@@ -865,10 +865,19 @@ class DeviceEngine:
     # Raw-plane ingest (ops/ingest.py; the delta plane routes wire-v2
     # datagrams to ingest_raw_planes when set) and the inline interval
     # fold (ingest_interval's join launch on the rx thread; when unset the
-    # interval queues for the feeder instead). The JAX package's sharded
-    # mesh engine opts out of both; this engine serves one device.
+    # interval queues for the feeder instead). The mesh engine
+    # (runtime/mesh_engine.py) opts out of both, as the reference's does.
     _raw_ingest_capable = True
     _interval_fold_capable = True
+    # Idle demotion of promoted rows back to host lanes; the mesh engine
+    # opts out (its stats say ``mesh_demotion: unsupported``).
+    _demotion_capable = True
+    # Adaptive commit-block sizing (PATROL_COMMIT_BLOCKS=auto); the mesh
+    # engine pins the static default.
+    _commit_blocks_auto = COMMIT_BLOCKS_AUTO
+    # The tick fold, shared with the mesh engine, whose round-robin
+    # replica of each delta follows the fold's output order.
+    _fold_core = staticmethod(fold_core)
 
     def __init__(
         self,
@@ -903,6 +912,9 @@ class DeviceEngine:
         self._open_folds: Dict[tuple, _TakeFold] = {}
         self._stopped = False
         self._busy = False
+        # Set under _cond to hold the feeder between ticks (the mesh
+        # engine's resize); queues keep absorbing work meanwhile.
+        self._tick_paused = False
         self._ticks = 0  # kernel ticks issued (observability)
         # Device-state writes that ride no _ticks bump (rows zeroed, the
         # certified families, checkpoint restore), bumped under _state_mu.
@@ -1751,7 +1763,7 @@ class DeviceEngine:
         path reads residency; the gather → flip → zero runs under
         ``_evict_mu``, so no eviction or release recycles a row
         mid-demotion."""
-        if not HOST_FASTPATH or self._demotion_paused:
+        if not (HOST_FASTPATH and self._demotion_capable) or self._demotion_paused:
             return
         now = self.clock()
         if self._demote_win_start is None:
@@ -3379,7 +3391,9 @@ class DeviceEngine:
     def _run_loop(self) -> None:
         while True:
             with self._cond:
-                while not (
+                # One predicate for the pause and for work, so a pause
+                # raised while this thread waits is never skipped.
+                while (self._tick_paused and not self._stopped) or not (
                     self._takes or self._deltas or self._promote_pending
                     or self._gc_due or self._stopped
                 ):
@@ -3387,7 +3401,7 @@ class DeviceEngine:
                 if self._stopped and not (self._takes or self._deltas):
                     return
                 self._gc_due = False  # this tick runs _maybe_gc below
-                if COMMIT_BLOCKS_AUTO:
+                if self._commit_blocks_auto:
                     self._auto_size_commit_blocks_locked()
                 deltas = self._drain_deltas(MAX_MERGE_ROWS * self._commit_blocks)
                 tickets = self._drain_takes(MAX_TAKE_ROWS)
@@ -3398,7 +3412,7 @@ class DeviceEngine:
             # at the window's rollover, move quiet rows back to host
             # residency BEFORE the re-route, so the take that ends an idle
             # window is already served from the host.
-            if HOST_FASTPATH and self._promoted_rows:
+            if HOST_FASTPATH and self._demotion_capable and self._promoted_rows:
                 for t in tickets:
                     if t.row in self._promoted_rows:
                         self._dev_window[t.row] = self._dev_window.get(t.row, 0) + 1

@@ -10,8 +10,8 @@ answers of the reference's routes; statuses and bodies must be identical.
 The debug routes are compared by status only (their bodies hold timings).
 The same script then runs against the port's native C++ front (host lanes
 in its native store) and the JAX node at its defaults (its own native
-front): again identical. Options not ported yet (the mesh) refuse to
-start.
+front): again identical. A meshed node serves; a mesh over more than one
+distinct device, not ported yet, refuses to start.
 """
 
 import asyncio
@@ -21,6 +21,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 from patrol_tpu.command import Command as JCommand
 from patrol_tpu.models.limiter import LimiterConfig as JConfig
@@ -172,10 +173,31 @@ def test_http_script_matches_reference(monkeypatch):
     ],
 )
 def test_unported_options_refuse_to_start(kwargs):
-    # The native UDP backend, HTTP front and checkpoints are ported; beside
-    # them an option that is not still refuses the whole configuration.
+    """The mesh is ported: each option set passes ``check_ported()`` and
+    a node started with it on a 2 × 4 mesh of ``cpu`` × 8 answers a take.
+    What is still not ported, a mesh over more than one distinct device,
+    refuses the whole configuration."""
+    cpu8 = [torch.device("cpu")] * 8
+    TCommand(device="cpu", **kwargs).check_ported()
     with pytest.raises(NotPortedError):
-        TCommand(device="cpu", **kwargs).check_ported()
+        TCommand(device="cpu", mesh_devices=[torch.device("cpu"), torch.device("cuda", 0)] * 4,
+                 **kwargs).check_ported()
+    cmd = TCommand(
+        api_addr="127.0.0.1:0", node_addr=f"127.0.0.1:{_free_port(socket.SOCK_DGRAM)}",
+        clock=Clock(), config=TConfig(64, 4), handle_signals=False, device="cpu",
+        mesh_devices=cpu8, **kwargs,
+    )
+    node = Node(cmd)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", cmd.api_port, timeout=30)
+        conn.request("POST", "/take/mesh?rate=5:1h&count=2")
+        resp = conn.getresponse()
+        assert (resp.status, resp.read()) == (200, b"3")
+        conn.close()
+        assert cmd.engine.stats()["mesh_replicas"] == 2
+        assert cmd.engine.plan.shards == 4
+    finally:
+        node.close()
 
 
 @pytest.mark.parametrize("front", ["native", "auto"])

@@ -3,8 +3,8 @@ pulls in neither ``jax`` nor ``patrol_tpu``, and no port file imports
 either (an AST walk, so a lazy import inside a function is caught too).
 The CLI starts a replicating node from ``--peer-addr``, serves on the
 native HTTP front, checkpoints at SIGINT and restores at restart
-(``--checkpoint-dir``), and refuses what is not ported yet
-(``--mesh-replicas``) with exit code 2; the native UDP backend and HTTP front are ported, and
+(``--checkpoint-dir``), and refuses ``--mesh-replicas 2`` on one device
+by the mesh's own rule; the native UDP backend and HTTP front are ported, and
 their C++ sources are the port's own copies: no port file reads a path
 under ``patrol_tpu/``.
 
@@ -158,17 +158,19 @@ def _free_port(kind):
 
 
 def test_cli_refuses_the_native_udp_backend():
-    # The native UDP backend, HTTP front and checkpoints are ported; beside
-    # them the mesh is not, and the whole set is refused before anything
-    # starts.
+    # Every option of this set is ported now, the mesh too, so the CLI no
+    # longer refuses it as unported. On the one CPU device, 2 replicas are
+    # refused by the mesh's own rule, as the JAX package's CLI refuses them
+    # on one device.
     res = subprocess.run(
         [sys.executable, "-m", "patrol_tpu_torch", "--udp-backend", "native",
          "--http-front", "native", "--checkpoint-dir", "ckpt", "--mesh-replicas", "2",
          "--device", "cpu", "--no-warmup"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
-    assert res.returncode == 2
-    assert "not yet ported" in res.stderr and "mesh-replicas" in res.stderr
+    assert res.returncode != 0
+    assert "not yet ported" not in res.stderr
+    assert "2 replicas do not divide 1 devices" in res.stderr
 
 
 def test_cli_checkpoints_at_sigint_and_restores_at_restart(tmp_path):
