@@ -2,6 +2,10 @@
 """Chip smoke run of the PyTorch/CUDA port (``patrol_tpu_torch``) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --fresh-trace-legs N [--unprepared]
+
+(the second form only repeats phase 3k(d)'s fresh-process trace leg:
+see :func:`trace_soak`).
 
 Phases (any failure exits nonzero; nothing is caught and skipped):
 
@@ -202,6 +206,28 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    launched exactly once per call the probe made, and ``pairmax`` through
    ``row_rmw`` and through ``pair_join`` must leave equal states. Its
    printout goes to stderr, its numbers to the JSON detail.
+3k. The port's check stages on the card, and a device trace of a live
+   node. (a) Every ABI obligation (``analysis/abi.py``) against the
+   port's ``libpatrolhost.so``, the fold's kernel twins on ``cuda``: no
+   finding, and the join kernel must have launched (counts zeroed just
+   before). (b) The lin pins (``analysis/lin_pins.py``): the sequential
+   take spec against ``take_n``, the GC gate against ``lifecycle_probe``,
+   ``SequentialGcra``/``Conc``/``Quota`` against the cert kernels, 2,048
+   histories x 24 steps each from a seed, bit for bit, one launch a call.
+   (c) ``protocol_repo`` and ``lin_repo`` as subprocesses: both exit 0
+   and print every registered seeded mutation as rejected with its code.
+   (d) A ``Command`` at the defaults on the card with a peer socket in its
+   member list: the peer's dv2 deltas bind 2,000 names (device rows), a
+   first capture under load pays the profiler's start-up, then
+   ``pt_http_blast`` windows over those names (with the peer sending 16
+   deltas every 50 ms) without a capture, under ``GET
+   /debug/cuda/trace?seconds=2`` (an overlapping ``/debug/pprof/trace``
+   must answer 409), and without again. The trace must hold
+   ``take_n_kernel`` (or ``join_kernel``), and ``decode_fold_kernel`` when
+   ``decode_fold`` launched inside it; printed: the captures' wall time,
+   the file's size, the device busy share, how far into the window the
+   first host op, launch call and device event lie, launch calls without
+   a device record, and takes/s with and without the capture.
 4. Print the ``kernels`` JSON line, the nvidia-smi line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -1958,15 +1984,11 @@ class ProfileWindow:
                             if name in e.name and str(e.device_type).endswith("CUDA"))
             if len(starts) <= 64:  # each launch's start, in us from the trace's
                 kernels[name]["starts_us"] = starts
-        spans = sorted(
+        spans = [
             (e.time_range.start, e.time_range.end) for e in self.prof.events()
             if str(e.device_type).endswith("CUDA") and e.time_range.end > e.time_range.start
-        )
-        busy, end = 0.0, float("-inf")
-        for a, b in spans:
-            if b > end:
-                busy += b - max(a, end)
-                end = b
+        ]
+        busy = union_length(spans)
         measured = bool(spans)
         return {
             **meta, "wall_s": wall, "kernels": kernels, "device_events": len(spans),
@@ -1974,6 +1996,16 @@ class ProfileWindow:
             "device_busy_share": busy / (wall * 1e6) if measured else None,
             "launches": launches,
         }
+
+
+def union_length(spans) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
 
 
 def plane_counts(hist_mod) -> tuple:
@@ -3373,6 +3405,541 @@ def run_mesh_phase(torch, device="cuda", buckets=BUCKETS, lanes=LANES, trace=Non
     return out
 
 
+# -- phase 3k: the check stages and a device trace, on the card ----------------
+
+JOIN_LAUNCHES = ("pair_join", "row_join", "tick_join")
+# Each lin pin's kernel: the launch counter a pin's calls must move once each.
+LIN_PIN_KERNELS = {"take": "take_n", "lifecycle": "lifecycle_probe", "gcra": "gcra_admit",
+                   "conc": "conc_admit", "quota": "quota_admit"}
+LIN_PIN_K = 2048  # histories (columns) a pin runs at once
+TRACE_NAMES = 2000  # names the peer socket binds on the traced node
+TRACE_S, TRACE_BLAST_S, TRACE_LEAD_S = 2.0, 1.4, 0.3  # capture, blast, blast's start in it
+TRACE_DELTAS = 16  # dv2 entries a datagram during a blast window
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def run_abi_stage(device: str) -> dict:
+    """3k(a): every ABI obligation, one pass at a time, against the port's
+    library, the fold's kernel twins on ``device``. → each pass's seconds
+    and findings (as strings)."""
+    from patrol_tpu_torch.analysis import abi
+    from patrol_tpu_torch.ops.obligations import ABI_OBLIGATIONS
+
+    out = {}
+    for ob in ABI_OBLIGATIONS:
+        t = time.perf_counter()
+        findings = abi.abi_all(only=[ob.name], device=device)
+        out[ob.name] = {"seconds": time.perf_counter() - t,
+                        "findings": [str(f) for f in findings]}
+    return out
+
+
+def run_lin_pins(_build, device: str, k: int = LIN_PIN_K) -> dict:
+    """3k(b): each sequential spec against its kernel on ``device``
+    (``analysis/lin_pins.py``), K histories at once from a seed; → per
+    pin its calls, columns, mismatches, seconds and the launches of its
+    kernel (counted from 0 around the pin)."""
+    from patrol_tpu_torch.analysis import lin_pins
+
+    out = {}
+    for name, pin in lin_pins.PINS.items():
+        _build.reset_launches()
+        t = time.perf_counter()
+        res = pin(device, np.random.default_rng(20261019), k=k)
+        res["seconds"] = time.perf_counter() - t
+        res["launches"] = _build.LAUNCHES[LIN_PIN_KERNELS[name]]
+        out[name] = res
+    return out
+
+
+def start_check_stages() -> dict:
+    """3k(c): ``protocol_repo`` and ``lin_repo`` as subprocesses, started
+    together (pure Python: they run on the host's cores beside the card
+    work of 3k). → the running processes, by stage."""
+    t0 = time.perf_counter()
+    return {
+        stage: (t0, subprocess.Popen(
+            [sys.executable, "-m", f"patrol_tpu_torch.scripts.{stage}_repo"], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+        for stage in ("protocol", "lin")
+    }
+
+
+def finish_check_stages(procs: dict) -> dict:
+    """Wait for :func:`start_check_stages`' processes (each is killed if
+    it outlives its limit). → per stage its exit code, seconds from its
+    start to when it was found done, and stdout lines."""
+    out = {}
+    try:
+        for stage, (t0, p) in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            out[stage] = {"rc": p.returncode, "seconds": time.perf_counter() - t0,
+                          "stdout": stdout.splitlines(), "stderr": stderr[-2000:]}
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    return out
+
+
+def trace_datagrams(names, slot: int, taken: int, seq0: int, per: int):
+    """dv2 datagrams from the peer in lane ``slot``: one entry a name
+    (capacity 1,000 tokens, the sender's own lane at ``taken``
+    nanotokens), ``per`` entries a datagram. → (datagrams, next seq)."""
+    from patrol_tpu_torch.ops import wire
+
+    ents = [wire.DeltaEntry(n, slot, 1000 * NANO, 0, taken, 1) for n in names]
+    out = []
+    for at in range(0, len(ents), per):
+        data, packed = wire.encode_delta_packet(slot, seq0 + len(out), (),
+                                                ents[at:at + per], max_size=DV2_ROW)
+        check(packed == len(ents[at:at + per]), f"a trace datagram packed {packed} entries")
+        out.append(data)
+    return out, seq0 + len(out)
+
+
+def http_get(port: int, target: str, timeout: float = 120) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", target, headers={"Connection": "close"})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def kernel_name(signature: str) -> str:
+    """A kernel event's demangled signature → its function's name
+    (``(anonymous namespace)::take_n_kernel(long long*, ...)`` →
+    ``take_n_kernel``); a templated library kernel keeps its first 80
+    characters."""
+    import re
+
+    m = re.match(r"(?:\(anonymous namespace\)::)?(\w+)\(", signature)
+    return m.group(1) if m else signature[:80]
+
+
+def trace_summary(path: str) -> dict:
+    """A Chrome-trace JSON of ``cuda_trace`` → its window (the profiler's
+    own span), kernel events by name, the device busy share (union of
+    kernel, copy and memset intervals over the window), host ops by
+    thread, and the lead-in: how far into the window the first host op,
+    the first launch call and the first device event lie, and which
+    launch calls have no device record (their correlation ids match no
+    kernel), with their offsets."""
+    import collections
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = next(e for e in events if e.get("cat") == "Trace"
+                and str(e.get("name", "")).startswith("PyTorch Profiler"))
+    w0, wdur = float(span["ts"]), float(span["dur"])
+    xs = [e for e in events if e.get("ph") == "X" and e is not span]
+    dev = [(max(float(e["ts"]), w0), min(float(e["ts"]) + float(e.get("dur", 0)), w0 + wdur))
+           for e in xs if e.get("cat") in DEVICE_CATS]
+    busy = union_length([(a, b) for a, b in dev if b > a])
+    kernels = [e for e in xs if e.get("cat") == "kernel"]
+    by_name = collections.Counter(kernel_name(e["name"]) for e in kernels)
+    launch_calls = [e for e in xs if e.get("cat") == "cuda_runtime"
+                    and "Launch" in str(e.get("name", ""))]
+    device_corr = {e.get("args", {}).get("correlation") for e in xs if e.get("cat") in DEVICE_CATS}
+    unmatched = [round((float(e["ts"]) - w0) / 1e3, 3) for e in launch_calls
+                 if e.get("args", {}).get("correlation") not in device_corr]
+    cpu_ops = [e for e in xs if e.get("cat") == "cpu_op"]
+
+    def first_ms(evs):
+        return round((min(float(e["ts"]) for e in evs) - w0) / 1e3, 3) if evs else None
+
+    return {
+        "window_ms": wdur / 1e3, "events": len(events), "kernels": dict(by_name),
+        "device_events": len(dev), "device_busy_share": busy / wdur if wdur else None,
+        "cpu_ops": len(cpu_ops), "cpu_threads": len({e.get("tid") for e in cpu_ops}),
+        "first_cpu_op_ms": first_ms(cpu_ops), "first_launch_call_ms": first_ms(launch_calls),
+        "first_device_event_ms": first_ms([e for e in xs if e.get("cat") in DEVICE_CATS]),
+        "launch_calls": len(launch_calls), "unmatched_launch_calls": len(unmatched),
+        "unmatched_at_ms": unmatched[:32],
+    }
+
+
+def run_trace_leg(Command, LimiterConfig, _build, device: str = "cuda",
+                  buckets: int = BUCKETS, lanes: int = LANES, names: int = TRACE_NAMES,
+                  windows: bool = True) -> dict:
+    """3k(d): one ``Command`` at the defaults (native front, native UDP
+    backend, host lanes) on ``device``, with a peer socket in its member
+    list. The peer's dv2 deltas bind ``names`` buckets (so their takes
+    ride the device path: a bucket replication created first is not
+    hosted). The Command prepares the profiler as it starts (its seconds
+    are reported); a first capture of 0.5 s follows under load (its wall
+    time is reported). Then three windows, each ``pt_http_blast``
+    over those names for TRACE_BLAST_S while the peer sends a datagram
+    of TRACE_DELTAS deltas every 50 ms: without a capture, under ``GET
+    /debug/cuda/trace?seconds=2`` (the blast starts TRACE_LEAD_S into it,
+    and an overlapping ``GET /debug/pprof/trace`` is sent 0.2 s after
+    that), and without again. → takes/s of each window, the captures'
+    statuses and wall times, the file and its size, the overlap's
+    status, the launch counts (all, and ``decode_fold``'s while the peer
+    sent inside the capture), and :func:`trace_summary` of the file.
+    With ``windows`` false the leg ends after the first capture."""
+    import socket
+
+    from patrol_tpu_torch import native
+    from patrol_tpu_torch.utils import profiling
+
+    lib = native.load(required=True)
+    peer = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    peer.bind(("127.0.0.1", 0))
+    node_addr = f"127.0.0.1:{free_udp_port()}"
+    peer_addr = f"127.0.0.1:{peer.getsockname()[1]}"
+    members = sorted([node_addr, peer_addr])
+    sender_slot = members.index(peer_addr)
+    host, port = node_addr.rsplit(":", 1)
+    dest = (host, int(port))
+    tnames = [f"tr{i:06d}" for i in range(names)]
+    out: dict = {}
+    try:
+        node = Node(Command(
+            api_addr="127.0.0.1:0", node_addr=node_addr, peer_addrs=[node_addr, peer_addr],
+            config=LimiterConfig(buckets=buckets, nodes=lanes), handle_signals=False,
+            warmup=True, device=device,
+        ))
+    except BaseException:
+        peer.close()
+        raise
+    try:
+        cmd = node.cmd
+        eng = cmd.engine
+        out["trace_prepare_s"] = cmd.trace_prepare_s
+        check(cmd.native_front is not None, "the native front was not taken by default")
+        check(type(cmd.replicator).__name__ == "NativeReplicator",
+              f"the native UDP backend was not taken by default: {type(cmd.replicator)}")
+        # Half the capacity spent by the peer, and takes at 1,000 an hour:
+        # no bucket refills to full during the run, so the GC's sweeps at
+        # their defaults reclaim none of them (a reclaimed name would come
+        # back hosted, and its takes would leave the device path).
+        seq = 1
+        taken = 500 * NANO
+        binding, seq = trace_datagrams(tnames, sender_slot, taken, seq, 150)
+        for d in binding:
+            peer.sendto(d, dest)
+        deadline = time.monotonic() + 60
+        while any(eng.tokens_if_known(n) is None for n in (tnames[0], tnames[-1])):
+            check(time.monotonic() < deadline, "the peer's deltas did not bind the trace names")
+            time.sleep(0.05)
+        check(eng.flush(60), "flush after binding timed out")
+        out["hosted_after_binding"] = eng.hosted_buckets
+        targets = "\n".join(f"/take/{n}?rate=1000:1h" for n in tnames).encode()
+        rng = np.random.default_rng(20261020)
+
+        def window(label: str, blast_s: float, may_stall: bool = False) -> dict:
+            nonlocal seq, taken
+            stop = threading.Event()
+            sent = []
+
+            def send():
+                nonlocal seq, taken
+                while not stop.wait(0.05):
+                    taken += NANO
+                    pick = [tnames[i] for i in rng.integers(0, len(tnames), TRACE_DELTAS)]
+                    grams, seq = trace_datagrams(pick, sender_slot, taken, seq, TRACE_DELTAS)
+                    peer.sendto(grams[0], dest)
+                    sent.append(len(pick))
+
+            res5 = np.zeros(5, np.uint64)
+            sender = threading.Thread(target=send)
+            df0 = _build.LAUNCHES["decode_fold"]
+            sender.start()
+            t = time.perf_counter()
+            rc = lib.pt_http_blast(b"127.0.0.1", cmd.api_port, targets, 16, 8,
+                                   int(blast_s * 1000), res5)
+            wall = time.perf_counter() - t
+            stop.set()
+            sender.join(30)
+            check(rc == 0, f"pt_http_blast failed: {rc}")
+            done = int(res5[0])
+            w = {"window": label, "seconds": wall, "requests": done, "takes_per_s": done / wall,
+                 "p50_us": int(res5[1]) / 1e3, "p99_us": int(res5[2]) / 1e3,
+                 "ok_200": int(res5[3]), "limited_429": int(res5[4]),
+                 "deltas_sent": sum(sent), "decode_fold_launches": _build.LAUNCHES["decode_fold"] - df0}
+            check((done > 0 or may_stall) and w["ok_200"] + w["limited_429"] == done,
+                  f"the blast's answers are not all 200 or 429: {w}")
+            return w
+
+        window("warm-up", 0.5)
+        check(eng.flush(60), "flush after the warm-up timed out")
+        # The process's first capture, under the same load (blasts of 0.5 s
+        # back to back until it answers): its wall time is what the route's
+        # first caller waits, its trace shows whether a first capture loses
+        # the window's first device records, and the blasts' counts show
+        # how the node serves meanwhile (a blast may get no answer at all).
+        first: dict = {"blasts": []}
+
+        def first_capture():
+            t = time.perf_counter()
+            first["status"], first["body"] = http_get(cmd.api_port, "/debug/cuda/trace?seconds=0.5")
+            first["wall_s"] = time.perf_counter() - t
+
+        capturer = threading.Thread(target=first_capture)
+        capturer.start()
+        while capturer.is_alive():
+            w = window("first capture", 0.5, may_stall=True)
+            first["blasts"].append([w["requests"], round(w["takes_per_s"], 1)])
+        capturer.join()
+        check(first.get("status") == 200, f"the first /debug/cuda/trace answered {first}")
+        first["trace"] = trace_summary(first["body"].strip().split(" ")[-1])
+        out["first_capture"] = first
+        out["counters"] = {k: profiling.COUNTERS.get(k)
+                           for k in ("trace_captures", "trace_captures_busy")}
+        if not windows:
+            return out
+        _build.reset_launches()
+        out["without_1"] = window("without", TRACE_BLAST_S)
+        cap: dict = {}
+        overlap: dict = {}
+
+        def capture():
+            t = time.perf_counter()
+            cap["status"], cap["body"] = http_get(cmd.api_port, f"/debug/cuda/trace?seconds={TRACE_S:g}")
+            cap["wall_s"] = time.perf_counter() - t
+
+        def overlapping():
+            time.sleep(0.2)
+            t = time.perf_counter()
+            overlap["status"], overlap["body"] = http_get(cmd.api_port, "/debug/pprof/trace?seconds=1")
+            overlap["wall_s"] = time.perf_counter() - t
+
+        capturer = threading.Thread(target=capture)
+        capturer.start()
+        time.sleep(TRACE_LEAD_S)
+        overlapper = threading.Thread(target=overlapping)
+        overlapper.start()
+        out["with"] = window("with", TRACE_BLAST_S)
+        capturer.join(120)
+        overlapper.join(120)
+        check(not capturer.is_alive() and not overlapper.is_alive(), "a trace request hung")
+        out["without_2"] = window("without", TRACE_BLAST_S)
+        check(eng.flush(60), "flush after the trace leg timed out")
+        out["launches"] = dict(_build.LAUNCHES)
+        out["capture"] = cap
+        out["overlap"] = overlap
+        check(cap.get("status") == 200, f"/debug/cuda/trace answered {cap}")
+        path = cap["body"].strip().split(" ")[-1]
+        out["trace_path"] = path
+        out["trace_bytes"] = os.path.getsize(path)
+        out["trace"] = trace_summary(path)
+        out["counters"] = {k: profiling.COUNTERS.get(k)
+                           for k in ("trace_captures", "trace_captures_busy")}
+    finally:
+        try:
+            node.close()
+        finally:
+            peer.close()
+    return out
+
+
+def trace_leg_child(prepare: bool = True) -> dict:
+    """:func:`run_trace_leg` at full size on the card, for a fresh process
+    (:func:`fresh_trace_leg_argv` starts it): a node whose process has
+    never started the profiler, as a deployed one. With ``prepare``
+    false (the soak's control) the node skips its start-up
+    ``prepare_cuda_trace``, so the first capture does the profiler's
+    set-up under load. Prints the leg's result as one JSON line and
+    returns it."""
+    sys.path.insert(0, HERE)
+    from patrol_tpu_torch import native
+    from patrol_tpu_torch.command import Command
+    from patrol_tpu_torch.models.limiter import LimiterConfig
+    from patrol_tpu_torch.ops import _build
+    from patrol_tpu_torch.utils import profiling
+
+    if not prepare:
+        profiling.prepare_cuda_trace = lambda: 0.0
+    native.load(required=True)
+    _build.lib()
+    out = run_trace_leg(Command, LimiterConfig, _build)
+    print(json.dumps(out, default=str))
+    return out
+
+
+def fresh_trace_leg_argv(prepare: bool = True) -> list:
+    """The command of a fresh-process trace leg (:func:`trace_leg_child`),
+    with ``faulthandler`` on, so that a crash names every Python
+    thread's frame."""
+    return [sys.executable, "-X", "faulthandler", "-c",
+            f"import chip_smoke; chip_smoke.trace_leg_child(prepare={prepare})"]
+
+
+def run_fresh_trace_leg() -> dict:
+    """3k(d) in a fresh process (:func:`trace_leg_child`), the kernels
+    and the host library already built. → its result."""
+    res = subprocess.run(fresh_trace_leg_argv(), cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    check(res.returncode == 0, f"the fresh trace leg exited {res.returncode}: {res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def trace_soak(argv: list) -> int:
+    """``python3 chip_smoke.py --fresh-trace-legs N [--unprepared]``: N
+    fresh-process trace legs, two at a time, after the kernels and the
+    host library are built. ``--unprepared`` is the
+    control: each node leaves the profiler's set-up to its first capture,
+    under load. Prints one JSON line a leg (its exit code, whether it
+    printed its result before it ended, the set-up's and the captures'
+    seconds) and a summary line; every leg's standard error goes to
+    ``chiprun_out/trace_soak/``. → 0 when every leg exited 0."""
+    import argparse
+    import concurrent.futures
+
+    import torch
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--fresh-trace-legs", type=int, required=True)
+    ap.add_argument("--unprepared", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from patrol_tpu_torch import native
+    from patrol_tpu_torch.ops import _build
+
+    _build.build()
+    _build.lib()
+    native.load(required=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    out_dir = os.path.join(HERE, "chiprun_out", "trace_soak")
+    os.makedirs(out_dir, exist_ok=True)
+    argv_leg = fresh_trace_leg_argv(prepare=not args.unprepared)
+
+    def leg(i: int) -> dict:
+        t = time.perf_counter()
+        try:
+            res = subprocess.run(argv_leg, cwd=HERE, capture_output=True, text=True, timeout=600)
+            rc, stdout, stderr = res.returncode, res.stdout, res.stderr
+        except subprocess.TimeoutExpired as exc:
+            rc, stdout, stderr = "timeout", "", str(exc.stderr)
+        with open(os.path.join(out_dir, f"leg{i}.err"), "w") as f:
+            f.write(stderr)
+        lines = stdout.strip().splitlines()
+        out = {"leg": i, "rc": rc, "wall_s": time.perf_counter() - t, "printed_result": bool(lines)}
+        if lines:
+            r = json.loads(lines[-1])
+            out.update(prepare_s=r["trace_prepare_s"], first_capture_s=r["first_capture"]["wall_s"],
+                       capture_s=r["capture"]["wall_s"], overlap=r["overlap"].get("status"))
+        print(json.dumps(out), flush=True)
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        legs = list(pool.map(leg, range(args.fresh_trace_legs)))
+    failed = [x["leg"] for x in legs if x["rc"] != 0]
+    print(json.dumps({"trace_soak": {"legs": len(legs), "parallel": 2,
+                                     "prepared": not args.unprepared, "failed": failed,
+                                     "card": smi}}))
+    return 1 if failed else 0
+
+
+def run_check_stage_phase(torch, Command, LimiterConfig, _build) -> dict:
+    """Phase 3k on the card: (c) the protocol and lin stages start as
+    subprocesses, and beside them (a) the ABI stage with the fold's twins
+    on ``join.cu``, (b) the lin pins on ``take.cu``, ``lifecycle.cu`` and
+    ``cert.cu`` and (d) the trace leg's first capture in this process
+    (which has opened profiler windows in earlier phases); once the
+    stages are done, (d) the whole leg in a fresh process. Any failed
+    check raises. → the phase's numbers."""
+    t0 = time.perf_counter()
+    from patrol_tpu_torch.ops.obligations import MUTATIONS as REGISTERED
+
+    running = start_check_stages()
+    try:
+        _build.reset_launches()
+        abi_stage = run_abi_stage("cuda")
+        abi_launches = dict(_build.LAUNCHES)
+        for name, res in abi_stage.items():
+            check(res["findings"] == [], f"patrol-abi on the card, {name}: {res['findings'][:5]}")
+        check(sum(abi_launches[k] for k in JOIN_LAUNCHES) > 0,
+              f"the ABI stage's fold twins did not launch the join kernel: {abi_launches}")
+        pins = run_lin_pins(_build, "cuda")
+        for name, res in pins.items():
+            check(res["mismatch_count"] == 0, f"lin pin {name} on the card: {res['mismatches']}")
+            check(res["launches"] == res["calls"] > 0,
+                  f"lin pin {name}: {res['launches']} launches of {LIN_PIN_KERNELS[name]} "
+                  f"for {res['calls']} calls")
+        torch.cuda.empty_cache()
+        inproc = run_trace_leg(Command, LimiterConfig, _build, windows=False)
+    finally:
+        stages = finish_check_stages(running)
+    # After the stages: their Python would compete with the profiler's
+    # start-up in the fresh process.
+    torch.cuda.empty_cache()
+    tleg = run_fresh_trace_leg()
+    for stage, res in stages.items():
+        check(res["rc"] == 0, f"{stage}_repo exited {res['rc']}: {res['stdout'][-5:]} {res['stderr']}")
+        for m in REGISTERED:
+            if m.stage == stage:
+                line = f"patrol-{stage}: mutation '{m.name}' REJECTED by {m.expect} (good)"
+                check(line in res["stdout"], f"{stage}_repo printed no '{line}'")
+    tsum = tleg["trace"]
+    check(tleg["trace_prepare_s"] > 0,
+          "the fresh node did not prepare the profiler as it started (ROADMAP C6)")
+    check(tleg["overlap"].get("status") == 409,
+          f"an overlapping /debug/pprof/trace answered {tleg['overlap']}")
+    for label, summary in (("in-process first capture", inproc["first_capture"]["trace"]),
+                           ("fresh first capture", tleg["first_capture"]["trace"]),
+                           ("fresh capture", tsum)):
+        names = summary["kernels"]
+        check(names.get("take_n_kernel", 0) + names.get("join_kernel", 0) > 0,
+              f"the {label} holds neither take_n_kernel nor join_kernel: {names}")
+    if tleg["with"]["decode_fold_launches"] > 0:
+        check(tsum["kernels"].get("decode_fold_kernel", 0) > 0,
+              f"decode_fold launched {tleg['with']['decode_fold_launches']} times in the "
+              f"capture, but the trace holds no decode_fold_kernel: {tsum['kernels']}")
+    check(tleg["launches"]["take_n"] > 0, "the traced node's takes did not launch take_n")
+    phase = {
+        "abi": {"seconds": {k: v["seconds"] for k, v in abi_stage.items()},
+                "launches": abi_launches},
+        "lin_pins": {k: {kk: v[kk] for kk in ("calls", "columns", "seconds", "launches")}
+                     for k, v in pins.items()},
+        "stages": {k: {"seconds": v["seconds"], "summary": v["stdout"][-1]}
+                   for k, v in stages.items()},
+        "trace_in_process": inproc,
+        "trace": tleg,
+        "phase_s": time.perf_counter() - t0,
+    }
+    log(f"3k: {json.dumps(phase, default=str)}")
+    print("3k abi on the card: clean; seconds a pass "
+          f"{json.dumps({k: round(v, 3) for k, v in phase['abi']['seconds'].items()})}, "
+          f"launches {json.dumps({k: v for k, v in abi_launches.items() if v})}")
+    print("3k lin pins on the card, bit for bit: " + json.dumps(phase["lin_pins"]))
+    print("3k stages (beside 3k(a), (b) and the in-process capture): " + json.dumps(
+        {k: [round(v["seconds"], 2), v["summary"]] for k, v in phase["stages"].items()}))
+
+    def lead(summary) -> str:
+        return (f"first host op {summary['first_cpu_op_ms']} ms, launch call "
+                f"{summary['first_launch_call_ms']} ms, device event "
+                f"{summary['first_device_event_ms']} ms in; {summary['launch_calls']} launch "
+                f"calls, {summary['unmatched_launch_calls']} without a device record at "
+                f"{summary['unmatched_at_ms']} ms")
+
+    for label, leg in (("in this process", inproc), ("fresh process", tleg)):
+        first = leg["first_capture"]
+        print(f"3k trace, {label}, profiler prepared at the node's start-up in "
+              f"{leg['trace_prepare_s']:.3f} s, first capture of 0.5 s: {first['wall_s']:.3f} s wall "
+              f"(blasts of 0.5 s meanwhile, [answers, takes/s]: {first['blasts']}); "
+              + lead(first["trace"]))
+    print(f"3k trace, fresh process, capture of 2 s: {tleg['capture']['wall_s']:.3f} s wall, "
+          f"{tleg['trace_bytes']} B, overlap {tleg['overlap']['status']} in "
+          f"{tleg['overlap']['wall_s']:.3f} s; kernels {json.dumps(tsum['kernels'])}; device busy "
+          f"{tsum['device_busy_share']}; " + lead(tsum) + f"; host ops {tsum['cpu_ops']} on "
+          f"{tsum['cpu_threads']} threads; takes/s without "
+          f"{tleg['without_1']['takes_per_s']:.1f}, with {tleg['with']['takes_per_s']:.1f}, "
+          f"without {tleg['without_2']['takes_per_s']:.1f}; phase {phase['phase_s']:.1f} s")
+    return phase
+
+
 def fold_timing(engine_mod, reps: int = 5) -> dict:
     """The tick fold on one clustered batch, 131,072 deltas over 64 rows
     and 64 lanes (the reference's motivating shape): host ns of the numpy
@@ -3843,6 +4410,15 @@ def main() -> int:
     log(f"probe: per-row ns {per_row}, launches {probe_launches}")
     print("probe_per_row_ns " + " ".join(f"{k} {v:.3f}" for k, v in per_row.items()))
 
+    # 3k. The check stages on the card (ABI with the fold's twins on
+    # join.cu, the lin pins on take.cu, lifecycle.cu and cert.cu, the
+    # protocol and lin stages as subprocesses), then a device trace of a
+    # live node through /debug/cuda/trace.
+    k3 = run_check_stage_phase(torch, Command, LimiterConfig, _build)
+    report["check_stages"] = k3
+    abi_launches, tleg = k3["abi"]["launches"], k3["trace"]
+    torch.cuda.empty_cache()
+
     # 4. The kernels line, the card, the contract line.
     kernels = []
     for name, src, replaces, m, n in (
@@ -3933,11 +4509,15 @@ def main() -> int:
                              ("3j_r2", mesh["r2"]["launches"]),
                              ("3j_r4", mesh["r4"]["launches"]),
                              ("3j_r1", mesh["r1"]["launches"]),
-                             ("3j_resize", mesh["r2"]["resize_launches"])):
+                             ("3j_resize", mesh["r2"]["resize_launches"]),
+                             ("3k_abi", abi_launches),
+                             ("3k_lin", {LIN_PIN_KERNELS[k]: v["launches"]
+                                         for k, v in k3["lin_pins"].items()}),
+                             ("3k_trace", tleg["launches"])):
             if name in ("pair_join", "row_join", "tick_join"):
-                entry[f"launches_{path}"] = sum(counts[k] for k in ("pair_join", "row_join", "tick_join"))
+                entry[f"launches_{path}"] = sum(counts.get(k, 0) for k in JOIN_LAUNCHES)
             elif name != "row_rmw":
-                entry[f"launches_{path}"] = counts[name]
+                entry[f"launches_{path}"] = counts.get(name, 0)
         if name == "decode_fold":
             entry["hosted_launches_3g"] = two_d["counters"].get("ingest_raw_hosted_dispatches", 0)
         if name in ("pair_join", "row_join", "tick_join"):
@@ -3985,4 +4565,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(trace_soak(sys.argv[1:]) if sys.argv[1:] else main())

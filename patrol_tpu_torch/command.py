@@ -92,6 +92,9 @@ class Command:
     started: asyncio.Event = dataclasses.field(default_factory=asyncio.Event)
     # The bound HTTP port (useful with an ephemeral ``:0`` api_addr).
     api_port: int = 0
+    # Seconds of profiling.prepare_cuda_trace at start-up (on a card; 0.0
+    # when the process had done it already).
+    trace_prepare_s: float = 0.0
 
     def check_ported(self) -> None:
         """Raise :class:`NotPortedError` for a configuration this package
@@ -158,6 +161,16 @@ class Command:
                 # store; the asyncio front keeps the Python host lanes.
                 native_host=(http_front == "native"),
             )
+        if engine.device.type == "cuda":
+            # The profiler's one-time set-up, here on the loop's thread
+            # (the CLI's main one) before anything serves, rather than on
+            # the executor thread of the first /debug/cuda/trace under load.
+            try:
+                self.trace_prepare_s = profiling.prepare_cuda_trace()
+            except BaseException:
+                engine.stop()
+                raise
+            log.info("profiler prepared", extra={"seconds": round(self.trace_prepare_s, 2)})
         from patrol_tpu_torch.net import native_replication
 
         use_native = self.udp_backend == "native" or (

@@ -179,8 +179,8 @@ class API:
             return self._cluster(path)
         if path == "/admin/peers":
             return self._admin_peers(method, query)
-        # /debug/jax/trace (the JAX profiler) has no counterpart here and
-        # falls through to 404 like any unknown route.
+        # /debug/jax/trace (the JAX profiler) is not served: the port has
+        # no JAX, and /debug/cuda/trace is its device trace.
         return 404, b"not found\n", "text/plain"
 
     # -- the hot route (api.go:51-86) ---------------------------------------
@@ -410,6 +410,8 @@ class API:
                 "/debug/pprof/allocs             allocation summary\n"
                 "/debug/trace/ring               flight-recorder rings, Chrome-trace JSON (&snapshot=N for anomaly snapshots)\n"
                 "/debug/trace/spans              cross-node take spans JSON (&trace_id=N to filter)\n"
+                "/debug/cuda/trace?seconds=N     torch.profiler capture (host ops, card kernels), Chrome-trace JSON path\n"
+                "/debug/pprof/trace?seconds=N    the same capture (default 1 s)\n"
                 "/debug/vars                     engine stats JSON (incl. histogram summaries)\n"
                 "/metrics                        prometheus text exposition (gauges + latency histograms)\n"
                 "/debug/audit                    patrol-audit consistency gauges + last overshoot evaluation JSON\n"
@@ -492,6 +494,23 @@ class API:
             # string table), so there is nothing to resolve — answer the
             # probe in the expected format.
             return 200, b"num_symbols: 1\n", "text/plain"
+        if path in ("/debug/cuda/trace", "/debug/pprof/trace"):
+            # Go's /debug/pprof/trace is a runtime execution trace; here
+            # both routes take the device trace (the reference's
+            # /debug/jax/trace). Unlike the reference's /debug/pprof/trace,
+            # both answer an overlapping capture with 409.
+            default = "2" if path == "/debug/cuda/trace" else "1"
+            try:
+                seconds = float(q.get("seconds", [default])[0])
+            except ValueError:
+                return 400, b"bad seconds\n", "text/plain"
+            if not seconds >= 0:
+                return 400, b"bad seconds\n", "text/plain"
+            try:
+                out = await loop.run_in_executor(None, profiling.cuda_trace, seconds)
+            except profiling.ProfilerBusyError:
+                return 409, b"a trace capture is already running; retry later\n", "text/plain"
+            return 200, f"trace written to {out}\n".encode(), "text/plain"
         return 404, b"not found\n", "text/plain"
 
     def _cluster(self, path: str) -> Tuple[int, bytes, str]:

@@ -9,12 +9,17 @@ Python-host + CUDA-device process:
 * :func:`thread_dump` — all-thread stack dump (≙ ``/debug/pprof/goroutine``).
 * :func:`heap_summary` — allocation summary via ``tracemalloc`` when
   enabled, else GC stats (≙ ``/debug/pprof/heap`` / ``allocs``).
+* :func:`cuda_trace` — a ``torch.profiler`` capture of the whole process
+  (host ops, and the card's kernels and copies when a card is present)
+  as a Chrome-trace JSON (≙ the reference's ``jax_trace``).
 """
 
 from __future__ import annotations
 
 import gc
+import os
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -336,6 +341,11 @@ class CounterRegistry:
         # batches shipped straight from page-locked rx ring planes.
         "fold_native_ticks",
         "ingest_raw_pinned_ships",
+        # Device-trace captures (cuda_trace, /debug/cuda/trace and
+        # /debug/pprof/trace): captures written, and requests refused
+        # because another capture was running (the routes' 409).
+        "trace_captures",
+        "trace_captures_busy",
     )
 
     def __init__(self):
@@ -474,3 +484,113 @@ def heap_summary(limit: int = 30) -> str:
             lines.append(f"gen{i}: {gen}")
         lines.append(f"objects: {len(gc.get_objects())}")
     return "\n".join(lines) + "\n"
+
+
+class ProfilerBusyError(RuntimeError):
+    """A trace capture is already running (the routes answer 409)."""
+
+
+# One capture at a time: the profiler is process-global state, and a
+# second overlapping capture would start it twice. Serialized here rather
+# than in the HTTP layer so both fronts (and direct callers) get the same
+# busy contract, as the reference's jax_trace does.
+_cuda_trace_mu = threading.Lock()
+_cuda_trace_prepared = False  # the profiler's one-time set-up is done
+
+
+def _trace_profile():
+    """The capture's ``torch.profiler.profile`` (not started) and whether
+    a card is traced: CPU activity of every thread (the engine's feeder
+    and completer, the fronts' pumps), not only the capturing one, plus
+    the CUDA activity (kernels, copies, through CUPTI) whenever a card is
+    present, whichever device the engine uses. A torch build that cannot
+    trace a present card raises rather than drop the device's events."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    card = torch.cuda.is_available()
+    if card:
+        cuda = torch.profiler.ProfilerActivity.CUDA
+        if cuda not in torch.profiler.supported_activities():
+            raise RuntimeError(
+                "a card is present but this torch build cannot trace it "
+                "(no CUDA profiler activity)"
+            )
+        acts.append(cuda)
+    every_thread = _ExperimentalConfig(profile_all_threads=True)
+    return torch.profiler.profile(activities=acts, experimental_config=every_thread), card
+
+
+def prepare_cuda_trace() -> float:
+    """The profiler's one-time set-up (Kineto, and CUPTI on a card), as
+    an empty capture, once a process. → its seconds (0.0 when already
+    done).
+
+    A process that serves on a card calls this before it serves
+    (:class:`Command` does, on its loop's thread as it starts). Left to
+    the first :func:`cuda_trace`, the set-up runs while the node serves:
+    on an H100 it then took several times as long, the node served more
+    slowly meanwhile, and some such processes died of a segmentation
+    fault as they exited (``PERF.md`` §6; ``ROADMAP.md`` C6). Kineto's "External init
+    callback must run in same thread as registerClient", printed when
+    the set-up runs on another thread than the one that imported torch,
+    is harmless: prepared before serving on such a thread, no process
+    crashed."""
+    global _cuda_trace_prepared
+    with _cuda_trace_mu:
+        if _cuda_trace_prepared:
+            return 0.0
+        t = time.perf_counter()
+        prof, card = _trace_profile()
+        with prof:
+            if card:
+                import torch
+
+                torch.cuda.synchronize()
+        _cuda_trace_prepared = True
+        return time.perf_counter() - t
+
+
+def cuda_trace(duration_s: float = 2.0, out_dir: Optional[str] = None) -> str:
+    """Capture ``min(duration_s, 30)`` seconds of the whole process with
+    ``torch.profiler`` and write it as a Chrome-trace JSON (Perfetto,
+    ``chrome://tracing``) into ``out_dir``, by default a new
+    ``patrol-cuda-trace-*`` temp directory. → the JSON's path.
+
+    What it records is :func:`_trace_profile`'s: every thread's torch
+    ops, and the card's kernels and copies when a card is present. The
+    card is synchronized before the capture stops, so every kernel
+    launched inside the window is complete in the trace.
+
+    Raises :class:`ProfilerBusyError` when a capture is already running.
+
+    A node's capture does not lose its window's first milliseconds: on
+    an H100 serving device-path takes (``chip_smoke.py`` phase 3k(d), in
+    a fresh process as a deployed node runs), every launch call in the
+    window had its kernel record, on the process's first capture and on
+    a later one. In the smoke run's own process, after its earlier
+    profiled windows (which wait out a 0.25 s lead-in for that reason),
+    a capture lost the device records of its first few launches. In a
+    process that has not run :func:`prepare_cuda_trace`, the first
+    capture does that set-up before its window opens."""
+    global _cuda_trace_prepared
+    if not _cuda_trace_mu.acquire(blocking=False):
+        COUNTERS.inc("trace_captures_busy")
+        raise ProfilerBusyError("a trace capture is already running")
+    try:
+        prof, card = _trace_profile()
+        out = out_dir or tempfile.mkdtemp(prefix="patrol-cuda-trace-")
+        path = os.path.join(out, "trace.json")
+        with prof:
+            time.sleep(min(duration_s, 30.0))
+            if card:
+                import torch
+
+                torch.cuda.synchronize()
+        _cuda_trace_prepared = True
+        prof.export_chrome_trace(path)
+        COUNTERS.inc("trace_captures")
+        return path
+    finally:
+        _cuda_trace_mu.release()

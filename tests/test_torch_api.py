@@ -244,7 +244,7 @@ def test_native_front_serves_the_script(monkeypatch, front):
 
 def test_port_only_answers_404_for_planes_not_ported():
     # The replicator's planes answer; the JAX profiler's route has no
-    # counterpart in the port.
+    # counterpart in the port (its device trace is /debug/cuda/trace).
     tcmd = TCommand(
         api_addr="127.0.0.1:0", node_addr=f"127.0.0.1:{_free_port(socket.SOCK_DGRAM)}",
         clock=Clock(), config=TConfig(16, 2), handle_signals=False, device="cpu",
@@ -255,6 +255,7 @@ def test_port_only_answers_404_for_planes_not_ported():
             ("/cluster/vars", 200), ("/cluster/metrics", 200), ("/admin/peers", 200),
             ("/debug/audit", 200),
             ("/debug/jax/trace", 404),
+            ("/debug/cuda/trace?seconds=0.05", 200), ("/debug/pprof/trace?seconds=0.05", 200),
         ):
             conn = http.client.HTTPConnection("127.0.0.1", tcmd.api_port, timeout=30)
             conn.request("GET", target)

@@ -73,6 +73,58 @@ def test_lifecycle_and_checkpoint_import_without_jax():
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
+ANALYSIS_MODULES = (
+    "patrol_tpu_torch.analysis.driver", "patrol_tpu_torch.analysis.lint",
+    "patrol_tpu_torch.analysis.protocol", "patrol_tpu_torch.analysis.linearizability",
+    "patrol_tpu_torch.analysis.abi", "patrol_tpu_torch.analysis.lin_pins",
+    "patrol_tpu_torch.ops.obligations", "patrol_tpu_torch.scripts.protocol_repo",
+    "patrol_tpu_torch.scripts.lin_repo", "patrol_tpu_torch.scripts.abi_repo",
+)
+
+
+def test_check_stages_import_without_jax_or_the_jax_package():
+    # The port's check stages are copies of JAX-free reference modules:
+    # importing them (and their registry) loads neither jax nor any
+    # patrol_tpu module; the protocol and lin stages need no torch either.
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {ANALYSIS_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules\n"
+        "                        if k.split('.')[0] in ('jax', 'jaxlib', 'patrol_tpu'))))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+    stages = (
+        "import json, sys\n"
+        "import patrol_tpu_torch.scripts.protocol_repo, patrol_tpu_torch.scripts.lin_repo\n"
+        "import patrol_tpu_torch.analysis.linearizability, patrol_tpu_torch.ops.obligations\n"
+        "print(json.dumps('torch' in sys.modules))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", stages], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) is False
+
+
+def test_check_stage_sources_name_no_jax_import():
+    # A textual check beside the AST walk below: no line of the new stage
+    # files imports jax or a module of the JAX package.
+    bad = re.compile(r"^\s*(import jax|from jax|from patrol_tpu\.|import patrol_tpu\.|"
+                     r"from patrol_tpu import|import patrol_tpu\s*$)", re.MULTILINE)
+    files = [REPO / (m.replace(".", "/") + ".py") for m in ANALYSIS_MODULES]
+    files.append(PKG_DIR / "analysis" / "__init__.py")
+    for path in files:
+        assert path.is_file(), path
+        assert not bad.search(path.read_text()), path
+
+
 def _imported_roots(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
