@@ -228,6 +228,22 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    the file's size, the device busy share, how far into the window the
    first host op, launch call and device event lie, launch calls without
    a device record, and takes/s with and without the capture.
+3l. The lint and race stages over the port's own code, and a sync
+   witness. (a) ``lint_repo``, ``race_repo`` and ``race_repo --mutation``
+   for each seeded seam mutation as subprocesses: all exit 0, lint
+   clean, race's clean line (seam states explored), each mutation
+   rejected with its code. (b) Beside them, each of the 12 wrappers of
+   ``_build.LAUNCHES`` on device operands at the main path's shapes
+   (phase 2's input functions: the 1M x 64 state, the probe's int32[1M,
+   8, 128]) once to warm up, then once under
+   ``torch.cuda.set_sync_debug_mode("error")`` (mode 0 again in a
+   ``finally``): none may raise, and each call must move its own launch
+   count by exactly one. Two mutants of take-n's wrapper, built as text
+   from its source (never in the package), add ``int(out.sum())`` or a
+   boolean-mask read of its output after the launch: each must raise
+   under the mode, and the port's lint must give PTL002 on the added
+   line. Printed: the stages' seconds and lines, the wrappers and their
+   launches, the window's seconds, the mutants' verdicts.
 4. Print the ``kernels`` JSON line, the nvidia-smi line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -3467,21 +3483,34 @@ def start_check_stages() -> dict:
 
 
 def finish_check_stages(procs: dict) -> dict:
-    """Wait for :func:`start_check_stages`' processes (each is killed if
-    it outlives its limit). → per stage its exit code, seconds from its
-    start to when it was found done, and stdout lines."""
+    """Wait for the stage processes of :func:`start_check_stages` or
+    :func:`start_lint_race_stages`, one waiting thread each (each process
+    is killed if it outlives its limit). → per stage its exit code, the
+    seconds from its start to its exit, and its stdout lines."""
     out = {}
+
+    def wait(stage, t0, p):
+        try:
+            stdout, stderr = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, stderr = p.communicate(timeout=30)
+        out[stage] = {"rc": p.returncode, "seconds": time.perf_counter() - t0,
+                      "stdout": stdout.splitlines(), "stderr": stderr[-2000:]}
+
+    started = []
     try:
         for stage, (t0, p) in procs.items():
-            stdout, stderr = p.communicate(timeout=600)
-            out[stage] = {"rc": p.returncode, "seconds": time.perf_counter() - t0,
-                          "stdout": stdout.splitlines(), "stderr": stderr[-2000:]}
+            started.append(threading.Thread(target=wait, args=(stage, t0, p)))
+            started[-1].start()
     finally:
+        for w in started:
+            w.join()
         for _, p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait(30)
-    return out
+    return {stage: out[stage] for stage in procs}
 
 
 def trace_datagrams(names, slot: int, taken: int, seq0: int, per: int):
@@ -3937,6 +3966,217 @@ def run_check_stage_phase(torch, Command, LimiterConfig, _build) -> dict:
           f"{tsum['cpu_threads']} threads; takes/s without "
           f"{tleg['without_1']['takes_per_s']:.1f}, with {tleg['with']['takes_per_s']:.1f}, "
           f"without {tleg['without_2']['takes_per_s']:.1f}; phase {phase['phase_s']:.1f} s")
+    return phase
+
+
+# The take-n wrapper's launch, the line each sync mutant follows, and the
+# mutants (never in the package: built as text from the wrapper's source).
+SYNC_LAUNCH_LINE = '    _build.count_launch("take_n")\n'
+SYNC_MUTANTS = {
+    "int(out.sum())": "    int(out.sum())\n",
+    "out[:, out[1] > 0]": "    out[:, out[1] > 0]\n",
+}
+
+
+def start_lint_race_stages() -> dict:
+    """3l(a): ``lint_repo``, ``race_repo`` and one ``race_repo
+    --mutation`` a seeded seam mutation, as subprocesses started together
+    (pure Python, on the host's cores beside 3l(b)). → the running
+    processes, by label."""
+    from patrol_tpu_torch.analysis.race import SEAM_MUTATIONS
+
+    argvs = {"lint": ["lint_repo"], "race": ["race_repo"]}
+    argvs.update({f"race --mutation {m}": ["race_repo", "--mutation", m] for m in SEAM_MUTATIONS})
+    t0 = time.perf_counter()
+    return {
+        label: (t0, subprocess.Popen(
+            [sys.executable, "-m", f"patrol_tpu_torch.scripts.{argv[0]}", *argv[1:]], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+        for label, argv in argvs.items()
+    }
+
+
+def witness_calls(torch, dev, rng) -> dict:
+    """3l(b)'s calls: each of the 12 wrappers of ``_build.LAUNCHES`` on
+    device operands at the main path's shapes, made by phase 2's input
+    functions: one 1M x 64 state under the join (8,192 pairs, 512 dense
+    rows, both in one tick), take-n (``take_inputs``, K = 4,096),
+    ``decode_fold`` (``decode_fold_inputs``, P = 512), the lifecycle probe
+    (``lifecycle_inputs``, K = 8,192), the three families
+    (``cert_request``, K = 8,192) and the mesh gather and converge (R = 2,
+    T = 4,096); ``row_rmw`` on the probe's int32[1M, 8, 128] state,
+    K = 8,192. → {wrapper name: a call with no arguments}."""
+    from patrol_tpu_torch.ops import converge_kernel as ck
+    from patrol_tpu_torch.ops import ingest_kernel as ik
+    from patrol_tpu_torch.ops import join_kernel as jk
+    from patrol_tpu_torch.ops import lifecycle_kernel as lk
+    from patrol_tpu_torch.ops import row_rmw_kernel as rk
+    from patrol_tpu_torch.ops import take_kernel as tk
+
+    def d(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    pn_np, el_np, packed_np = take_inputs(rng, BUCKETS, LANES)
+    pn, el = d(pn_np), d(el_np)
+    del pn_np, el_np
+    packed = d(packed_np)
+    big = 1 << 40
+    k, r = 8192, 512
+    rows = rng.choice(BUCKETS, r + k, replace=False)
+    pairs = [d(x.astype(np.int64)) for x in (
+        rows[r:], rng.integers(0, LANES, k), *rng.integers(0, big, (2, k)), rows[r:],
+        rng.integers(0, big, k))]
+    dense = [d(rows[:r].astype(np.int64)), d(rng.integers(0, big, (r, LANES, 2))),
+             d(rng.integers(0, big, r))]
+    planes, lengths, eoff, drows, hosted, _, _ = decode_fold_inputs(rng, 512)
+    fold_args = [d(x) for x in (planes, lengths, eoff, drows, hosted)]
+    _, _, cols = lifecycle_inputs(rng, BUCKETS, LANES)
+    cols = [d(c) for c in cols]
+    fam = {f: cert_pack(torch, f, cert_request(rng, f, CERT_K, BUCKETS), BUCKETS, dev)
+           for f in CERT_FAMILIES}
+    cr, ct, cn = CONVERGE_MAIN
+    crows = d(rng.choice(BUCKETS, ct, replace=False).astype(np.int64))
+    spn = torch.empty((cr, ct, cn, 2), dtype=torch.int64, device=dev)
+    sel = torch.empty((cr, ct), dtype=torch.int64, device=dev)
+    state = torch.empty((PROBE_BUCKETS, 8, 128), dtype=torch.int32, device=dev)
+    state.random_(-(1 << 31), (1 << 31) - 1)
+    rmw = [d(x.astype(np.int32)) for x in (
+        rng.choice(PROBE_BUCKETS, PROBE_K, replace=False), rng.integers(0, 512, PROBE_K) * 2,
+        *rng.integers(-(1 << 31), 1 << 31, size=(2, PROBE_K)))]
+    from patrol_tpu_torch.ops import cert_kernel
+
+    return {
+        "pair_join": lambda: jk.pair_join(pn, el, *pairs),
+        "row_join": lambda: jk.row_join(pn, el, *dense),
+        "tick_join": lambda: jk.tick_join(pn, el, dense, pairs),
+        "take_n": lambda: tk.take_n(pn, el, packed, 0),
+        "decode_fold": lambda: ik.decode_fold(pn, el, *fold_args),
+        "row_rmw": lambda: rk.row_rmw(state, *rmw, "pairmax"),
+        "lifecycle_probe": lambda: lk.probe(pn, el, *cols, 0),
+        "gcra_admit": lambda: cert_kernel.run("gcra", pn, fam["gcra"], 0),
+        "conc_admit": lambda: cert_kernel.run("conc", pn, fam["conc"], 0),
+        "quota_admit": lambda: cert_kernel.run("quota", pn, fam["quota"], 0),
+        "mesh_gather": lambda: ck.gather(pn, el, crows, spn, sel),
+        "converge": lambda: ck.converge(pn, el, crows, spn, sel),
+    }, (pn, el, packed)
+
+
+def sync_witness(torch, _build, calls: dict) -> dict:
+    """3l(b): each wrapper once to warm up (the library's load, the
+    allocator's growth, the families' occupancy query and barrier word),
+    then once more under ``torch.cuda.set_sync_debug_mode("error")``: a
+    call that makes torch synchronize with the card raises there, and the
+    phase fails on it. Each call must move its own launch count by one
+    and no other. The mode is back at 0 whatever happens. → per wrapper
+    its launches in the window, and the window's seconds."""
+    check(set(calls) == set(_build.LAUNCHES),
+          f"the witness calls {sorted(calls)}, the wrappers are {sorted(_build.LAUNCHES)}")
+    for call in calls.values():
+        call()
+    torch.cuda.synchronize()
+    moved = {}
+    t = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, call in calls.items():
+            before = dict(_build.LAUNCHES)
+            call()
+            moved[name] = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    seconds = time.perf_counter() - t
+    torch.cuda.synchronize()
+    for name, m in moved.items():
+        check(m == {name: 1}, f"{name} under the sync detector moved the launch counts by {m}")
+    return {"launches": {name: m[name] for name, m in moved.items()}, "seconds": seconds}
+
+
+def sync_mutants(torch, tk, operands) -> dict:
+    """3l(b)'s teeth: take-n's wrapper with a host sync after its launch,
+    built as a module from the wrapper's source with one line added (never
+    in the package). Each mutant must raise under the sync detector, and
+    its source, handed to the port's lint as text, must give PTL002 on the
+    added line; the wrapper's own source must lint clean the same way.
+    → per mutant: what it raised, and the lint's findings."""
+    from patrol_tpu_torch.analysis import lint
+
+    rel = "patrol_tpu_torch/ops/take_kernel.py"
+    with open(tk.__file__, encoding="utf-8") as fh:
+        src = fh.read()
+    check(src.count(SYNC_LAUNCH_LINE) == 1, "take_kernel.py lost its launch count line")
+    clean = [str(f) for f in lint.lint_sources({rel: src})]
+    check(clean == [], f"take_kernel.py alone lints with findings: {clean}")
+    line = src[: src.index(SYNC_LAUNCH_LINE)].count("\n") + 2
+    pn, el, packed = operands
+    out = {}
+    for label, stmt in SYNC_MUTANTS.items():
+        msrc = src.replace(SYNC_LAUNCH_LINE, SYNC_LAUNCH_LINE + stmt)
+        mod = types.ModuleType("take_kernel_sync_mutant")
+        exec(compile(msrc, f"<{label} mutant of {rel}>", "exec"), mod.__dict__)
+        raised = None
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            mod.take_n(pn, el, packed, 0)
+        except RuntimeError as exc:
+            raised = str(exc).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        found = lint.lint_sources({rel: msrc})
+        check(raised is not None and "synchroniz" in raised,
+              f"the {label} mutant did not raise under the sync detector (got {raised!r})")
+        check([(f.check, f.line) for f in found] == [("PTL002", line)],
+              f"the lint of the {label} mutant: {[str(f) for f in found]}")
+        out[label] = {"raised": raised, "lint": [str(f) for f in found]}
+    return out
+
+
+def run_sync_phase(torch, _build) -> dict:
+    """Phase 3l on the card: (a) the lint and race stages as subprocesses,
+    beside (b) the sync witness of the 12 wrappers and the two mutants.
+    Any failed check raises. → the phase's numbers."""
+    from patrol_tpu_torch.analysis.race import SEAM_MUTATIONS
+    from patrol_tpu_torch.ops import take_kernel as tk
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    running = start_lint_race_stages()
+    try:
+        calls, operands = witness_calls(torch, dev, np.random.default_rng(20261020))
+        witness = sync_witness(torch, _build, calls)
+        mutants = sync_mutants(torch, tk, operands)
+        del calls, operands
+    finally:
+        stages = finish_check_stages(running)
+    torch.cuda.empty_cache()
+    for label, res in stages.items():
+        check(res["rc"] == 0, f"{label} exited {res['rc']}: {res['stdout'][-5:]} {res['stderr']}")
+    check(stages["lint"]["stdout"] == ["patrol-lint: clean"], f"lint_repo: {stages['lint']['stdout']}")
+    race_line = stages["race"]["stdout"][-1]
+    check(race_line.startswith("patrol-race: clean (seam states explored="),
+          f"race_repo: {stages['race']['stdout'][-5:]}")
+    for name, (_, code) in SEAM_MUTATIONS.items():
+        want = f"patrol-race: mutation '{name}' REJECTED by {code} (good)"
+        got = stages[f"race --mutation {name}"]["stdout"]
+        check(got[-1:] == [want], f"race_repo --mutation {name}: {got[-3:]}")
+    phase = {
+        "stages": {k: {"seconds": v["seconds"], "summary": v["stdout"][-1]}
+                   for k, v in stages.items()},
+        "witness": witness,
+        "mutants": mutants,
+        "phase_s": time.perf_counter() - t0,
+    }
+    log(f"3l: {json.dumps(phase, default=str)}")
+    print("3l stages: " + json.dumps(
+        {k: [round(v["seconds"], 2), v["summary"]] for k, v in phase["stages"].items()}))
+    print(f"3l sync witness under set_sync_debug_mode('error'): {len(witness['launches'])} "
+          f"wrappers, none raised, launches {json.dumps(witness['launches'])} in "
+          f"{witness['seconds']:.6f} s")
+    print("3l sync mutants of take_n: " + json.dumps(
+        {k: {"raised": v["raised"], "lint": v["lint"]} for k, v in mutants.items()})
+        + f"; phase {phase['phase_s']:.1f} s")
     return phase
 
 
@@ -4419,6 +4659,12 @@ def main() -> int:
     abi_launches, tleg = k3["abi"]["launches"], k3["trace"]
     torch.cuda.empty_cache()
 
+    # 3l. The lint and race stages over the port's own code, beside the
+    # sync witness: every wrapper once under torch's sync detector, and
+    # two mutants of take-n that it and the lint must both catch.
+    l3 = run_sync_phase(torch, _build)
+    report["sync_check"] = l3
+
     # 4. The kernels line, the card, the contract line.
     kernels = []
     for name, src, replaces, m, n in (
@@ -4513,7 +4759,8 @@ def main() -> int:
                              ("3k_abi", abi_launches),
                              ("3k_lin", {LIN_PIN_KERNELS[k]: v["launches"]
                                          for k, v in k3["lin_pins"].items()}),
-                             ("3k_trace", tleg["launches"])):
+                             ("3k_trace", tleg["launches"]),
+                             ("3l", l3["witness"]["launches"])):
             if name in ("pair_join", "row_join", "tick_join"):
                 entry[f"launches_{path}"] = sum(counts.get(k, 0) for k in JOIN_LAUNCHES)
             elif name != "row_rmw":

@@ -1,7 +1,15 @@
 """The port's check stages (counterpart of ``patrol_tpu/analysis``).
 
-Three stages so far, each with a driver in ``patrol_tpu_torch/scripts/``:
+Five stages so far, each with a driver in ``patrol_tpu_torch/scripts/``:
 
+* :mod:`~patrol_tpu_torch.analysis.lint` — the AST lint over the port's
+  own sources (``lint_repo.py``, PTL001-007; PTL002 is the CUDA
+  counterpart: no host-device sync reachable from a kernel launch, nor in
+  the ``extern "C"`` entry it calls), plus the findings and
+  inline-suppression machinery every stage shares;
+* :mod:`~patrol_tpu_torch.analysis.race` — the epoll-seam schedule
+  explorer and the guarded-state, lock-graph, condvar and ownership
+  checks over the port's thread ensemble (``race_repo.py``, PTR001-005);
 * :mod:`~patrol_tpu_torch.analysis.protocol` — the replication protocol's
   bounded model checker (``protocol_repo.py``, PTC001-006);
 * :mod:`~patrol_tpu_torch.analysis.linearizability` — replication-aware
@@ -12,8 +20,7 @@ Three stages so far, each with a driver in ``patrol_tpu_torch/scripts/``:
   kernels and Python references (``abi_repo.py``, PTA001-005), on the
   CPU or on the card.
 
-The registry they read is :mod:`patrol_tpu_torch.ops.obligations`.
-:mod:`~patrol_tpu_torch.analysis.lint` holds only the findings and
-inline-suppression machinery these stages share; its AST checks, and the
-race, cert, prove and dispatch stages, are not ported yet.
+The registry the last three read is :mod:`patrol_tpu_torch.ops.obligations`.
+The cert, prove and dispatch stages, tidy, san and the check runner are
+not ported yet.
 """

@@ -10,8 +10,9 @@ summary on stdout, 1 = finding count on stderr). This module is the one
 copy; the scripts keep only their ``sys.path`` bootstrap plus their
 stage-specific check calls and summary text.
 
-Used by ``protocol_repo.py`` and ``lin_repo.py``; imports neither torch
-nor numpy, so the pure-python stages stay accelerator-free.
+Used by ``protocol_repo.py``, ``lin_repo.py``, ``lint_repo.py`` and
+``race_repo.py``; imports neither torch nor numpy, so the pure-python
+stages stay accelerator-free.
 """
 
 from __future__ import annotations

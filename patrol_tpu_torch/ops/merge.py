@@ -127,7 +127,7 @@ def merge_scalar_batch(state: LimiterState, batch: MergeBatch) -> LimiterState:
     rows = wrap_index(batch.rows, b)
     slots = wrap_index(batch.slots, n)
     pn_rows = state.pn[rows.clamp(0, b - 1)]  # [K, N, 2] gather
-    ar = torch.arange(rows.numel(), device=rows.device)
+    ar = torch.arange(rows.numel(), dtype=torch.int64, device=rows.device)
     gs = slots.clamp(0, n - 1)
     lane_a = pn_rows[ar, gs, ADDED]
     lane_t = pn_rows[ar, gs, TAKEN]

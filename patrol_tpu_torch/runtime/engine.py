@@ -165,6 +165,17 @@ COMMIT_BLOCKS_AUTO = _COMMIT_BLOCKS_ENV.strip().lower() == "auto"
 COMMIT_BLOCKS = 4 if COMMIT_BLOCKS_AUTO else max(1, int(_COMMIT_BLOCKS_ENV))
 COMMIT_BLOCKS_MAX = max(1, int(os.environ.get("PATROL_COMMIT_BLOCKS_MAX", 8)))
 COMMIT_BUDGET_NS = int(float(os.environ.get("PATROL_COMMIT_BUDGET_MS", 50)) * 1e6)
+# The counter of a commit ring of J blocks, J a power of two
+# (ops/commit.py::commit_shape): index log2(J). Each name is declared in
+# utils/profiling.py's _KNOWN. J = 65,536 rings already fold 2^29 pairs
+# at the default block; a wider ring counts under the last name.
+COMMIT_RING_COUNTERS = (
+    "commit_ring_j1", "commit_ring_j2", "commit_ring_j4", "commit_ring_j8",
+    "commit_ring_j16", "commit_ring_j32", "commit_ring_j64", "commit_ring_j128",
+    "commit_ring_j256", "commit_ring_j512", "commit_ring_j1024", "commit_ring_j2048",
+    "commit_ring_j4096", "commit_ring_j8192", "commit_ring_j16384", "commit_ring_j32768",
+    "commit_ring_j65536",
+)
 # In-flight device ticks the feeder may dispatch ahead of the completer.
 DISPATCH_AHEAD = max(2, int(os.environ.get("PATROL_DISPATCH_AHEAD", 8)))
 # Device-commit timing on the completion pipeline (device_commit_ns,
@@ -3073,7 +3084,8 @@ class DeviceEngine:
                 and int(rows.max()) < self._mirror_window):
             mir = self._scrape_mirror
             if mir is None or mir[0] != self._scrape_epoch():
-                self._mirror_want = True
+                with self._pcond:
+                    self._mirror_want = True
                 self._refresh_scrape_mirror()
                 mir = self._scrape_mirror
             profiling.COUNTERS.inc("scrape_mirror_hits")
@@ -3303,14 +3315,24 @@ class DeviceEngine:
                     self._completing = False
                     self._pcond.notify_all()
             if SCRAPE_MIRROR and self._mirror_want:
-                # Scrapes went stale under load: re-arm the mirror here,
-                # off the scrape threads (one window gather a completion,
-                # while scrape interest is flagged).
-                try:
-                    self._refresh_scrape_mirror()
-                    self._mirror_want = False
-                except Exception:  # pragma: no cover - a gauge refresh
-                    log.exception("scrape-mirror refresh failed")
+                self._refresh_wanted_mirror()
+
+    def _refresh_wanted_mirror(self) -> None:
+        """Completer: scrapes went stale under load, so re-arm the mirror
+        here, off the scrape threads (one window gather a completion while
+        scrape interest is flagged). The hint is cleared under ``_pcond``
+        BEFORE the gather: a scrape that finds the mirror stale meanwhile
+        raises it again, and it is never lost."""
+        with self._pcond:
+            if not self._mirror_want:
+                return
+            self._mirror_want = False
+        try:
+            self._refresh_scrape_mirror()
+        except Exception:  # pragma: no cover - a gauge refresh
+            log.exception("scrape-mirror refresh failed")
+            with self._pcond:
+                self._mirror_want = True
 
     @property
     def ticks(self) -> int:
@@ -3791,7 +3813,9 @@ class DeviceEngine:
             )
             t0 = time.perf_counter_ns()
             dev = self._ship(buf)
-            profiling.COUNTERS.inc(f"commit_ring_j{shape[1]}")
+            profiling.COUNTERS.inc(
+                COMMIT_RING_COUNTERS[min(shape[1].bit_length(), len(COMMIT_RING_COUNTERS)) - 1]
+            )
         _obs_stage(hist.STAGE_H2D, t0, trace_mod.EV_H2D_PUT, n)
         t0 = time.perf_counter_ns()
         with self._state_mu:

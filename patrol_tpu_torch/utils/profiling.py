@@ -346,6 +346,32 @@ class CounterRegistry:
         # because another capture was running (the routes' 409).
         "trace_captures",
         "trace_captures_busy",
+        # Raw ingest against host lanes (runtime/engine.py): raw batches
+        # whose entries the host-lane join took, entries it absorbed, and
+        # take tickets sent down the device path.
+        "ingest_raw_hosted_dispatches",
+        "ingest_raw_hosted_absorbed",
+        "take_device_tickets",
+        # Multi-block commit rings by their J blocks (a power of two,
+        # ops/commit.py::commit_shape); runtime/engine.py picks the name
+        # from its COMMIT_RING_COUNTERS, which lists these.
+        "commit_ring_j1",
+        "commit_ring_j2",
+        "commit_ring_j4",
+        "commit_ring_j8",
+        "commit_ring_j16",
+        "commit_ring_j32",
+        "commit_ring_j64",
+        "commit_ring_j128",
+        "commit_ring_j256",
+        "commit_ring_j512",
+        "commit_ring_j1024",
+        "commit_ring_j2048",
+        "commit_ring_j4096",
+        "commit_ring_j8192",
+        "commit_ring_j16384",
+        "commit_ring_j32768",
+        "commit_ring_j65536",
     )
 
     def __init__(self):

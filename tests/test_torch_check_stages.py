@@ -1,4 +1,4 @@
-"""The port's stage drivers (``patrol_tpu_torch/scripts/{protocol,lin,abi}_repo.py``)
+"""The port's stage drivers (``patrol_tpu_torch/scripts/{protocol,lin,abi,lint,race}_repo.py``)
 and the shared machinery under them (``analysis/driver.py``,
 ``analysis/lint.py``), on the CPU.
 
@@ -21,7 +21,8 @@ from patrol_tpu_torch.analysis import abi, driver, lint
 from patrol_tpu_torch.analysis import linearizability as L
 from patrol_tpu_torch.analysis import protocol as P
 from patrol_tpu_torch.ops.obligations import MUTATIONS
-from patrol_tpu_torch.scripts import abi_repo, lin_repo, protocol_repo
+from patrol_tpu_torch.analysis import race as R
+from patrol_tpu_torch.scripts import abi_repo, lin_repo, lint_repo, protocol_repo, race_repo
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -162,6 +163,85 @@ class TestAbiRepo:
         assert [ln.split()[0] for ln in out] == [
             "native.pt_fold_hybrid", "native.pt_rx_classify", "native.hls_schedules",
             "native.rx_ring_schedules", "native.effects_table"]
+
+
+class TestLintRepo:
+    def test_clean_on_the_tree(self, capsys):
+        assert lint_repo.main([]) == 0
+        assert capsys.readouterr().out.splitlines() == ["patrol-lint: clean"]
+
+    def test_findings_exit_1(self, tmp_path, capsys):
+        pkg = tmp_path / "patrol_tpu_torch"
+        pkg.mkdir()
+        (pkg / "x.py").write_text("import time\n\ndef f():\n    return time.time()\n")
+        assert lint_repo.main(["--root", str(tmp_path)]) == 1
+        cap = capsys.readouterr()
+        assert [ln.split(" ", 2)[:2] for ln in cap.out.splitlines()] == [
+            ["patrol_tpu_torch/x.py:4:", "PTL001"]]
+        assert cap.err.strip() == "patrol-lint: 1 finding(s) across 1 file(s)"
+
+    def test_runs_as_a_module(self):
+        res = subprocess.run(
+            [sys.executable, "-m", "patrol_tpu_torch.scripts.lint_repo"], cwd=REPO,
+            capture_output=True, text=True, timeout=300,
+        )
+        assert (res.returncode, res.stdout) == (0, "patrol-lint: clean\n"), res.stderr
+
+
+class TestRaceRepo:
+    CLEAN = ("patrol-race: clean (seam states explored=157 across 3 scenarios, 3 seeded "
+             "mutations all rejected; 54 guarded attrs, 8 thread-ensemble files)")
+
+    def test_clean_run_prints_the_reference_s_line(self, capsys):
+        assert race_repo.main([]) == 0
+        assert capsys.readouterr().out.splitlines() == [self.CLEAN]
+
+    def test_static_only(self, capsys):
+        assert race_repo.main(["--static-only"]) == 0
+        assert capsys.readouterr().out.splitlines() == [self.CLEAN]
+
+    def test_list(self, capsys):
+        assert race_repo.main(["--list"]) == 0
+        assert capsys.readouterr().out.split() == [
+            "completion-before-park", "ring-slot-reuse-without-fence",
+            "ack-without-holding-mutex"]
+
+    @pytest.mark.parametrize("name,code", [
+        ("completion-before-park", "PTR001"), ("ring-slot-reuse-without-fence", "PTR002"),
+        ("ack-without-holding-mutex", "PTR002"),
+    ])
+    def test_each_mutation_is_rejected_with_its_code(self, capsys, name, code):
+        assert race_repo.main(["--mutation", name]) == 0
+        out = capsys.readouterr().out.splitlines()
+        assert out[-1] == f"patrol-race: mutation '{name}' REJECTED by {code} (good)"
+        assert any(ln.startswith(f"{R._HTTP_CPP}:") and f" {code} " in ln for ln in out[:-1])
+
+    def test_unknown_mutation_is_a_usage_error(self, capsys):
+        assert race_repo.main(["--mutation", "no-such"]) == 2
+        assert "unknown mutation: no-such" in capsys.readouterr().err
+
+    def test_findings_exit_1(self, monkeypatch, capsys):
+        f = lint.Finding("PTR003", "patrol_tpu_torch/runtime/engine.py", 9, "unguarded")
+        monkeypatch.setattr(R, "race_repo", lambda root: [f])
+        assert race_repo.main([]) == 1
+        cap = capsys.readouterr()
+        assert cap.out.splitlines() == ["patrol_tpu_torch/runtime/engine.py:9: PTR003 unguarded"]
+        assert "patrol-race: 1 finding(s)" in cap.err
+
+    def test_a_seam_mutation_that_slips_through_fails(self, monkeypatch, capsys):
+        monkeypatch.setitem(R.SEAM_MUTATIONS, "no-op", (R.SEAM_CLEAN, "PTR001"))
+        assert race_repo.main(["--mutation", "no-op"]) == 1
+        assert capsys.readouterr().out.splitlines()[-1] == (
+            "patrol-race: mutation 'no-op' NOT caught (bad)")
+
+    def test_runs_as_a_module(self):
+        res = subprocess.run(
+            [sys.executable, "-m", "patrol_tpu_torch.scripts.race_repo", "--mutation",
+             "completion-before-park"], cwd=REPO, capture_output=True, text=True, timeout=300,
+        )
+        assert res.returncode == 0, res.stderr
+        assert res.stdout.splitlines()[-1] == (
+            "patrol-race: mutation 'completion-before-park' REJECTED by PTR001 (good)")
 
 
 class TestSharedMachinery:

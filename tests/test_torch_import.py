@@ -40,7 +40,11 @@ def test_every_module_imports_without_jax():
             "patrol_tpu_torch.scripts.probe_dma_scatter",
             "patrol_tpu_torch.scripts.delta_timer",
             "patrol_tpu_torch.scripts.lifecycle_ab",
-            "patrol_tpu_torch.scripts.cert_ab"} <= set(mods)
+            "patrol_tpu_torch.scripts.cert_ab",
+            "patrol_tpu_torch.analysis.lint",
+            "patrol_tpu_torch.analysis.race",
+            "patrol_tpu_torch.scripts.lint_repo",
+            "patrol_tpu_torch.scripts.race_repo"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r}\n"
