@@ -244,6 +244,23 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    under the mode, and the port's lint must give PTL002 on the added
    line. Printed: the stages' seconds and lines, the wrappers and their
    launches, the window's seconds, the mutants' verdicts.
+3m. The prove and dispatch stages on the card. (a) ``prove_repo
+   --device cuda``'s work in this process (``analysis/prove.py``: every
+   root of ``PROVE_ROOTS``, its models through the wrappers, one launch a
+   chunk of combinations, the PTP006 sweep), the launch counts zeroed just
+   before: no finding, and all 12 ``_build.LAUNCHES`` keys move. (b) The
+   six prove-stage mutations on the card, each rejected with its pinned
+   code. (c) ``dispatch_repo --device cuda``'s work
+   (``analysis/dispatch.py``): the static half clean, and the witness's
+   18 paths on small engines, each warm, then again under
+   ``torch.cuda.set_sync_debug_mode("error")``: none may raise, each
+   path's launches as ``WITNESS_LAUNCHES`` declares, its event waits (which
+   the detector cannot see) at the declared waits ``WITNESS_WAITS`` names,
+   no build after the warm-up. (d) ``zero_rows``'s four engine callers on a 1M x 64 engine
+   under the detector: an eviction, a GC reclaim, an idle demotion, a
+   ``release_bucket``; none may raise (the parent tree's mask read does).
+   Printed: each stage's seconds, each root's launches and combinations,
+   the mutations' codes, the witness's paths, the callers' seconds.
 4. Print the ``kernels`` JSON line, the nvidia-smi line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -4180,6 +4197,209 @@ def run_sync_phase(torch, _build) -> dict:
     return phase
 
 
+def prove_stage(torch, _build) -> dict:
+    """3m(a)/(b): ``prove_repo --device cuda``'s work in this process
+    (every root of ``PROVE_ROOTS`` through the wrappers, the PTP006 sweep,
+    the stale-suppression sweep) with the launch counts zeroed just
+    before: clean, and every one of the 12 ``LAUNCHES`` keys moves. Then
+    the six prove-stage mutations on the card, each rejected with its
+    pinned code. → per root its seconds, launches and combinations; the
+    stage's launches and seconds; per mutation its codes and seconds."""
+    from patrol_tpu_torch.analysis import prove
+    from patrol_tpu_torch.ops.obligations import MUTATIONS, PROVE_ROOTS
+
+    stats: dict = {}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    findings = prove.prove_repo(HERE, device="cuda", stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(findings == [], f"prove_repo --device cuda: {[str(f) for f in findings[:5]]}")
+    check(all(launches[k] > 0 for k in launches),
+          f"prove_repo --device cuda left launch keys unmoved: {launches}")
+    roots = {r.name: r for r in PROVE_ROOTS}
+    muts = {}
+    for m in MUTATIONS:
+        if m.stage != "prove":
+            continue
+        t = time.perf_counter()
+        codes = sorted({f.check for f in prove.prove_root(roots[m.target], fn=m.mutant,
+                                                          device="cuda")})
+        muts[m.name] = {"expect": m.expect, "codes": codes, "s": time.perf_counter() - t}
+        check(m.expect in codes, f"prove mutation {m.name} on the card: {codes}, want {m.expect}")
+    return {"seconds": seconds, "launches": launches, "roots": stats, "mutations": muts}
+
+
+def dispatch_stage() -> dict:
+    """3m(c): ``dispatch_repo --device cuda``'s work in this process: the
+    static half (PTD003, PTD005) clean, and the witness on the card —
+    each path warm, then again under ``set_sync_debug_mode("error")``:
+    none may raise, each path's launches and event waits as the registry
+    declares, no build after the warm-up. → per path its launches, event
+    waits, reached wrappers and seconds; the stage's seconds."""
+    from patrol_tpu_torch.analysis import dispatch
+
+    t0 = time.perf_counter()
+    findings, report = dispatch.dispatch_repo(HERE, device="cuda")
+    seconds = time.perf_counter() - t0
+    check(findings == [], f"dispatch_repo --device cuda: {[str(f) for f in findings[:8]]}")
+    return {"seconds": seconds, "half": report.half, "launches": report.launches,
+            "reached": report.reached, "waits": report.waits, "path_s": report.seconds,
+            "builds_after_warmup": report.builds_after_warmup}
+
+
+def zero_rows_callers(torch, buckets: int = 1_000_000, lanes: int = 64,
+                      wait_s: float = 60) -> dict:
+    """3m(d): ``zero_rows``'s four engine callers on one ``DeviceEngine``
+    of ``buckets`` x ``lanes`` on the card, each leg under
+    ``set_sync_debug_mode("error")`` (mode 0 again in a ``finally``):
+
+    * ``gc_reclaim`` -- ``gc_sweep(force=True)`` over 64 idle full rows, 32
+      device-resident (bound by a peer's deltas, then taken once) and 32
+      host lanes;
+    * ``eviction`` -- ``_evict`` over 16 device rows bound by deltas;
+    * ``demotion`` -- the promote knob lowered to 2 takes, a hot row
+      promoted, then idle windows until the feeder demotes it;
+    * ``release_bucket`` -- one bound name released.
+
+    None may raise (a leg that makes the host wait on the card raises
+    there, in the caller's thread or the engine's), and each must reach
+    ``zero_rows`` through its caller. → per leg its ``zero_rows`` calls by
+    caller and its seconds."""
+    from patrol_tpu_torch.models.limiter import LimiterConfig
+    from patrol_tpu_torch.ops import merge as merge_mod
+    from patrol_tpu_torch.ops.rate import Rate
+    from patrol_tpu_torch.runtime import engine as engine_mod
+
+    real = merge_mod.zero_rows
+    calls: dict = {}
+
+    def counted(state, rows):
+        who = sys._getframe(1).f_code.co_name
+        calls[who] = calls.get(who, 0) + 1
+        return real(state, rows)
+
+    now = [NANO]
+    rate = Rate(freq=4, per_ns=NANO)
+    saved = engine_mod.HOST_PROMOTE_TAKES
+    eng = engine_mod.DeviceEngine(LimiterConfig(buckets, lanes), node_slot=0,
+                                  clock=lambda: now[0], device=torch.device("cuda", 0))
+    out: dict = {}
+
+    def take(name: str) -> None:
+        check(eng.submit_take(name, rate, 1)[0].wait(wait_s),
+              f"3m(d) take of {name} not answered in {wait_s} s")
+
+    def bind(names, lane_value: int) -> None:
+        k = len(names)
+        eng.ingest_deltas_batch(names, [1] * k, [-1] * k, [-1] * k, [0] * k, caps_nt=[-1] * k,
+                                lane_added_nt=[lane_value] * k, lane_taken_nt=[lane_value] * k)
+        check(eng.flush(wait_s), "3m(d) binding rows timed out")
+
+    def leg(label: str, who: str, fn) -> None:
+        before = dict(calls)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        except Exception as exc:
+            raise AssertionError(f"3m(d) {label} raised: {type(exc).__name__}: "
+                               f"{str(exc).splitlines()[0][:200]}") from exc
+        torch.cuda.synchronize()
+        out[label] = {
+            "zero_rows_calls": {k: v - before.get(k, 0) for k, v in calls.items()
+                                if v != before.get(k, 0)},
+            "s": time.perf_counter() - t,
+        }
+        check(out[label]["zero_rows_calls"].get(who, 0) >= 1,
+              f"{label} never reached zero_rows through {who}: {out[label]}")
+
+    def reclaim():
+        check(eng.gc_sweep(force=True) > 0, "3m(d) the GC sweep reclaimed nothing")
+
+    def evict():
+        with eng._evict_mu:
+            check(eng._evict(8) > 0, "3m(d) the eviction found no victim")
+
+    def demote():
+        for _ in range(4):
+            now[0] += engine_mod.HOST_DEMOTE_WINDOW_NS + 1
+            take("zr-hot")
+            check(eng.flush(wait_s), "3m(d) flush after the idle window timed out")
+            if eng.demotions:
+                return
+        check(False, "3m(d) the idle windows did not demote the hot row")
+
+    try:
+        merge_mod.zero_rows = counted
+        eng.configure_lifecycle(window_ms=0)
+        eng.warmup()
+        dev_names = [f"zr-dev{i}" for i in range(64)]
+        bind(dev_names, 0)
+        for name in dev_names[:32] + [f"zr-host{i}" for i in range(32)]:
+            take(name)  # device rows (bound above) and fresh host lanes
+        check(eng.flush(wait_s), "3m(d) the takes did not finish")
+        now[0] += 10 * NANO  # every bucket refilled and idle
+        leg("gc_reclaim", "_gc_reclaim", reclaim)
+        bind([f"zr-evict{i}" for i in range(16)], 1)
+        leg("eviction", "_evict", evict)
+        engine_mod.HOST_PROMOTE_TAKES = 2
+        for _ in range(4):
+            take("zr-hot")
+        check(eng.flush(wait_s), "3m(d) the promotion did not finish")
+        check(eng.promotions > 0, "3m(d) the hot row was not promoted")
+        take("zr-hot")  # a device take: the feeder's demote window opens
+        leg("demotion", "_maybe_demote", demote)
+        take("zr-victim")
+        leg("release_bucket", "release_bucket",
+            lambda: check(eng.release_bucket("zr-victim", timeout=wait_s),
+                          "3m(d) release failed"))
+    finally:
+        merge_mod.zero_rows = real
+        engine_mod.HOST_PROMOTE_TAKES = saved
+        eng.stop()
+    return out
+
+
+def run_prove_dispatch_phase(torch, _build) -> dict:
+    """Phase 3m on the card: (a)-(b) the prove stage and its mutations,
+    (c) the dispatch stage and its witness, (d) zero_rows's four callers
+    under the sync detector. Any failed check raises. → the numbers."""
+    t0 = time.perf_counter()
+    phase = {"prove": prove_stage(torch, _build)}
+    torch.cuda.empty_cache()
+    phase["dispatch"] = dispatch_stage()
+    torch.cuda.empty_cache()
+    phase["zero_rows"] = zero_rows_callers(torch)
+    torch.cuda.empty_cache()
+    phase["phase_s"] = time.perf_counter() - t0
+    log(f"3m: {json.dumps(phase, default=str)}")
+    pr = phase["prove"]
+    print(f"3m prove --device cuda: clean, {len(pr['roots'])} roots in {pr['seconds']:.2f} s, "
+          f"launches {json.dumps(pr['launches'])}")
+    print("3m prove roots (s, launches, combinations): " + json.dumps(
+        {k: [round(v["seconds"], 3), v["launches"], v["combinations"]]
+         for k, v in pr["roots"].items()}))
+    print("3m prove mutations: " + json.dumps(
+        {k: [v["expect"], v["codes"], round(v["s"], 2)] for k, v in pr["mutations"].items()}))
+    dp = phase["dispatch"]
+    print(f"3m dispatch --device cuda: clean in {dp['seconds']:.2f} s; witness paths "
+          "(launches under set_sync_debug_mode('error'), s): " + json.dumps(
+              {k: [v, round(dp["path_s"][k], 4)] for k, v in dp["launches"].items()}))
+    print("3m dispatch witness event waits by site: " + json.dumps(
+        {k: {s.rsplit("::", 1)[1]: n for s, n in v.items()} for k, v in dp["waits"].items()
+         if v}))
+    print("3m zero_rows callers under the sync detector: " + json.dumps(
+        {k: [v["zero_rows_calls"], round(v["s"], 4)] for k, v in phase["zero_rows"].items()})
+        + f"; phase {phase['phase_s']:.1f} s")
+    return phase
+
+
 def fold_timing(engine_mod, reps: int = 5) -> dict:
     """The tick fold on one clustered batch, 131,072 deltas over 64 rows
     and 64 lanes (the reference's motivating shape): host ns of the numpy
@@ -4665,6 +4885,13 @@ def main() -> int:
     l3 = run_sync_phase(torch, _build)
     report["sync_check"] = l3
 
+    # 3m. The prove and dispatch stages on the card: every prove root
+    # through the kernels (all 12 launch keys move), the six prove
+    # mutations, the dispatch witness under torch's sync detector, and
+    # zero_rows's four engine callers under it on the 1M x 64 state.
+    m3 = run_prove_dispatch_phase(torch, _build)
+    report["prove_dispatch"] = m3
+
     # 4. The kernels line, the card, the contract line.
     kernels = []
     for name, src, replaces, m, n in (
@@ -4760,7 +4987,11 @@ def main() -> int:
                              ("3k_lin", {LIN_PIN_KERNELS[k]: v["launches"]
                                          for k, v in k3["lin_pins"].items()}),
                              ("3k_trace", tleg["launches"]),
-                             ("3l", l3["witness"]["launches"])):
+                             ("3l", l3["witness"]["launches"]),
+                             ("3m_prove", m3["prove"]["launches"]),
+                             ("3m_witness", {k: sum(p.get(k, 0) for p in
+                                                    m3["dispatch"]["launches"].values())
+                                             for k in _build.LAUNCHES})):
             if name in ("pair_join", "row_join", "tick_join"):
                 entry[f"launches_{path}"] = sum(counts.get(k, 0) for k in JOIN_LAUNCHES)
             elif name != "row_rmw":

@@ -1,6 +1,6 @@
 """The port's check stages (counterpart of ``patrol_tpu/analysis``).
 
-Five stages so far, each with a driver in ``patrol_tpu_torch/scripts/``:
+Seven stages so far, each with a driver in ``patrol_tpu_torch/scripts/``:
 
 * :mod:`~patrol_tpu_torch.analysis.lint` — the AST lint over the port's
   own sources (``lint_repo.py``, PTL001-007; PTL002 is the CUDA
@@ -18,9 +18,16 @@ Five stages so far, each with a driver in ``patrol_tpu_torch/scripts/``:
 * :mod:`~patrol_tpu_torch.analysis.abi` — the port's C++ library (fold,
   classify, host-lane store, rx ring, effects table) against the merge
   kernels and Python references (``abi_repo.py``, PTA001-005), on the
-  CPU or on the card.
+  CPU or on the card;
+* :mod:`~patrol_tpu_torch.analysis.prove` — the CRDT obligations of every
+  kernel root: a structural run under a taint-tracking dispatch mode, the
+  ``.cu`` join scan, the small-domain models through the kernels
+  (``prove_repo.py``, PTP001-006), on the CPU or on the card;
+* :mod:`~patrol_tpu_torch.analysis.dispatch` — no hidden host wait on the
+  serve graph, a complete dispatch registry, and the witness of every
+  serving path under torch's sync detector (``dispatch_repo.py``,
+  PTD003-005; PTD001/PTD002 are absences on record).
 
-The registry the last three read is :mod:`patrol_tpu_torch.ops.obligations`.
-The cert, prove and dispatch stages, tidy, san and the check runner are
-not ported yet.
+The registry the last five read is :mod:`patrol_tpu_torch.ops.obligations`.
+The cert stage, tidy, san and the check runner are not ported yet.
 """

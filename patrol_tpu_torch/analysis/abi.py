@@ -311,7 +311,7 @@ def _planes(state):
     return state.pn.cpu().numpy(), state.elapsed.cpu().numpy()
 
 
-def _apply_fold_via_kernels(out, B: int, nodes: int, kernels, device="cpu"):
+def _apply_fold_via_kernels(out, B: int, nodes: int, kernels, device="cuda"):
     """Native fold output → state on ``device`` through the registered
     folded kernel roots (zero initial state) → numpy (pn, elapsed)."""
     from patrol_tpu_torch.ops.merge import FoldedMergeBatch, RowDenseBatch
@@ -343,7 +343,7 @@ def _apply_fold_via_kernels(out, B: int, nodes: int, kernels, device="cpu"):
 
 
 def _apply_raw_via_merge_batch(
-    deltas: np.ndarray, B: int, nodes: int, kernels, device="cpu"
+    deltas: np.ndarray, B: int, nodes: int, kernels, device="cuda"
 ):
     """The raw batch → state on ``device`` through ``merge_batch`` (zero
     initial state) → numpy (pn, elapsed)."""
@@ -384,7 +384,7 @@ def _fold_of(lib, deltas: np.ndarray, **kw):
     )
 
 
-def check_fold_conformance(ob: AbiObligation, lib, device="cpu") -> List[Finding]:
+def check_fold_conformance(ob: AbiObligation, lib, device="cuda") -> List[Finding]:
     """PTA001-PTA003 for pt_fold_hybrid: exhaustive singles + pairs over
     the lattice domain against the Python reference fold (and, at the
     state level, against the registered merge kernels on ``device``), plus
@@ -1648,7 +1648,7 @@ _CHECKS: Dict[str, Callable] = {
 
 
 def abi_all(
-    only: Optional[Sequence[str]] = None, device="cpu"
+    only: Optional[Sequence[str]] = None, device="cuda"
 ) -> List[Finding]:
     """Run every registered ABI obligation → findings (unsuppressed). The
     fold's kernel twins run on ``device`` (``"cpu"``: the plain versions;
@@ -1669,7 +1669,7 @@ def abi_all(
     return sorted(out, key=lambda f: (f.path, f.line, f.check))
 
 
-def abi_repo(repo_root: str, device="cpu") -> List[Finding]:
+def abi_repo(repo_root: str, device="cuda") -> List[Finding]:
     """abi_all with the shared inline-suppression filter applied (stale
     PTA suppressions come back as PTL006)."""
     return apply_suppressions(

@@ -10,9 +10,11 @@ summary on stdout, 1 = finding count on stderr). This module is the one
 copy; the scripts keep only their ``sys.path`` bootstrap plus their
 stage-specific check calls and summary text.
 
-Used by ``protocol_repo.py``, ``lin_repo.py``, ``lint_repo.py`` and
-``race_repo.py``; imports neither torch nor numpy, so the pure-python
-stages stay accelerator-free.
+Used by every ``*_repo.py`` (``protocol``, ``lin``, ``lint``, ``race``,
+``abi``, ``prove``, ``dispatch``); each stage sweeps its own code family
+for stale suppressions (PTC, PTN, PTL, PTR, PTA, PTP, PTD). Imports
+neither torch nor numpy, so the pure-python stages stay
+accelerator-free.
 """
 
 from __future__ import annotations

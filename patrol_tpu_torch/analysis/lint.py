@@ -1391,7 +1391,8 @@ def apply_suppressions(
     (e.g. a finding anchored in a .cpp source) keep their findings: a
     suppression that cannot be located must not silently win.
 
-    ``stale_family`` (a code prefix: "PTC", "PTA", "PTN", "PTR") turns
+    ``stale_family`` (a code prefix: "PTC", "PTA", "PTN", "PTR", "PTP",
+    "PTD") turns
     on the PTL006 stale sweep for that family: every directive token with
     the prefix anywhere under ``<repo_root>/patrol_tpu_torch`` that
     suppressed nothing in this run is appended as a PTL006 finding — so

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from patrol_tpu_torch.models.limiter import ADDED, TAKEN, LimiterState
@@ -159,14 +160,33 @@ def merge_dense(state: LimiterState, other: LimiterState) -> LimiterState:
     return state
 
 
-def zero_rows(state: LimiterState, rows: torch.Tensor) -> LimiterState:
+def zero_rows(state: LimiterState, rows) -> LimiterState:
     """Clear bucket rows (slot recycling / eviction). Duplicates are fine;
-    rows out of range after the wrap are dropped."""
+    rows out of range after the wrap are dropped.
+
+    ``rows`` are host rows (a numpy array, a sequence, or a CPU tensor):
+    the wrap and the drop happen here in numpy, then one host-to-device
+    copy and one index fill per plane go on the state's stream. Nothing
+    reads a device value back, so a caller holding ``_state_mu`` never
+    waits on the card (a boolean-mask read of a device tensor would). On
+    the card the rows are pinned first: a copy from pageable memory may
+    make the host wait while the driver stages it."""
+    if isinstance(rows, torch.Tensor):
+        if rows.device.type != "cpu":
+            raise ValueError(f"zero_rows takes host rows, got a tensor on {rows.device}")
+        rows = rows.numpy()
     b = state.pn.shape[0]
-    rows = wrap_index(rows, b)
-    rows = rows[(rows >= 0) & (rows < b)]
-    state.pn[rows] = 0
-    state.elapsed[rows] = 0
+    r = np.asarray(rows, dtype=np.int64).reshape(-1)
+    r = np.where(r < 0, r + b, r)
+    r = r[(r >= 0) & (r < b)]
+    if not r.size:
+        return state
+    idx = torch.from_numpy(r)
+    if state.pn.is_cuda:
+        idx = idx.pin_memory()
+    idx = idx.to(state.pn.device, non_blocking=True)
+    state.pn.index_fill_(0, idx, 0)
+    state.elapsed.index_fill_(0, idx, 0)
     return state
 
 

@@ -290,11 +290,14 @@ class StagingPool:
             tr.record(trace_mod.EV_STAGING_LEASE, dur, buf.numel())
         return buf
 
-    def release(self, buf: torch.Tensor, event=None) -> None:
-        with self._mu:
-            stack = self._free.setdefault((buf.dtype, *buf.shape), [])
-            if len(stack) < self._max_per_shape:
-                stack.append((buf, event))
+    def release(self, buf: torch.Tensor, event=None, keep: bool = True) -> None:
+        """``keep=False`` drops the buffer instead of pooling it (a
+        one-off shape that would otherwise stay pinned)."""
+        if keep:
+            with self._mu:
+                stack = self._free.setdefault((buf.dtype, *buf.shape), [])
+                if len(stack) < self._max_per_shape:
+                    stack.append((buf, event))
         tr = trace_mod.TRACE
         if tr.enabled:
             tr.record(trace_mod.EV_STAGING_RECYCLE, 0, buf.numel())
@@ -1049,9 +1052,8 @@ class DeviceEngine:
         if victims.size == 0:
             return 0
         self._drop_hosted_rows(victims)
-        rows = torch.from_numpy(victims.astype(np.int64)).to(self.device)
         with self._state_mu:
-            merge_mod.zero_rows(self.state, rows)
+            merge_mod.zero_rows(self.state, victims)
             self._state_gen += 1
         self.directory.recycle(victims)
         self._evictions += int(victims.size)
@@ -1368,9 +1370,8 @@ class DeviceEngine:
             kept = np.concatenate([kept_h, kept_d])
             if not kept.size:
                 return 0
-            rows_z = torch.as_tensor(kept, device=self.device)
             with self._state_mu:
-                merge_mod.zero_rows(self.state, rows_z)
+                merge_mod.zero_rows(self.state, kept)
                 self._state_gen += 1
             if self.directory.recycle_compact(kept):
                 self._gc_compactions += 1
@@ -1839,9 +1840,8 @@ class DeviceEngine:
                     self._promoted_at.pop(row, None)
                     demoted.append(row)
             if demoted:
-                rows_t = torch.as_tensor(np.asarray(demoted, np.int64), device=self.device)
                 with self._state_mu:
-                    merge_mod.zero_rows(self.state, rows_t)
+                    merge_mod.zero_rows(self.state, demoted)
                     self._state_gen += 1
                 self._demotions += len(demoted)
                 log.debug("demoted %d idle buckets to host residency", len(demoted))
@@ -2912,13 +2912,16 @@ class DeviceEngine:
         with self._state_mu:
             out = launch(self.state, dev, self.node_slot)
             self._state_gen += 1
-        if self._cuda:
-            res_buf = self._staging.lease((result_rows, kp))
-            res_buf.copy_(out)  # the one readback; waits for the launch
-            res = res_buf.numpy()[:, :k].copy()
-            self._staging.release(res_buf)
-            return res
-        return out.numpy()[:, :k].copy()
+        # The one readback, on the stream behind the launch, then one wait
+        # on its event.
+        res_buf = self._staging.lease((result_rows, kp))
+        res_buf.copy_(out, non_blocking=True)
+        ev = self._device_event()
+        if ev is not None:
+            ev.synchronize()
+        res = res_buf.numpy()[:, :k].copy()
+        self._staging.release(res_buf)
+        return res
 
     def gcra_take(self, rows, now_ns, emission_ns, tol_ns, nreq) -> gcra_ops.GcraResult:
         """GCRA conformance microbatch → GcraResult of numpy int64 arrays."""
@@ -3002,12 +3005,34 @@ class DeviceEngine:
 
     def read_rows(self, rows) -> tuple:
         """Gather per-bucket state: (pn[K,N,2], elapsed[K]) as host numpy
-        arrays — one batched device→host copy per call."""
-        idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=self.device)
+        arrays. The rows ship through a staging buffer, the gather
+        (``ops.merge.read_rows``) runs under ``_state_mu``, and both planes
+        come back into staging on the stream behind it; the one wait, on
+        the event recorded there, is outside the lock. K pads to a power of
+        two (with row 0) so the pool holds few shapes; a read wider than a
+        merge block leases one-off buffers and does not pool them."""
+        rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+        k = rows.size
+        kp = _pad_size(k, hi=1 << 62)
+        keep = kp <= MAX_MERGE_ROWS
+        buf = self._staging.lease((kp,))
+        host = buf.numpy()
+        host[:k] = rows
+        host[k:] = 0
+        idx = self._ship(buf, keep)
         with self._state_mu:
-            pn = self.state.pn[idx]
-            el = self.state.elapsed[idx]
-        return pn.cpu().numpy(), el.cpu().numpy()
+            got = merge_mod.read_rows(self.state, idx)
+        pn_buf = self._staging.lease((kp, self.config.nodes, 2))
+        el_buf = self._staging.lease((kp,))
+        pn_buf.copy_(got.pn, non_blocking=True)
+        el_buf.copy_(got.elapsed, non_blocking=True)
+        ev = self._device_event()
+        if ev is not None:
+            ev.synchronize()
+        out = pn_buf.numpy()[:k].copy(), el_buf.numpy()[:k].copy()
+        self._staging.release(pn_buf, keep=keep)
+        self._staging.release(el_buf, keep=keep)
+        return out
 
     def snapshot_planes(self) -> Tuple[np.ndarray, np.ndarray]:
         """Host copies of both planes with every host-resident bucket's
@@ -3189,9 +3214,7 @@ class DeviceEngine:
                     return False
             self._drop_hosted_rows([row])
             with self._state_mu:
-                merge_mod.zero_rows(
-                    self.state, torch.tensor([row], dtype=torch.int64, device=self.device)
-                )
+                merge_mod.zero_rows(self.state, [row])
                 self._state_gen += 1
             self.directory.recycle([row])
         return True
@@ -3678,19 +3701,19 @@ class DeviceEngine:
 
     # -- host → device staging ---------------------------------------------
 
-    def _ship(self, buf: torch.Tensor) -> torch.Tensor:
+    def _ship(self, buf: torch.Tensor, keep: bool = True) -> torch.Tensor:
         """A leased staging tensor → the device operand. CUDA: a
         non-blocking copy from pinned memory; the buffer goes back to the
-        pool with an event recorded behind the copy, so it is re-leased
-        only once the copy has finished. CPU: a copy (the pool recycles at
-        once)."""
+        pool (unless ``keep`` is False) with an event recorded behind the
+        copy, so it is re-leased only once the copy has finished. CPU: a
+        copy (the pool recycles at once)."""
         if self._cuda:
             dev = buf.to(self.device, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))
         else:
             dev, ev = buf.clone(), None
-        self._staging.release(buf, ev)
+        self._staging.release(buf, ev, keep)
         return dev
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:

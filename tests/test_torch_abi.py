@@ -51,7 +51,7 @@ def codes(findings):
 
 class TestFoldConformance:
     def test_shipped_fold_is_silent(self, lib):
-        assert abi.check_fold_conformance(OBS["fold_conformance"], lib) == []
+        assert abi.check_fold_conformance(OBS["fold_conformance"], lib, device="cpu") == []
 
     def test_seeded_mutation_of_reference_fold_is_rejected(
         self, lib, monkeypatch
@@ -70,7 +70,7 @@ class TestFoldConformance:
             return tuple(out)
 
         monkeypatch.setattr(abi, "_reference_fold", add_fold)
-        f = abi.check_fold_conformance(OBS["fold_conformance"], lib)
+        f = abi.check_fold_conformance(OBS["fold_conformance"], lib, device="cpu")
         assert "PTA001" in codes(f), f
 
     def test_kernel_root_mutation_is_rejected(self, lib, monkeypatch):
@@ -86,7 +86,7 @@ class TestFoldConformance:
             return state
 
         monkeypatch.setattr(merge_mod, "merge_batch", add_merge_batch)
-        f = abi.check_fold_conformance(OBS["fold_conformance"], lib)
+        f = abi.check_fold_conformance(OBS["fold_conformance"], lib, device="cpu")
         assert "PTA001" in codes(f)
         assert any("state diverges" in x.message for x in f)
 
@@ -555,7 +555,7 @@ class TestSuppressionAndDrivers:
             Finding("PTA001", "patrol_tpu_torch/ops/fake.py", 2, "suppressed"),
         ]
         monkeypatch.setattr(abi, "abi_all", lambda only=None, device="cpu": crafted)
-        out = abi.abi_repo(str(tmp_path))
+        out = abi.abi_repo(str(tmp_path), device="cpu")
         assert [f.line for f in out] == [1]
 
     def test_stale_pta_suppression_is_reported(self, tmp_path, monkeypatch):
@@ -564,7 +564,7 @@ class TestSuppressionAndDrivers:
         src.mkdir(parents=True)
         (src / "fake.py").write_text("x = 1  # patrol-lint: disable=PTA003\n")
         monkeypatch.setattr(abi, "abi_all", lambda only=None, device="cpu": [])
-        out = abi.abi_repo(str(tmp_path))
+        out = abi.abi_repo(str(tmp_path), device="cpu")
         assert [(f.check, f.path, f.line) for f in out] == [
             ("PTL006", "patrol_tpu_torch/ops/fake.py", 1)
         ]
@@ -582,7 +582,7 @@ class TestRepoAbiClean:
     def test_repo_abi_proves_clean(self):
         """The stage-5 contract: zero findings, zero suppressions, on the
         shipped tree."""
-        findings = abi.abi_repo(REPO_ROOT)
+        findings = abi.abi_repo(REPO_ROOT, device="cpu")
         assert findings == [], "\n".join(str(f) for f in findings)
 
     def test_registry_covers_the_native_joins(self):

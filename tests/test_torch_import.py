@@ -44,7 +44,11 @@ def test_every_module_imports_without_jax():
             "patrol_tpu_torch.analysis.lint",
             "patrol_tpu_torch.analysis.race",
             "patrol_tpu_torch.scripts.lint_repo",
-            "patrol_tpu_torch.scripts.race_repo"} <= set(mods)
+            "patrol_tpu_torch.scripts.race_repo",
+            "patrol_tpu_torch.analysis.prove",
+            "patrol_tpu_torch.analysis.dispatch",
+            "patrol_tpu_torch.scripts.prove_repo",
+            "patrol_tpu_torch.scripts.dispatch_repo"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r}\n"

@@ -506,3 +506,39 @@ def test_zero_rows_drops_and_read_rows_clamps_like_the_reference():
     assert_planes(got, want)
     tpn, _ = state_to_numpy(got)
     assert not tpn[B - 1].any() and not tpn[0].any() and tpn[1:B - 1].any()
+    # zero_rows takes host rows (ROADMAP C8): a numpy array, a list or a
+    # CPU tensor, with wraps ([-B, 0)), drops (everything else out of
+    # range) and duplicates, each against the reference.
+    mixed = np.array([-B, -1, 3, 3, 7, B, -B - 1, tmerge.FOLD_PAD_ROW, 5, -1], np.int64)
+    want = jmerge.zero_rows(jstate(pn, el), _j32(mixed))
+    for host_rows in (mixed, mixed.tolist(), t(mixed), mixed.astype(np.int32)):
+        got = tmerge.zero_rows(state_from_numpy(pn, el, "cpu"), host_rows)
+        assert_planes(got, want)
+    untouched = state_from_numpy(pn, el, "cpu")
+    tmerge.zero_rows(untouched, np.array([B, -B - 1], np.int64))  # all dropped
+    assert_planes(untouched, jstate(pn, el))
+    with pytest.raises(ValueError):
+        tmerge.zero_rows(state_from_numpy(pn, el, "cpu"), t(mixed).to("meta"))
+
+
+@pytest.mark.cuda
+def test_zero_rows_on_the_card_waits_for_nothing():
+    """On a CUDA state zero_rows ships its host rows and fills, and never
+    synchronizes: it runs clean under torch's sync detector, and equals
+    the CPU result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels do not run on the CPU")
+    rng = np.random.default_rng(53)
+    pn, el = base_state(rng)
+    rows = np.array([-B, -1, 3, 3, B, tmerge.FOLD_PAD_ROW], np.int64)
+    dev = state_from_numpy(pn, el, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tmerge.zero_rows(dev, rows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = tmerge.zero_rows(state_from_numpy(pn, el, "cpu"), rows)
+    got_pn, got_el = state_to_numpy(dev)
+    np.testing.assert_array_equal(got_pn, want.pn.numpy())
+    np.testing.assert_array_equal(got_el, want.elapsed.numpy())
