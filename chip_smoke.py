@@ -85,7 +85,13 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    33, 64 lanes on a 1,000,000-row state, each call one launch; both timed
    at R = 2, T = 4,096, N = 64 warm, cold (8 row sets, past L2) and at
    T = 1, beside the plain versions, the library calls (``amax`` +
-   ``index_copy_``; ``index_select`` + ``copy_``) and their bound.
+   ``index_copy_``; ``index_select`` + ``copy_``) and their bound. Then
+   ``zero_rows`` (plain torch: host rows filtered in numpy, one pinned
+   copy, ``index_fill_`` a plane) on the 1M x 64 state at a GC reclaim's
+   row count (8,192 distinct rows): zero rows and the rest unchanged
+   against the same call on a CPU copy, timed a call on the device beside
+   the two bare ``index_fill_`` calls (the library call it is) and its
+   bound (the bytes it writes).
 3. The main path: the port's ``Command`` serving on the asyncio front
    (host fast path off, see 3f)
    (ephemeral port, ``device="cuda"``, frozen clock), 100k peer deltas with
@@ -261,6 +267,19 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    ``release_bucket``; none may raise (the parent tree's mask read does).
    Printed: each stage's seconds, each root's launches and combinations,
    the mutations' codes, the witness's paths, the callers' seconds.
+3n. The cert stage and the port's check runner on the card. (a)
+   ``cert_repo --device cuda`` as a subprocess: clean, with the
+   reference's line (8 families, 18 mutations executed, 4 pinned); each
+   executed mutation's codes, seconds and kernel launches from its line.
+   Then each of the 22 mutations by ``--mutation``, six processes at a
+   time: each rejected with its pinned code. (b)
+   ``patrol_tpu_torch/scripts/check.sh --device cuda --stage tidy,san``
+   (the runner's other stages ran on the card in 3k-3n(a) through their
+   drivers): no stage may fail and only tidy may skip (clang-tidy
+   absent); san builds both sanitizer drivers against the port's library
+   under thread, address and undefined, and runs them. Printed: the
+   seconds of each run and of the whole, the prove mutants' launches by
+   kernel, the runner's ``PATROL_CHECK`` line and each stage's seconds.
 4. Print the ``kernels`` JSON line, the nvidia-smi line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -1694,6 +1713,59 @@ def ptxas_lines(build_log: str, names) -> dict:
     return out
 
 
+ZERO_ROWS_K = GC_K  # a GC reclaim's rows: one sweep's candidates, all reclaimed
+
+
+def zero_rows_checks(torch, dev, rng, buckets: int = BUCKETS, lanes: int = LANES,
+                     k: int = ZERO_ROWS_K) -> dict:
+    """Phase 2's ``zero_rows`` leg (plain torch, ``ops/merge.py``: the host
+    rows wrapped and filtered in numpy, one pinned copy, one
+    ``index_fill_`` a plane) on the 1M x 64 state at a GC reclaim's row
+    count (K distinct random rows): the rows must come back zero and the
+    others as they were, against the same call on a CPU copy of a sample
+    of rows (tolerance 0). Timed a call on the device, beside the two
+    ``index_fill_`` calls with the rows already on the card (the library
+    call it is) and its bound, the bytes it writes and the rows it reads.
+    → the numbers."""
+    from patrol_tpu_torch.models.limiter import LimiterState
+    from patrol_tpu_torch.ops.merge import zero_rows
+
+    gen = torch.Generator(device=dev).manual_seed(20261020)
+    pn = torch.randint(1, 1 << 62, (buckets, lanes, 2), dtype=torch.int64, device=dev,
+                       generator=gen)
+    el = torch.randint(1, 1 << 62, (buckets,), dtype=torch.int64, device=dev, generator=gen)
+    rows = rng.choice(buckets, k, replace=False).astype(np.int64)
+    sample = np.unique(np.concatenate([rows[:512], rng.integers(0, buckets, 512)]))
+    sample_t = torch.from_numpy(sample).to(dev)
+    want = LimiterState(pn[sample_t].cpu(), el[sample_t].cpu())
+    zero_rows(want, np.flatnonzero(np.isin(sample, rows)))
+    state = LimiterState(pn, el)
+    zero_rows(state, rows)
+    torch.cuda.synchronize()
+    err = max(int((pn[sample_t].cpu() - want.pn).abs().max()),
+              int((el[sample_t].cpu() - want.elapsed).abs().max()))
+    check(err == 0, f"zero_rows on the card differs from the CPU call: {err}")
+    check(int(pn[torch.from_numpy(rows).to(dev)].abs().max()) == 0,
+          "zero_rows left a reclaimed row non-zero")
+    ms = device_ms(torch, lambda: zero_rows(state, rows))
+    idx = torch.from_numpy(rows).to(dev)
+
+    def library():
+        pn.index_fill_(0, idx, 0)
+        el.index_fill_(0, idx, 0)
+
+    library_ms = device_ms(torch, library)
+    t = time.perf_counter()
+    for _ in range(100):
+        zero_rows(state, rows)
+    host_us = (time.perf_counter() - t) / 100 * 1e6
+    torch.cuda.synchronize()
+    out = {"k": k, "ms": ms, "library_ms": library_ms, "host_us": host_us,
+           "max_abs_err": err, "bytes": k * (lanes * 2 * 8 + 8) + k * 8, "ops": 0}
+    del pn, el, state, idx
+    return out
+
+
 # -- phase 3: the main path -------------------------------------------------
 
 
@@ -3044,6 +3116,11 @@ def run_cert_phase(Command, LimiterConfig, engine_mod, torch) -> dict:
         ceng.stop()
     check(gpu["leg"] == {"gcra": 15, "conc": 21, "quota": 8}, f"3i: cert leg {gpu['leg']}")
     check(gpu["leg"] == cpu["leg"], "3i: the cert leg differs from the CPU replay")
+    # The leg's admitted counts, one key a family: the keys the registry's
+    # bench_fields name (ops/obligations.py), read by the cert stage.
+    gpu["cert_gcra_admitted"] = gpu["leg"]["gcra"]
+    gpu["cert_conc_admitted"] = gpu["leg"]["conc"]
+    gpu["cert_quota_admitted"] = gpu["leg"]["quota"]
     bad = [i for i, (a, b) in enumerate(zip(gpu["digests"], cpu["digests"])) if a != b]
     check(not bad and len(gpu["digests"]) == len(cpu["digests"]),
           f"3i: family results differ from the CPU replay at calls {bad[:8]}")
@@ -3727,11 +3804,17 @@ def run_trace_leg(Command, LimiterConfig, _build, device: str = "cuda",
             first["wall_s"] = time.perf_counter() - t
 
         capturer = threading.Thread(target=first_capture)
+        launched = dict(_build.LAUNCHES)
+        paths0 = take_paths(eng)
         capturer.start()
         while capturer.is_alive():
             w = window("first capture", 0.5, may_stall=True)
             first["blasts"].append([w["requests"], round(w["takes_per_s"], 1)])
         capturer.join()
+        first["launches"] = {k: v - launched[k] for k, v in _build.LAUNCHES.items()
+                             if v != launched[k]}
+        first["paths"] = {k: v - paths0[k] for k, v in take_paths(eng).items()}
+        first["hosted_buckets"] = eng.hosted_buckets
         check(first.get("status") == 200, f"the first /debug/cuda/trace answered {first}")
         first["trace"] = trace_summary(first["body"].strip().split(" ")[-1])
         out["first_capture"] = first
@@ -3784,6 +3867,23 @@ def run_trace_leg(Command, LimiterConfig, _build, device: str = "cuda",
     return out
 
 
+def take_paths(eng) -> dict:
+    """The engine's takes so far by the path that answered them: in the
+    native front, on the Python host lanes, as device tickets."""
+    from patrol_tpu_torch.utils import profiling
+
+    store = eng._native_store
+    return {"in_front": store.native_takes if store is not None else 0,
+            "python_host": eng._host_takes,
+            "device_tickets": profiling.COUNTERS.get("take_device_tickets")}
+
+
+def holds_take_records(summary: dict) -> bool:
+    """Whether a capture's :func:`trace_summary` holds a device record of
+    the take path (``take_n_kernel`` or ``join_kernel``)."""
+    return summary["kernels"].get("take_n_kernel", 0) + summary["kernels"].get("join_kernel", 0) > 0
+
+
 def trace_leg_child(prepare: bool = True) -> dict:
     """:func:`run_trace_leg` at full size on the card, for a fresh process
     (:func:`fresh_trace_leg_argv` starts it): a node whose process has
@@ -3832,10 +3932,14 @@ def trace_soak(argv: list) -> int:
     control: each node leaves the profiler's set-up to its first capture,
     under load. Prints one JSON line a leg (its exit code, whether it
     printed its result before it ended, the set-up's and the captures'
-    seconds) and a summary line; every leg's standard error goes to
-    ``chiprun_out/trace_soak/``. → 0 when every leg exited 0."""
+    seconds, and the first capture's take-path records, launches and take
+    paths, which 3k(d) checks) and a summary line; every leg's standard
+    error goes to ``chiprun_out/trace_soak/``, with the trace of a capture
+    that held no take-path record. → 0 when every leg exited 0 and each
+    of its captures held a take-path record."""
     import argparse
     import concurrent.futures
+    import shutil
 
     import torch
 
@@ -3874,18 +3978,34 @@ def trace_soak(argv: list) -> int:
         out = {"leg": i, "rc": rc, "wall_s": time.perf_counter() - t, "printed_result": bool(lines)}
         if lines:
             r = json.loads(lines[-1])
-            out.update(prepare_s=r["trace_prepare_s"], first_capture_s=r["first_capture"]["wall_s"],
-                       capture_s=r["capture"]["wall_s"], overlap=r["overlap"].get("status"))
+            first = r["first_capture"]
+            out.update(prepare_s=r["trace_prepare_s"], first_capture_s=first["wall_s"],
+                       capture_s=r["capture"]["wall_s"], overlap=r["overlap"].get("status"),
+                       first_holds_takes=holds_take_records(first["trace"]),
+                       holds_takes=holds_take_records(r["trace"]),
+                       first_take_records={k: first["trace"]["kernels"].get(k, 0)
+                                           for k in ("take_n_kernel", "join_kernel")},
+                       first_launches=first["launches"], first_paths=first["paths"],
+                       first_blasts=first["blasts"],
+                       first_unmatched=first["trace"]["unmatched_launch_calls"],
+                       first_unmatched_at_ms=first["trace"]["unmatched_at_ms"])
+            for key, body, held in (("first", first["body"], out["first_holds_takes"]),
+                                    ("capture", r["capture"]["body"], out["holds_takes"])):
+                if not held:
+                    shutil.copy(body.strip().split(" ")[-1],
+                                os.path.join(out_dir, f"leg{i}_{key}_trace.json"))
         print(json.dumps(out), flush=True)
         return out
 
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         legs = list(pool.map(leg, range(args.fresh_trace_legs)))
     failed = [x["leg"] for x in legs if x["rc"] != 0]
+    missing = [x["leg"] for x in legs
+               if x["printed_result"] and not (x["first_holds_takes"] and x["holds_takes"])]
     print(json.dumps({"trace_soak": {"legs": len(legs), "parallel": 2,
                                      "prepared": not args.unprepared, "failed": failed,
-                                     "card": smi}}))
-    return 1 if failed else 0
+                                     "missing_take_records": missing, "card": smi}}))
+    return 1 if failed or missing else 0
 
 
 def run_check_stage_phase(torch, Command, LimiterConfig, _build) -> dict:
@@ -3933,12 +4053,15 @@ def run_check_stage_phase(torch, Command, LimiterConfig, _build) -> dict:
           "the fresh node did not prepare the profiler as it started (ROADMAP C6)")
     check(tleg["overlap"].get("status") == 409,
           f"an overlapping /debug/pprof/trace answered {tleg['overlap']}")
-    for label, summary in (("in-process first capture", inproc["first_capture"]["trace"]),
-                           ("fresh first capture", tleg["first_capture"]["trace"]),
-                           ("fresh capture", tsum)):
-        names = summary["kernels"]
-        check(names.get("take_n_kernel", 0) + names.get("join_kernel", 0) > 0,
-              f"the {label} holds neither take_n_kernel nor join_kernel: {names}")
+    for label, summary, leg in (("in-process first capture", inproc["first_capture"]["trace"],
+                                 inproc["first_capture"]),
+                                ("fresh first capture", tleg["first_capture"]["trace"],
+                                 tleg["first_capture"]),
+                                ("fresh capture", tsum, tleg["capture"])):
+        check(holds_take_records(summary),
+              f"the {label} holds neither take_n_kernel nor join_kernel: {summary['kernels']}; "
+              f"the leg's blasts, launches, take paths and wall s: {leg.get('blasts')} "
+              f"{leg.get('launches')} {leg.get('paths')} {leg.get('wall_s')}")
     if tleg["with"]["decode_fold_launches"] > 0:
         check(tsum["kernels"].get("decode_fold_kernel", 0) > 0,
               f"decode_fold launched {tleg['with']['decode_fold_launches']} times in the "
@@ -4400,6 +4523,141 @@ def run_prove_dispatch_phase(torch, _build) -> dict:
     return phase
 
 
+# -- phase 3n: the cert stage and the port's check runner, on the card ----------
+
+CERT_CLEAN = ("patrol-cert: clean (8 families, 18 seeded mutations executed + 4 stage-8 "
+              "references pinned, all rejected with their exact codes)")
+CERT_MUTATION_PROCS = 6  # --mutation subprocesses at once (the host has 8 cores)
+RUNNER_STAGES = "tidy,san"  # cert ran on the card in 3n(a), through its driver
+
+
+def cert_module(*args: str, timeout: float = 600) -> tuple:
+    """One ``cert_repo`` run as a subprocess; → (exit code, stdout lines,
+    stderr tail, seconds)."""
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "patrol_tpu_torch.scripts.cert_repo", *args], cwd=HERE,
+        capture_output=True, text=True, timeout=timeout,
+    )
+    return res.returncode, res.stdout.splitlines(), res.stderr[-2000:], time.perf_counter() - t
+
+
+def mutation_line(line: str) -> tuple:
+    """An executed mutation's line (``  NAME [STAGE]: CODES in S s,
+    launches K=V,...``) → (name, codes, seconds, launches by kernel)."""
+    head, tail = line.strip().split(": ", 1)
+    codes, rest = tail.split(" in ", 1)
+    secs, launches = rest.split(" s, launches ", 1)
+    by_kernel = {} if launches == "-" else {
+        k: int(v) for k, v in (kv.split("=") for kv in launches.split(","))}
+    return head.split(" [")[0], codes.split(","), float(secs), by_kernel
+
+
+def cert_stage_runs() -> dict:
+    """3n(a): ``cert_repo --device cuda`` as a subprocess: clean, with the
+    reference's line; each executed mutation's codes, seconds and kernel
+    launches from its line. Then each of the 22 mutations by
+    ``--mutation`` (``CERT_MUTATION_PROCS`` at once), each rejected with its
+    pinned code. → the seconds of the clean run, of each mutation run and
+    of all of them, and the prove mutants' launches by kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from patrol_tpu_torch.ops.obligations import KERNEL_FAMILIES
+
+    rc, out, err, clean_s = cert_module("--device", "cuda")
+    check(rc == 0 and out and out[-1] == CERT_CLEAN,
+          f"3n(a): cert_repo --device cuda exited {rc}: {out[-3:]} {err}")
+    executed = {}
+    for line in out[:-1]:
+        name, codes, secs, launches = mutation_line(line)
+        executed[name] = {"codes": codes, "s": secs, "launches": launches}
+    muts = [(m, f.name) for f in KERNEL_FAMILIES for m in f.mutations]
+    check(sorted(executed) == sorted(m.name for m, _ in muts if m.stage != "lin"),
+          f"3n(a): the clean run executed {sorted(executed)}")
+    # The one prove mutant that goes through a wrapper (the others replace
+    # their kernel by plain torch) must have launched it on the card.
+    check(executed["take-n-uncapped-crowd"]["launches"].get("take_n", 0) > 0,
+          "3n(a): take-n-uncapped-crowd launched no kernel on the card")
+
+    def one(item):
+        m, fam = item
+        rc, out, err, secs = cert_module("--device", "cuda", "--mutation", m.name)
+        want = f"patrol-cert: mutation '{m.name}' rejected with {m.expect} (family {fam})"
+        check(rc == 0 and out and out[-1] == want,
+              f"3n(a): --mutation {m.name} exited {rc}: {out[-2:]} {err}")
+        return m.name, {"expect": m.expect, "stage": m.stage, "s": secs}
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(CERT_MUTATION_PROCS) as pool:
+        runs = dict(pool.map(one, muts))
+    return {"clean_s": clean_s, "executed": executed, "mutations": runs,
+            "mutations_s": time.perf_counter() - t,
+            "prove_launches": {name: v["launches"] for name, v in executed.items()
+                               if runs[name]["stage"] == "prove"}}
+
+
+def runner_stages() -> dict:
+    """3n(b): the port's check runner, ``check.sh --device cuda --stage
+    tidy,san``, as a subprocess: its ``PATROL_CHECK`` line, each stage's
+    seconds, and its notices. No stage may fail, and only tidy may skip
+    (clang-tidy absent); where clang-tidy is on the machine, tidy must
+    pass. The other stages ran on the card in 3k-3n(a) through their
+    drivers; their self-tests hold the port to the JAX package and run on
+    the CPU. → the numbers."""
+    import shutil
+
+    t = time.perf_counter()
+    res = subprocess.run(
+        ["bash", os.path.join(HERE, "patrol_tpu_torch", "scripts", "check.sh"),
+         "--device", "cuda", "--stage", RUNNER_STAGES],
+        cwd=HERE, capture_output=True, text=True, timeout=900,
+    )
+    seconds = time.perf_counter() - t
+    lines = res.stdout.splitlines()
+    summary = [ln for ln in lines if ln.startswith("PATROL_CHECK ")]
+    check(summary, f"3n(b): the runner printed no PATROL_CHECK line (rc {res.returncode}): "
+          f"{lines[-5:]} {res.stderr[-1500:]}")
+    fields = dict(kv.split("=", 1) for kv in summary[-1].split()[1:])
+    stage_s = {}
+    for ln in lines:
+        if ln.startswith("patrol-check: stage '") and " rc=" in ln:
+            name = ln.split("'")[1]
+            stage_s[name] = {"rc": int(ln.split(" rc=")[1].split()[0]),
+                             "s": int(ln.rsplit(" in ", 1)[1].split()[0])}
+    tidy_ok = "tidy" in fields["skipped"].split(",") and shutil.which("clang-tidy") is None
+    check(res.returncode == 0 and fields["fail"] == "0",
+          f"3n(b): the runner failed: {summary[-1]} {lines[-12:]} {res.stderr[-1500:]}")
+    check(fields["skipped"] == "-" or (fields["skipped"] == "tidy" and tidy_ok),
+          f"3n(b): the runner skipped {fields['skipped']}")
+    return {"summary": summary[-1], "rc": res.returncode, "seconds": seconds,
+            "stages": stage_s, "notices": [ln for ln in lines if "NOTICE" in ln or "SKIPPED" in ln],
+            "san": [ln for ln in lines if ln.startswith("-- ")]}
+
+
+def run_cert_runner_phase() -> dict:
+    """Phase 3n on the card: (a) the cert stage and its 22 mutations, (b)
+    the check runner's tidy and san stages. Any failed check raises.
+    → the numbers."""
+    t0 = time.perf_counter()
+    phase = {"cert": cert_stage_runs()}
+    phase["runner"] = runner_stages()
+    phase["phase_s"] = time.perf_counter() - t0
+    log(f"3n: {json.dumps(phase, default=str)}")
+    c, r = phase["cert"], phase["runner"]
+    print(f"3n cert --device cuda: clean in {c['clean_s']:.2f} s; 22 --mutation runs "
+          f"({CERT_MUTATION_PROCS} at once) in {c['mutations_s']:.2f} s: " + json.dumps(
+              {k: [v["expect"], round(v["s"], 2)] for k, v in c["mutations"].items()}))
+    print("3n cert executed mutations (codes, s): " + json.dumps(
+        {k: [v["codes"], round(v["s"], 3)] for k, v in c["executed"].items()}))
+    print("3n cert prove mutants' launches by kernel: " + json.dumps(c["prove_launches"]))
+    print(f"3n runner --device cuda --stage {RUNNER_STAGES}: {r['summary']} in "
+          f"{r['seconds']:.1f} s; stages (rc, s) "
+          + json.dumps({k: [v["rc"], v["s"]] for k, v in r["stages"].items()})
+          + f"; notices {json.dumps(r['notices'])}; phase {phase['phase_s']:.1f} s")
+    print("3n san: " + " | ".join(r["san"]))
+    return phase
+
+
 def fold_timing(engine_mod, reps: int = 5) -> dict:
     """The tick fold on one clustered batch, 131,072 deltas over 64 rows
     and 64 lanes (the reference's motivating shape): host ns of the numpy
@@ -4533,6 +4791,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     conv = converge_checks(torch, ck, _build, dev)
     torch.cuda.empty_cache()
+    zrows = zero_rows_checks(torch, dev, np.random.default_rng(20261020))
+    torch.cuda.empty_cache()
     log(f"joins: {json.dumps(joins)}")
     log(f"pair_join {pair['ms']:.4f} ms, row_join {row['ms']:.4f} ms, tick_join "
         f"{tick['ms']:.4f} ms (two launches {tick['two_launches_ms']:.4f} ms), ring warm "
@@ -4573,6 +4833,10 @@ def main() -> int:
               f"{m['shapes_checked']} shapes")
     print("converge.cu ptxas: " + " | ".join(conv_ptxas))
     print("cert grid: " + json.dumps(cert["grid"]))
+    print(f"zero_rows K={zrows['k']} on {BUCKETS} x {LANES}: {zrows['ms']:.6f} ms a call "
+          f"(host {zrows['host_us']:.1f} us), index_fill_ x 2 {zrows['library_ms']:.6f} ms, "
+          f"bound {bound(zrows['bytes'], zrows['ops'])[0]:.6f} ms, max_abs_err "
+          f"{zrows['max_abs_err']}")
     report["kernel_detail"] = {
         "pair_join": pair, "row_join": row, "tick_join": tick, "commit_ring": ring,
         "take_n": take,
@@ -4582,6 +4846,7 @@ def main() -> int:
         "lifecycle_probe": life,
         "cert": cert,
         "converge": conv,
+        "zero_rows": zrows,
     }
 
     # 3. The main path. Phases 3, 3b, 3c and 3e run the asyncio front with
@@ -4891,6 +5156,11 @@ def main() -> int:
     # zero_rows's four engine callers under it on the 1M x 64 state.
     m3 = run_prove_dispatch_phase(torch, _build)
     report["prove_dispatch"] = m3
+
+    # 3n. The cert stage on the card (clean, each of its 22 mutations
+    # rejected with its pinned code) and the port's check runner's tidy
+    # and san stages.
+    report["cert_runner"] = run_cert_runner_phase()
 
     # 4. The kernels line, the card, the contract line.
     kernels = []

@@ -1,6 +1,9 @@
 """The port's check stages (counterpart of ``patrol_tpu/analysis``).
 
-Seven stages so far, each with a driver in ``patrol_tpu_torch/scripts/``:
+Eight stages, each with a driver in ``patrol_tpu_torch/scripts/``, and a
+runner over them, ``scripts/check.sh`` (the eight, the clang-tidy and
+sanitizer stages ``tidy`` and ``san``, the opt-in ``asan-py``; CI gate
+``scripts/ci_gate.sh``):
 
 * :mod:`~patrol_tpu_torch.analysis.lint` — the AST lint over the port's
   own sources (``lint_repo.py``, PTL001-007; PTL002 is the CUDA
@@ -26,8 +29,13 @@ Seven stages so far, each with a driver in ``patrol_tpu_torch/scripts/``:
 * :mod:`~patrol_tpu_torch.analysis.dispatch` — no hidden host wait on the
   serve graph, a complete dispatch registry, and the witness of every
   serving path under torch's sync detector (``dispatch_repo.py``,
-  PTD003-005; PTD001/PTD002 are absences on record).
+  PTD003-005; PTD001/PTD002 are absences on record);
+* :mod:`~patrol_tpu_torch.analysis.cert` — the meta-check over the
+  family records: every family reaches every stage it should or says why
+  not, every seeded mutation is rejected with its exact code (the prove
+  mutants on the CPU or on the card), every absent obligation is
+  justified, every kernel launcher is registered (``cert_repo.py``,
+  PTK001-005).
 
-The registry the last five read is :mod:`patrol_tpu_torch.ops.obligations`.
-The cert stage, tidy, san and the check runner are not ported yet.
+The registry the last six read is :mod:`patrol_tpu_torch.ops.obligations`.
 """

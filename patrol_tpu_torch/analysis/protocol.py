@@ -1400,9 +1400,9 @@ def check_protocol(sem: Semantics = CLEAN) -> List[Finding]:
 # needs one, an extra schedulable move (``extra_moves``). Each family
 # carries a small laws dataclass whose non-clean values are the
 # family's SEEDED MUTATIONS, registered in ops/obligations.py and
-# executed by scripts/protocol_repo.py's verdicts (the cert stage that
-# pins them in the reference, PTK002, is not ported yet); the clean laws
-# run in stage 6's check_repo like every other clean preset.
+# executed by scripts/protocol_repo.py's verdicts and pinned to their
+# exact codes by the cert stage (analysis/cert.py, PTK002); the clean
+# laws run in stage 6's check_repo like every other clean preset.
 
 
 @dataclasses.dataclass(frozen=True)

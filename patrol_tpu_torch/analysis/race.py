@@ -106,9 +106,12 @@ pred)`` with the ring-empty predicate evaluated under ``Server::mu`` and
 drains ``take_q`` under the same lock (the ``park_check="locked"`` law);
 a completion checks ``c.fd >= 0 && c.gen == gen`` and queues its
 response in one ``s->mu`` critical section (``complete_lock="mutex"``);
-``close_conn`` bumps ``c.gen`` (``slot_fence="gen"``). No TSan harness
-pins the model to the port's running code yet (the reference's lives in
-its check runner); that waits for the port's own.
+``close_conn`` bumps ``c.gen`` (``slot_fence="gen"``). The model is
+pinned to the port's running code as the reference's is to its own: the
+san stage of the port's check runner (``scripts/check.sh``) builds
+``native/san/san_http_driver.cpp`` — its pump thread on ``pt_http_poll``
+racing the epoll thread on ``Server::mu`` — with the port's
+``patrol_http.cpp`` under TSan, ASan and UBSan, and any report fails it.
 
 **What the static walk cannot see.** It keys on ``self.<attr>`` inside
 the guarded class's own methods: a write of another object's guarded

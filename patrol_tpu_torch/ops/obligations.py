@@ -30,8 +30,10 @@ registry (stage 10, ``analysis/dispatch.py``) is at the bottom:
 caller and per plain-torch serving function, the witness paths' declared
 launches (``WITNESS_LAUNCHES``) and waits (``WITNESS_WAITS``), the
 engine's declared waits (``DECLARED_WAITS``) and the justified absences
-of PTD001/PTD002.
-Stage 9 (cert) is not ported yet; ``ROADMAP.md`` lists it.
+of PTD001/PTD002. Stage 9 (cert, ``analysis/cert.py``) reads the family
+records whole: every family reaches every stage it should (or says why
+not), including the keys ``chip_smoke.py`` writes for the phase that
+runs its kernel end to end (``bench_fields``).
 
 The flat ``PROVE_ROOTS`` / ``LIN_SPECS`` / ``ABI_OBLIGATIONS`` tuples the
 stage drivers and tests consume are DERIVED from the family records at
@@ -103,6 +105,10 @@ class KernelFamily:
     protocol_exempt: str = ""
     abi: Tuple[AbiObligation, ...] = ()
     wire_codec: Optional[str] = None  # root name of the codec
+    # Keys chip_smoke.py writes for the phase that runs the family's kernel
+    # end to end on the card (the reference's bench.py smoke fields).
+    bench_fields: Tuple[str, ...] = ()
+    bench_exempt: str = ""
     mutations: Tuple[CertMutation, ...] = ()
     mutations_exempt: str = ""
     note: str = ""
@@ -622,6 +628,9 @@ KERNEL_FAMILIES: Tuple[KernelFamily, ...] = (
             "the admission-facing surface"
         ),
         protocol="bucket-full",
+        # Phase 3's main path: the deltas its ticks join and how they
+        # committed (commit_split's labels and counters).
+        bench_fields=("deltas_per_s", "commits"),
         abi=(
             AbiObligation(
                 "native.pt_fold_hybrid", "pt_fold_hybrid",
@@ -681,6 +690,13 @@ KERNEL_FAMILIES: Tuple[KernelFamily, ...] = (
         protocol_exempt=(
             "not a replicated lattice: scalar deficits ride inside v1 "
             "datagrams and are re-derived, not joined"
+        ),
+        bench_exempt=(
+            "no standalone device leg: no phase of chip_smoke.py sends a "
+            "trailer-less v1 state; the attribution is plain torch ahead of "
+            "pair_join, the join whose launches phase 3's main path counts "
+            "for merge-join, and phase 3m drives this root through pair_join "
+            "on the card"
         ),
         mutations_exempt=(
             "documented-lossy family with a single monotone law; the "
@@ -771,6 +787,8 @@ KERNEL_FAMILIES: Tuple[KernelFamily, ...] = (
             ),
         ),
         wire_codec="ops.wire.codec",
+        # Phase 3's takes through take_n on the main path.
+        bench_fields=("takes", "takes_per_s"),
         mutations=(
             CertMutation(
                 "take-n-uncapped-crowd", "prove", "ops.take.take_n_batch", "PTP002",
@@ -861,6 +879,8 @@ KERNEL_FAMILIES: Tuple[KernelFamily, ...] = (
             ),
         ),
         wire_codec="ops.wire.delta_codec",
+        # Phase 3b: raw dv2 planes through decode_fold at the ring's batch.
+        bench_fields=("raw_deltas_per_s",),
         mutations=(
             CertMutation(
                 "delta-ships-increments-not-absolutes", "protocol",
@@ -895,6 +915,8 @@ KERNEL_FAMILIES: Tuple[KernelFamily, ...] = (
             ),
         ),
         protocol="lifecycle-gc",
+        # Phase 3h: the sweeps' reclaims through lifecycle_probe.
+        bench_fields=("reclaimed",),
         mutations=(
             CertMutation(
                 "gc-drops-admitted-tokens", "protocol",
@@ -945,6 +967,8 @@ KERNEL_FAMILIES: Tuple[KernelFamily, ...] = (
         ),
         protocol="gcra",
         wire_codec="ops.wire.gcra_trailer",
+        # Phase 3i: the cert leg's admitted count through the engine.
+        bench_fields=("cert_gcra_admitted",),
         mutations=(
             CertMutation(
                 "gcra-window-off-by-one", "prove", "ops.gcra.gcra_take_batch", "PTP002",
@@ -993,6 +1017,8 @@ KERNEL_FAMILIES: Tuple[KernelFamily, ...] = (
         ),
         protocol="concurrency",
         wire_codec="ops.wire.conc_trailer",
+        # Phase 3i: the cert leg's admitted count through the engine.
+        bench_fields=("cert_conc_admitted",),
         mutations=(
             CertMutation(
                 "conc-release-unclamped", "prove", "ops.concurrency.conc_acquire_batch",
@@ -1039,6 +1065,8 @@ KERNEL_FAMILIES: Tuple[KernelFamily, ...] = (
         ),
         protocol="hierquota",
         wire_codec="ops.wire.quota_trailer",
+        # Phase 3i: the cert leg's admitted count through the engine.
+        bench_fields=("cert_quota_admitted",),
         mutations=(
             CertMutation(
                 "quota-admit-leaf-only", "prove", "ops.hierquota.quota_take_batch", "PTP002",

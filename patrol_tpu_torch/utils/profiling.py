@@ -587,19 +587,22 @@ def cuda_trace(duration_s: float = 2.0, out_dir: Optional[str] = None) -> str:
     What it records is :func:`_trace_profile`'s: every thread's torch
     ops, and the card's kernels and copies when a card is present. The
     card is synchronized before the capture stops, so every kernel
-    launched inside the window is complete in the trace.
+    launched inside the window has run by then.
 
     Raises :class:`ProfilerBusyError` when a capture is already running.
 
-    A node's capture does not lose its window's first milliseconds: on
-    an H100 serving device-path takes (``chip_smoke.py`` phase 3k(d), in
-    a fresh process as a deployed node runs), every launch call in the
-    window had its kernel record, on the process's first capture and on
-    a later one. In the smoke run's own process, after its earlier
-    profiled windows (which wait out a 0.25 s lead-in for that reason),
-    a capture lost the device records of its first few launches. In a
-    process that has not run :func:`prepare_cuda_trace`, the first
-    capture does that set-up before its window opens."""
+    A capture may lose the device records of some launches early in its
+    window. On an H100 serving device-path takes (``chip_smoke.py``
+    phase 3k(d), in a fresh process as a deployed node runs; and
+    ``chip_smoke.py --fresh-trace-legs``), most first captures held a
+    kernel record for every launch call in the window, and some lacked
+    the records of the calls in their first 1-230 ms; one first capture
+    of 0.5 s in a smoke run held no take-n record at all. In the
+    smoke run's own process, after its earlier profiled windows (which
+    wait out a 0.25 s lead-in for that reason), a capture lost the
+    device records of its first few launches. In a process that has not
+    run :func:`prepare_cuda_trace`, the first capture does that set-up
+    before its window opens."""
     global _cuda_trace_prepared
     if not _cuda_trace_mu.acquire(blocking=False):
         COUNTERS.inc("trace_captures_busy")

@@ -48,7 +48,9 @@ def test_every_module_imports_without_jax():
             "patrol_tpu_torch.analysis.prove",
             "patrol_tpu_torch.analysis.dispatch",
             "patrol_tpu_torch.scripts.prove_repo",
-            "patrol_tpu_torch.scripts.dispatch_repo"} <= set(mods)
+            "patrol_tpu_torch.scripts.dispatch_repo",
+            "patrol_tpu_torch.analysis.cert",
+            "patrol_tpu_torch.scripts.cert_repo"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r}\n"
@@ -119,6 +121,39 @@ def test_check_stages_import_without_jax_or_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) is False
+
+
+def test_cert_stage_imports_without_jax():
+    # The cert stage and its driver, with the registry they read, load
+    # neither jax nor any module of the JAX package.
+    code = (
+        "import json, sys\n"
+        "import patrol_tpu_torch.analysis.cert, patrol_tpu_torch.scripts.cert_repo\n"
+        "print(json.dumps(sorted(k for k in sys.modules\n"
+        "                        if k.split('.')[0] in ('jax', 'jaxlib', 'patrol_tpu'))))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_check_runner_reads_only_the_port_s_files():
+    # The runner, its CI gate and the sanitizer drivers are the port's own
+    # copies: the shell scripts' commands name no path under patrol_tpu/
+    # and none of the reference's scripts/ (the repo's .clang-tidy is
+    # configuration; a comment may cite the counterpart).
+    scripts = PKG_DIR / "scripts"
+    for name in ("check.sh", "ci_gate.sh"):
+        text = "\n".join(ln for ln in (scripts / name).read_text().splitlines()
+                         if not ln.lstrip().startswith("#"))
+        assert not re.search(r"(?<![\w_])patrol_tpu/", text), name
+        assert not re.search(r"(?<![\w/])scripts/", text), name
+    assert {p.name for p in (PKG_DIR / "native" / "san").iterdir()} == {
+        "tsan_driver.cpp", "san_http_driver.cpp", "lsan_python.supp",
+    }
 
 
 def test_check_stage_sources_name_no_jax_import():

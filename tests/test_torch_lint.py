@@ -37,6 +37,8 @@ import pytest
 from patrol_tpu.analysis import lint as ref_lint
 from patrol_tpu_torch.analysis import lint
 
+pytestmark = pytest.mark.lint
+
 REPO = Path(__file__).resolve().parent.parent
 PKG = "patrol_tpu_torch"
 

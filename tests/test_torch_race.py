@@ -37,6 +37,8 @@ from patrol_tpu.analysis import race as ref_race
 from patrol_tpu_torch.analysis import race
 from patrol_tpu_torch.analysis.lint import Module
 
+pytestmark = pytest.mark.race
+
 REPO = Path(__file__).resolve().parent.parent
 PKG = "patrol_tpu_torch"
 _FIX = f"{PKG}/fixture.py"

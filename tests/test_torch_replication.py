@@ -87,6 +87,14 @@ class Node:
         except BaseException as exc:  # surfaced by the starter
             self.error = exc
 
+    def drain(self, timeout=30.0):
+        """Wait until every completion of the node's engine has fanned out
+        and every datagram it queued on its event loop has been sent: the
+        loop runs callbacks in order, so a no-op scheduled now returns after
+        the sends queued before it."""
+        assert self.cmd.engine.flush(timeout), "engine did not drain"
+        asyncio.run_coroutine_threadsafe(asyncio.sleep(0), self.loop).result(timeout)
+
     def close(self):
         self.loop.call_soon_threadsafe(self.stop_ev.set)
         self.thread.join(30)
@@ -212,7 +220,7 @@ def test_two_port_nodes_converge(wire_mode, budget):
             n.close()
 
 
-def test_incast_rehydrates_a_fresh_node(budget):
+def _incast_case(budget, loop_lag_s=0.0):
     addrs = [f"127.0.0.1:{free_port()}" for _ in range(2)]
     first = Node(port_cmd(addrs[0], addrs))
     r0 = first.cmd.replicator
@@ -225,6 +233,10 @@ def test_incast_rehydrates_a_fresh_node(budget):
         # so the first node runs without it: it sends no digest and ignores
         # the fresh node's, and only incast can bring the state over.
         r0.antientropy = None
+        if loop_lag_s:
+            # A busy host: the first node's loop runs late, after the takes
+            # have queued their broadcasts on it.
+            first.loop.call_soon_threadsafe(time.sleep, loop_lag_s)
         replies = []
         reply_incast = r0._reply_incast
 
@@ -235,6 +247,9 @@ def test_incast_rehydrates_a_fresh_node(budget):
         r0._reply_incast = spy
         for _ in range(5):
             assert first.cmd.repo.take("cold", _port_rate(None), 1)[1]
+        # The broadcasts are sent, and lost, before the second node binds
+        # its port: a loop that sent them late would deliver them to it.
+        first.drain()
         second = Node(port_cmd(addrs[1], addrs))
         fresh = second.cmd
         assert fresh.engine.directory.lookup("cold") is None
@@ -254,6 +269,19 @@ def test_incast_rehydrates_a_fresh_node(budget):
             second.close()
         first.close()
         ae.close()
+
+
+def test_incast_rehydrates_a_fresh_node(budget):
+    _incast_case(budget)
+
+
+@pytest.mark.parametrize("loop_lag_s", [0.004, 0.008])
+def test_incast_holds_under_a_lagging_loop(loop_lag_s, budget):
+    """The set-up's own check: with the first node's loop held back by a
+    few milliseconds (about the fresh node's start-up), its queued
+    broadcasts would land on the fresh node once it binds, unless the set-up
+    waits for them to be sent first."""
+    _incast_case(budget, loop_lag_s)
 
 
 @pytest.mark.parametrize("package", ["jax", "port"])
