@@ -207,6 +207,26 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    the resize must be answered. Per leg: deltas/s, takes/s, a dispatch's
    host time by step (route, prepare, ship, launch, other; p50 and p99),
    the tick fold's, and the device busy share under ``torch.profiler``.
+3o. The mesh over several pieces (host fast path and GC off, as 3j):
+   ``MeshEngine`` over ``cuda:0`` x 8 with a piece a block
+   (``piece_per_block``) at R = 4, eight pieces of one shard each (4.1
+   GB), over 3j's cut: take outcomes and the planes must equal 3j's R = 4
+   CPU replay; then 256 takes and 256 deltas under
+   ``torch.cuda.set_sync_debug_mode("error")``, none failing. R = 2
+   started as one piece, resized onto eight before the cut, then 6,000
+   takes across a resize onto one piece and back onto eight, then the
+   spread window (the trace binds rows of shard 0 only: 512 new names
+   bound on rows spread over all four shards, a delta and a take each,
+   under the sync detector, every piece carrying takes), replayed on
+   a CPU MeshEngine: outcomes and planes equal, every take answered.
+   Where ``torch.cuda.device_count() >= 2`` the same R = 2 leg resizes
+   onto the cards instead (``cuda:0`` .. in blocks). Each piece's
+   launches (counted around each piece's launch chain) must equal what
+   its operands declare (gather and converge with take rows, a join for
+   its rows and one for its scratch, take-n with takes), and every piece
+   that carried takes ran them; the exchange's copies and bytes, rates
+   and a dispatch's host time by step are printed beside 3j's, and a line
+   names how many distinct cards the phase ran on.
 3d. The probe's entry point (``patrol_tpu_torch.scripts.probe_dma_scatter``,
    ``--device cuda``) at 1M × 256 lanes, K = 8192: ``row_rmw`` must have
    launched exactly once per call the probe made, and ``pairmax`` through
@@ -258,7 +278,8 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    six prove-stage mutations on the card, each rejected with its pinned
    code. (c) ``dispatch_repo --device cuda``'s work
    (``analysis/dispatch.py``): the static half clean, and the witness's
-   18 paths on small engines, each warm, then again under
+   22 paths on small engines (mesh_pieces: the dispatch over eight
+   pieces), each warm, then again under
    ``torch.cuda.set_sync_debug_mode("error")``: none may raise, each
    path's launches as ``WITNESS_LAUNCHES`` declares, its event waits (which
    the detector cannot see) at the declared waits ``WITNESS_WAITS`` names,
@@ -3273,8 +3294,8 @@ MESH_PROFILE_KERNELS = ("join_kernel", "take_n_kernel", "gather_kernel", "conver
 class MeshSteps:
     """Times a MeshEngine's dispatches on its feeder, by step: ``route``
     (``route_packed`` into the leased matrices), ``prepare`` (the host
-    classification, ``prepare_step``), ``ship`` (one staging copy),
-    ``launch`` (``run_step`` under the state lock: the gather, joins,
+    classification, ``prepare_pieces``), ``ship`` (one staging copy a
+    piece), ``launch`` (``run_pieces`` under the state lock: the gather, joins,
     take-n and converge launches, with any wait for the lock) and
     ``other`` (the rest of ``_dispatch_fused``: packing the takes, the
     result readback's enqueue, the completion hand-off); and the tick fold
@@ -3286,9 +3307,9 @@ class MeshSteps:
         self.cur = None
         self.rows, self.folds = [], []
         self._undo = []
-        for name, step in (("route_packed", "route"), ("prepare_step", "prepare")):
+        for name, step in (("route_packed", "route"), ("prepare_pieces", "prepare")):
             self._patch(topo, name, self._timed(step, getattr(topo, name)))
-        self._patch(topo, "run_step", self._timed("launch", topo.run_step, note=True))
+        self._patch(topo, "run_pieces", self._timed("launch", topo.run_pieces, note=True))
         self._patch(eng, "_ship_flat", self._timed("ship", eng._ship_flat))
         dispatch, fold = eng._dispatch_fused, eng._fold_core
 
@@ -3326,8 +3347,10 @@ class MeshSteps:
                 return fn(*args, **kwargs)
             finally:
                 cur[step] = cur.get(step, 0.0) + time.perf_counter() - t0
-                if note:
-                    cur["takes"], cur["T"] = args[1].L, args[1].T
+                if note:  # a PiecesStep: a PreparedStep a piece
+                    steps = args[1].steps
+                    cur["takes"] = sum(s.L for s in steps)
+                    cur["T"] = sum(s.T for s in steps)
 
         return timed
 
@@ -3431,11 +3454,13 @@ def mesh_leg(torch, topo, MeshEngine, TPURepo, cfg, replicas, trace, clock_now, 
     return res, planes, trace_planes
 
 
-def mesh_replay(torch, MeshEngine, TPURepo, cfg, replicas, trace, clock_now, resize=False):
+def mesh_replay(torch, MeshEngine, TPURepo, cfg, replicas, trace, clock_now, resize=False,
+                spread=False):
     """The same calls on a CPU MeshEngine (the plain versions), no resize:
     with no merges in flight the take results do not depend on the mesh's
-    shape. → (outcomes, resize outcomes, final planes, planes after the
-    trace)."""
+    shape; with ``spread``, 3o's spread window last. → (outcomes, resize
+    outcomes, final planes, planes after the trace, the spread window or
+    None)."""
     ceng = MeshEngine(cfg, replicas=replicas, node_slot=0, clock=Clock(clock_now),
                       devices=[torch.device("cpu")] * MESH_DEVICES)
     try:
@@ -3444,14 +3469,15 @@ def mesh_replay(torch, MeshEngine, TPURepo, cfg, replicas, trace, clock_now, res
         trace_planes = ceng.snapshot_planes()
         more = resize_takes(crepo, trace)[0] if resize else None
         check(ceng.flush(600), "3j: CPU replay flush timed out")
+        spread_res = spread_window(torch, ceng, crepo, trace) if spread else None
         planes = ceng.snapshot_planes()
     finally:
         ceng.stop()
-    return outcomes, more, planes, trace_planes
+    return outcomes, more, planes, trace_planes, spread_res
 
 
 def run_mesh_phase(torch, device="cuda", buckets=BUCKETS, lanes=LANES, trace=None,
-                   short=MESH_SHORT) -> dict:
+                   short=MESH_SHORT, keep: dict = None) -> dict:
     """3j: the mesh engine on ``device`` x 8 at 1,000,000 x 64 (GC off and
     the host fast path off, as in phase 3): R = 2 (2 x 4 blocks) over
     phase 3's whole trace, then the take stream across a resize 2 -> 4 ->
@@ -3461,7 +3487,9 @@ def run_mesh_phase(torch, device="cuda", buckets=BUCKETS, lanes=LANES, trace=Non
     splits (mesh_split_ticks > 0); take-n launches once for each dispatch
     with takes, and at R > 1 the gather and the converge too (none at
     R = 1); the join launches. (On ``device="cpu"``, a rehearsal at a
-    small size, the launch counts are not held.)"""
+    small size, the launch counts are not held.) ``keep``, if given,
+    receives the R = 4 replay's outcomes and planes: phase 3o's
+    reference."""
     from patrol_tpu_torch.models.limiter import LimiterConfig
     from patrol_tpu_torch.parallel import topology as topo
     from patrol_tpu_torch.runtime.mesh_engine import MeshEngine
@@ -3483,7 +3511,7 @@ def run_mesh_phase(torch, device="cuda", buckets=BUCKETS, lanes=LANES, trace=Non
         if device == "cuda":
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        c_out, c_more, c_planes, c_trace_planes = mesh_replay(
+        c_out, c_more, c_planes, c_trace_planes, _ = mesh_replay(
             torch, MeshEngine, TPURepo, cfg, replicas, leg_trace, clock_now, resize)
         res["replay_s"] = time.perf_counter() - t0
         check(res.pop("outcomes") == c_out, f"3j R={replicas}: take outcomes differ from the CPU replay")
@@ -3491,6 +3519,8 @@ def run_mesh_phase(torch, device="cuda", buckets=BUCKETS, lanes=LANES, trace=Non
                                    (planes, c_planes, "at the end")):
             check(all(np.array_equal(x, y) for x, y in zip(mine, theirs)),
                   f"3j R={replicas}: planes {what} differ from the CPU replay")
+        if keep is not None and replicas == 4:
+            keep.update(outcomes=c_out, trace_planes=c_trace_planes, planes=c_planes)
         del planes, trace_planes, c_planes, c_trace_planes
         if resize:
             check(res.pop("resize_outcomes") == c_more,
@@ -3512,6 +3542,380 @@ def run_mesh_phase(torch, device="cuda", buckets=BUCKETS, lanes=LANES, trace=Non
                 check(rl["take_n"] > 0 and rl["converge"] == rl["mesh_gather"] > 0,
                       f"3j: launches across the resize {rl}")
         out[key] = res
+    return out
+
+
+# -- phase 3o: the mesh over several pieces ------------------------------------------
+
+PIECES_RESIZE_AT = (1_000, 2_000)  # the take stream's resizes: eight pieces -> one -> eight
+PIECES_SYNC_TAKES = 256  # takes dispatched under torch's sync detector on eight pieces
+PIECES_SPREAD = 512  # new names bound on rows spread over every shard (the spread window)
+
+
+class PieceLaunches:
+    """Counts a MeshEngine's launches piece by piece over its dispatches on
+    several pieces: ``topology._step_front`` and ``_step_converge`` (what
+    ``run_pieces`` calls for each piece) are wrapped, each call's move of
+    the launch counters is booked to the piece whose state it was given,
+    and beside it the launches the piece's operands declare: the gather
+    and the converge with take rows (T > 0), one join for its own rows
+    (Kc > 0) and one for the scratch (Ks > 0), take-n with takes (L > 0).
+    → per piece: measured and declared launches, and the dispatches in
+    which it carried takes."""
+
+    KEYS = ("mesh_gather", "pair_join", "take_n", "converge")
+
+    def __init__(self, eng, topo, _build):
+        self.topo, self._build, self.eng = topo, _build, eng
+        self.front, self.conv = topo._step_front, topo._step_converge
+        self.got, self.want, self.with_takes = {}, {}, {}
+        topo._step_front = self._front
+        topo._step_converge = self._converge
+
+    def _piece(self, state) -> int:
+        ptr = state.pn.data_ptr()
+        return next(i for i, st in enumerate(self.eng._placed.states) if st.pn.data_ptr() == ptr)
+
+    def _book(self, i, fn, *args):
+        before = dict(self._build.LAUNCHES)
+        out = fn(*args)
+        got = self.got.setdefault(i, dict.fromkeys(self.KEYS, 0))
+        for k in self.KEYS:
+            got[k] += self._build.LAUNCHES[k] - before[k]
+        return out
+
+    def _front(self, state, step, dev, node_slot):
+        i = self._piece(state)
+        want = self.want.setdefault(i, dict.fromkeys(self.KEYS, 0))
+        want["mesh_gather"] += int(step.T > 0)
+        want["pair_join"] += int(step.Kc > 0) + int(step.T > 0 and step.Ks > 0)
+        want["take_n"] += int(step.L > 0)
+        want["converge"] += int(step.T > 0)
+        self.with_takes[i] = self.with_takes.get(i, 0) + int(step.L > 0)
+        return self._book(i, self.front, state, step, dev, node_slot)
+
+    def _converge(self, state, front):
+        return self._book(self._piece(state), self.conv, state, front)
+
+    def close(self) -> dict:
+        self.topo._step_front, self.topo._step_converge = self.front, self.conv
+        return {i: {"launches": self.got.get(i, {}), "declared": self.want.get(i, {}),
+                    "dispatches_with_takes": self.with_takes.get(i, 0)}
+                for i in sorted(set(self.got) | set(self.want))}
+
+
+def pieces_resize_takes(repo, trace, eng, target):
+    """MESH_RESIZE_TAKES of the trace's takes from one thread, in order;
+    once PIECES_RESIZE_AT[0] are submitted the mesh resizes from its
+    pieces onto one (``cuda:0`` x 8), and once PIECES_RESIZE_AT[1] are,
+    back onto ``target`` = (devices, piece_per_block). → (outcomes,
+    receipts, pieces after each resize)."""
+    names = trace[4][-MESH_RESIZE_TAKES:]
+    tickets, receipts, pieces = [], [], []
+    submitted = threading.Semaphore(0)
+
+    def submit():
+        for i, name in enumerate(names):
+            rate, count = rate_of(name)
+            tickets.append(repo.submit_take(name, rate, count))
+            if i in PIECES_RESIZE_AT:
+                submitted.release()
+
+    th = threading.Thread(target=submit)
+    th.start()
+    for devices, ppb in (([eng.device] * MESH_DEVICES, False), target):
+        check(submitted.acquire(timeout=120), "3o: the take stream stalled")
+        receipts.append(eng.resize(replicas=2, devices=devices, piece_per_block=ppb))
+        pieces.append(len(eng._placed.states))
+    th.join(300)
+    check(not th.is_alive(), "3o: the take stream did not finish")
+    for t in tickets:
+        check(t.wait(120), "3o: a take across the piece resize was never answered")
+    return [(t.ok, t.remaining) for t in tickets], receipts, pieces
+
+
+def pieces_sync_window(torch, eng, repo, trace) -> dict:
+    """PIECES_SYNC_TAKES takes of the trace's names and as many deltas,
+    dispatched over the pieces under ``torch.cuda.set_sync_debug_mode(
+    "error")`` (mode 0 again in a ``finally``): a stream sync anywhere on
+    the multi-piece dispatch (the feeder's thread included) raises, and
+    the engine's thread would fail the tickets. → the window's seconds,
+    the tickets answered and what raised (None)."""
+    import logging
+
+    names = trace[4][:PIECES_SYNC_TAKES]
+    deltas, _hot, vals, caps, _takes = trace
+    torch.cuda.synchronize()
+    raised, answered = None, 0
+    errors = []
+
+    class Errors(logging.Handler):  # a failed dispatch is logged and fails its tickets
+        def emit(self, record):
+            errors.append(record.getMessage()[:200])
+
+    handler = Errors(logging.ERROR)
+    logging.getLogger("patrol").addHandler(handler)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for j, (name, lane) in enumerate(deltas[:PIECES_SYNC_TAKES]):
+            repo.apply_delta(delta_state(name, lane, vals[j], caps), lane)
+        tickets = [repo.submit_take(n, *rate_of(n)) for n in names]
+        for t in tickets:
+            answered += bool(t.wait(120))
+    except Exception as exc:  # the sync detector raises here
+        raised = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        logging.getLogger("patrol").removeHandler(handler)
+    seconds = time.perf_counter() - t0
+    check(eng.flush(120), "3o: flush after the sync window timed out")
+    return {"seconds": seconds, "answered": answered, "takes": len(names),
+            "raised": raised or (errors[0] if errors else None)}
+
+
+def spread_window(torch, eng, repo, trace, sync=False) -> dict:
+    """The trace binds rows below 200,000 only (shard 0 at every R), so
+    this window binds PIECES_SPREAD new names ``s0, s1, ...`` onto rows
+    spread evenly from the directory's next fresh row to the last one,
+    which lie in every shard: the rows (unbound and zero) go to the
+    directory's free list, a delta a name binds them in order, then a
+    take a name. With ``sync``, under ``torch.cuda.set_sync_debug_mode(
+    "error")`` (mode 0 again in a ``finally``). → the rows, the take
+    outcomes, the seconds and what raised (None)."""
+    import logging
+
+    _deltas, _hot, vals, caps, _takes = trace
+    b = eng.config.buckets
+    rows = np.unique(np.linspace(eng.directory._next_fresh, b - 1, PIECES_SPREAD).astype(np.int64))
+    check(all(eng.directory.name_of(int(r)) is None for r in rows), "3o: a spread row is bound")
+    eng.directory.recycle(rows[::-1].tolist())  # pop() hands out the lowest first
+    names = [f"s{i}" for i in range(len(rows))]
+    raised, tickets, errors = None, [], []
+
+    class Errors(logging.Handler):  # a failed dispatch is logged and fails its tickets
+        def emit(self, record):
+            errors.append(record.getMessage()[:200])
+
+    handler = Errors(logging.ERROR)
+    logging.getLogger("patrol").addHandler(handler)
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for j, name in enumerate(names):
+            lane = 1 + j % (eng.config.nodes - 1)
+            repo.apply_delta(delta_state(name, lane, vals[j], caps), lane)
+        check(eng.flush(120), "3o: flush after the spread deltas timed out")
+        tickets = [repo.submit_take(n, *rate_of(n)) for n in names]
+        for t in tickets:
+            check(t.wait(120), "3o: a spread take was never answered")
+    except AssertionError:
+        raise
+    except Exception as exc:  # the sync detector raises here
+        raised = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+    finally:
+        if sync:
+            torch.cuda.set_sync_debug_mode(0)
+        logging.getLogger("patrol").removeHandler(handler)
+    seconds = time.perf_counter() - t0
+    check(eng.flush(120), "3o: flush after the spread window timed out")
+    bound = [eng.directory.lookup(n) for n in names]
+    check(bound == rows.tolist(), "3o: the spread names did not bind the spread rows")
+    shards = np.unique(rows // eng.plan.rows_per_shard).tolist()
+    check(shards == list(range(eng.plan.shards)), f"3o: the spread rows lie in shards {shards}")
+    return {"rows": len(rows), "first_row": int(rows[0]), "shards": len(shards),
+            "outcomes": [(t.ok, t.remaining) for t in tickets], "seconds": seconds,
+            "raised": raised or (errors[0] if errors else None)}
+
+
+def pieces_leg(torch, topo, MeshEngine, TPURepo, cfg, replicas, trace, clock_now, devices,
+               ppb, resize_to=None, sync=False):
+    cuda = devices[0].type == "cuda"
+    """One meshed engine at ``replicas`` over ``devices`` (``ppb``: a piece
+    a block) through the short trace, as 3j's legs: timed by step, under
+    the profiler, the launch counters, the exchange's counters and the
+    per-piece launches zeroed just before. With ``sync``, the sync window
+    last, once the planes are read. With ``resize_to`` = (devices,
+    piece_per_block), the engine starts as one piece on ``devices`` and
+    resizes onto ``resize_to`` before the trace (unloaded, timed); after
+    it the take stream crosses a resize back onto one piece and onto
+    ``resize_to`` again, and the spread window runs on rows of every
+    shard (under the sync detector on the card).
+    → (result, final planes, planes after the trace)."""
+    from patrol_tpu_torch.ops import _build
+
+    eng = MeshEngine(cfg, replicas=replicas, node_slot=0, clock=Clock(clock_now),
+                     devices=devices, piece_per_block=ppb)
+    try:
+        res = {}
+        if resize_to is not None:
+            check(len(eng._placed.states) == 1, "3o: the resize leg does not start as one piece")
+            t0 = time.perf_counter()
+            res["first_resize"] = eng.resize(replicas=replicas, devices=resize_to[0],
+                                             piece_per_block=resize_to[1])
+            if cuda:
+                torch.cuda.synchronize()
+            res["first_resize_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.warmup()
+        res.update({"pieces": len(eng._placed.states), "cards": eng.mesh.cards,
+                    "warmup_s": time.perf_counter() - t0,
+                    "piece_gb": [st.pn.numel() * 8 / 1e9 for st in eng._placed.states]})
+        repo = TPURepo(eng)
+        steps = MeshSteps(eng, topo)
+        per_piece = PieceLaunches(eng, topo, _build)
+        _build.reset_launches()
+        topo.reset_exchange()
+        window = ProfileWindow(MESH_PROFILE_KERNELS) if cuda else None
+        try:
+            outcomes, t_d, t_t, _ = run_trace(eng, repo, trace, hold=True)
+        finally:
+            res["profile"] = window.close() if window else None
+            res["per_piece"] = per_piece.close()
+            res["steps"] = steps.close()
+        res.update(outcomes=outcomes, deltas_per_s=(len(trace[0]) + len(trace[1])) / t_d,
+                   takes_per_s=len(trace[4]) / t_t, stats=eng.stats(),
+                   launches=dict(_build.LAUNCHES), exchange=dict(topo.EXCHANGE))
+        trace_planes = eng.snapshot_planes()
+        if resize_to is not None:
+            _build.reset_launches()
+            topo.reset_exchange()
+            t0 = time.perf_counter()
+            res["resize_outcomes"], res["receipts"], res["resize_pieces"] = pieces_resize_takes(
+                repo, trace, eng, resize_to)
+            res["resize_s"] = time.perf_counter() - t0
+            check(eng.flush(120), "3o: flush after the piece resize timed out")
+            res["resize_launches"] = dict(_build.LAUNCHES)
+            res["resize_exchange"] = dict(topo.EXCHANGE)
+            per_piece = PieceLaunches(eng, topo, _build)
+            _build.reset_launches()
+            topo.reset_exchange()
+            try:
+                res["spread"] = spread_window(torch, eng, repo, trace, sync=cuda)
+            finally:
+                res["spread_per_piece"] = per_piece.close()
+            res["spread_launches"] = dict(_build.LAUNCHES)
+            res["spread_exchange"] = dict(topo.EXCHANGE)
+        planes = eng.snapshot_planes()
+        if sync:  # after the planes are read: the replay has no such window
+            res["sync"] = pieces_sync_window(torch, eng, repo, trace)
+    finally:
+        eng.stop()
+    return res, planes, trace_planes
+
+
+def check_piece_launches(tag: str, res: dict, replicas: int, key: str = "per_piece") -> None:
+    """Every piece launched what its operands declared (``res[key]``),
+    dispatch by dispatch summed, and every piece that carried takes ran
+    the gather, the join, take-n and (at R > 1) the converge."""
+    for i, p in res[key].items():
+        check(p["launches"] == p["declared"],
+              f"{tag} piece {i}: launches {p['launches']}, declared {p['declared']}")
+        if p["dispatches_with_takes"]:
+            la = p["launches"]
+            check(la["take_n"] == p["dispatches_with_takes"] and la["pair_join"] > 0
+                  and (replicas == 1 or la["mesh_gather"] >= la["take_n"] <= la["converge"]),
+                  f"{tag} piece {i} carried takes with launches {la}")
+    carried = sum(1 for p in res[key].values() if p["dispatches_with_takes"])
+    check(carried > 1, f"{tag}: takes rode {carried} piece(s)")
+
+
+def run_pieces_phase(torch, ref: dict, trace=None, buckets=BUCKETS, lanes=LANES,
+                     short=MESH_SHORT, device="cuda") -> dict:
+    """3o: the mesh over several pieces at 1,000,000 x 64 (GC off, host
+    fast path off, as 3j). R = 4 with a piece a block on ``cuda:0`` x 8
+    (eight pieces of one shard each, ~4.1 GB) over 3j's short cut,
+    equal to 3j's R = 4 CPU replay (``ref``) bit for bit, then a window
+    of takes and deltas under the sync detector; R = 2 over the same cut,
+    started as one piece and resized onto eight pieces before it, then
+    the take stream across a resize back onto one piece and onto eight
+    again, and the spread window on rows of every shard, replayed on a
+    CPU MeshEngine; where the host has two or more
+    cards, the same R = 2 leg resizing onto them. Every piece
+    launches as its operands declare; the exchange's copies and bytes
+    are counted; every take across a resize is answered. (On
+    ``device="cpu"``, a rehearsal at a small size: no profiler, no sync
+    window, and the launch counts are not held.)"""
+    from patrol_tpu_torch.models.limiter import LimiterConfig
+    from patrol_tpu_torch.parallel import topology as topo
+    from patrol_tpu_torch.runtime.mesh_engine import MeshEngine
+    from patrol_tpu_torch.runtime.repo import TPURepo
+
+    cfg = LimiterConfig(buckets=buckets, nodes=lanes)
+    trace = mesh_trace(trace if trace is not None else make_trace(np.random.default_rng(7)), short)
+    clock_now = 1_700_000_000 * NANO
+    cuda = device == "cuda"
+    one_card = [torch.device(device, 0)] * MESH_DEVICES
+    n = torch.cuda.device_count() if cuda else 0
+    cards = [torch.device("cuda", i * n // MESH_DEVICES) for i in range(MESH_DEVICES)]
+    out = {"cards_on_host": n}
+
+    res, planes, trace_planes = pieces_leg(torch, topo, MeshEngine, TPURepo, cfg, 4, trace,
+                                           clock_now, one_card, True, sync=cuda)
+    check(res["pieces"] == MESH_DEVICES, f"3o R=4: {res['pieces']} pieces")
+    check(res.pop("outcomes") == ref["outcomes"],
+          "3o R=4: take outcomes differ from 3j's R = 4 CPU replay")
+    for mine, theirs, what in ((trace_planes, ref["trace_planes"], "after the trace"),
+                               (planes, ref["planes"], "at the end")):
+        check(all(np.array_equal(x, y) for x, y in zip(mine, theirs)),
+              f"3o R=4: planes {what} differ from 3j's R = 4 CPU replay")
+    del planes, trace_planes
+    check(res["stats"]["mesh_split_ticks"] > 0, f"3o R=4: no tick split ({res['stats']})")
+    check(res["exchange"]["copies"] > 0, f"3o R=4: no exchange copy ({res['exchange']})")
+    if cuda:
+        check_piece_launches("3o R=4", res, 4)
+        sync = res["sync"]
+        check(sync["raised"] is None and sync["answered"] == sync["takes"],
+              f"3o R=4 under the sync detector: {sync}")
+    out["r4"] = res
+    torch.cuda.empty_cache()
+
+    c_out, c_more, c_planes, c_trace_planes, c_spread = mesh_replay(
+        torch, MeshEngine, TPURepo, cfg, 2, trace, clock_now, resize=True, spread=True)
+    legs = [("r2", (one_card, True))]
+    if n >= 2:
+        legs.append(("r2_cards", (cards, False)))
+    for key, target in legs:
+        t0 = time.perf_counter()
+        res, planes, trace_planes = pieces_leg(torch, topo, MeshEngine, TPURepo, cfg, 2, trace,
+                                               clock_now, one_card, False, resize_to=target)
+        res["leg_s"] = time.perf_counter() - t0
+        check(res.pop("outcomes") == c_out, f"3o {key}: take outcomes differ from the CPU replay")
+        check(res.pop("resize_outcomes") == c_more,
+              f"3o {key}: take outcomes across the piece resize differ from the CPU replay")
+        sp = res["spread"]
+        check(sp.pop("outcomes") == c_spread["outcomes"] and sp["first_row"] == c_spread["first_row"],
+              f"3o {key}: the spread window's takes differ from the CPU replay")
+        check(sp["raised"] is None, f"3o {key}: the spread window raised {sp['raised']}")
+        for mine, theirs, what in ((trace_planes, c_trace_planes, "after the trace"),
+                                   (planes, c_planes, "at the end")):
+            check(all(np.array_equal(x, y) for x, y in zip(mine, theirs)),
+                  f"3o {key}: planes {what} differ from the CPU replay")
+        del planes, trace_planes
+        want = MESH_DEVICES if target[1] else len(set(target[0]))
+        check(res["pieces"] == want and res["resize_pieces"] == [1, want],
+              f"3o {key}: {res['pieces']} pieces, then {res['resize_pieces']} across the resize")
+        check(res["resize_exchange"]["copies"] > 0,
+              f"3o {key}: no exchange across the resize {res['resize_exchange']}")
+        if cuda:
+            check_piece_launches(f"3o {key}", res, 2)
+            rl = res["resize_launches"]
+            check(rl["take_n"] > 0 and rl["converge"] > 0,
+                  f"3o {key}: launches across the resize {rl}")
+            check_piece_launches(f"3o {key} spread", res, 2, key="spread_per_piece")
+        # The spread rows lie in every shard, at both replicas: every piece
+        # carries takes.
+        carried = sum(1 for p in res["spread_per_piece"].values() if p["dispatches_with_takes"])
+        check(carried == res["pieces"],
+              f"3o {key}: the spread window's takes rode {carried} of {res['pieces']} pieces")
+        res["target_cards"] = len(set(target[0]))
+        out[key] = res
+        torch.cuda.empty_cache()
+    out["distinct_cards"] = max(r.get("target_cards", r["cards"]) for k, r in out.items()
+                                if k.startswith("r"))
     return out
 
 
@@ -4399,7 +4803,10 @@ def zero_rows_callers(torch, buckets: int = 1_000_000, lanes: int = 64,
     calls: dict = {}
 
     def counted(state, rows):
-        who = sys._getframe(1).f_code.co_name
+        frame = sys._getframe(1)
+        if frame.f_code.co_name == "_zero_rows":  # the engine's hook over its planes
+            frame = frame.f_back
+        who = frame.f_code.co_name
         calls[who] = calls.get(who, 0) + 1
         return real(state, rows)
 
@@ -5070,9 +5477,9 @@ def main() -> int:
     # off); each leg replayed on a CPU MeshEngine.
     engine_mod.HOST_FASTPATH = False
     t0 = time.perf_counter()
-    mesh = run_mesh_phase(torch)
+    r4_replay = {}
+    mesh = run_mesh_phase(torch, keep=r4_replay)
     mesh["phase_s"] = time.perf_counter() - t0
-    engine_mod.HOST_FASTPATH = True
     report["mesh"] = mesh
     log(f"3j mesh: {json.dumps(mesh, default=str)}")
     for key in ("r2", "r4", "r1"):
@@ -5091,6 +5498,61 @@ def main() -> int:
           f"{mesh['r2']['resize_s']:.3f} s, launches "
           f"{json.dumps({k: v for k, v in mesh['r2']['resize_launches'].items() if v})}, every take "
           f"answered and equal to the CPU replay; phase {mesh['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 3o. The mesh over several pieces: eight pieces on the card at R = 4
+    # against 3j's R = 4 replay, under the sync detector for a window;
+    # R = 2 resizing from one piece to eight and back (and onto every
+    # card where there are several), each piece's launches as declared.
+    t0 = time.perf_counter()
+    pieces = run_pieces_phase(torch, r4_replay)
+    pieces["phase_s"] = time.perf_counter() - t0
+    del r4_replay
+    engine_mod.HOST_FASTPATH = True
+    report["pieces"] = pieces
+    log(f"3o pieces: {json.dumps(pieces, default=str)}")
+    for key in [k for k in pieces if k.startswith("r")]:
+        m = pieces[key]
+        st, prof = m["stats"], m["profile"]
+        print(f"pieces 3o {key}: {m['pieces']} pieces ({', '.join(f'{g:.3f}' for g in m['piece_gb'])}"
+              f" GB of pn), deltas/s {m['deltas_per_s']:.1f} takes/s {m['takes_per_s']:.1f} "
+              f"(3j {key[:2]}: {mesh[key[:2]]['deltas_per_s']:.1f} / "
+              f"{mesh[key[:2]]['takes_per_s']:.1f}), dispatches {m['steps']['dispatches']} "
+              f"({m['steps']['with_takes']} with takes, {st['mesh_split_ticks']} split ticks), "
+              f"launches {json.dumps({k: m['launches'][k] for k in PieceLaunches.KEYS})}, "
+              f"exchange {json.dumps(m['exchange'])}, device busy {prof['device_busy_share']}; "
+              f"host us a dispatch p50 "
+              f"{json.dumps({k: round(v['p50'], 1) for k, v in m['steps']['dispatch_us'].items() if v})} "
+              f"(3j {key[:2]}: "
+              f"{json.dumps({k: round(v['p50'], 1) for k, v in mesh[key[:2]]['steps']['dispatch_us'].items() if v})}"
+              f"); equal to the CPU replay")
+        print(f"pieces 3o {key} launches a piece (measured = declared): " + json.dumps(
+            {i: [p["launches"][k] for k in PieceLaunches.KEYS] + [p["dispatches_with_takes"]]
+             for i, p in m["per_piece"].items()}))
+        if "sync" in m:
+            print(f"pieces 3o {key} under set_sync_debug_mode('error'): {m['sync']['takes']} "
+                  f"takes and as many deltas in {m['sync']['seconds']:.3f} s, answered "
+                  f"{m['sync']['answered']}, raised {m['sync']['raised']}")
+        if "resize_s" in m:
+            print(f"pieces 3o {key}: one piece -> {m['pieces']} before the trace in "
+                  f"{m['first_resize_s']:.3f} s; {m['pieces']} -> 1 -> {m['resize_pieces'][1]} "
+                  f"under {MESH_RESIZE_TAKES} takes in {m['resize_s']:.3f} s, launches "
+                  f"{json.dumps({k: v for k, v in m['resize_launches'].items() if v})}, exchange "
+                  f"{json.dumps(m['resize_exchange'])}, every take answered and equal to the "
+                  f"CPU replay")
+            sp = m["spread"]
+            print(f"pieces 3o {key} spread window: {sp['rows']} names bound on rows from "
+                  f"{sp['first_row']} in all {sp['shards']} shards, a delta and a take each in "
+                  f"{sp['seconds']:.3f} s under set_sync_debug_mode('error'), raised "
+                  f"{sp['raised']}, launches "
+                  f"{json.dumps({k: v for k, v in m['spread_launches'].items() if v})}, exchange "
+                  f"{json.dumps(m['spread_exchange'])}, launches a piece (measured = declared) "
+                  + json.dumps({i: [p['launches'][k] for k in PieceLaunches.KEYS]
+                                + [p['dispatches_with_takes']]
+                                for i, p in m['spread_per_piece'].items()})
+                  + "; equal to the CPU replay")
+    print(f"pieces 3o ran on {pieces['distinct_cards']} distinct card(s) of the host's "
+          f"{pieces['cards_on_host']}; phase {pieces['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
     # 3h. The bucket lifecycle at the defaults: bind, sweep, re-create,
@@ -5253,6 +5715,9 @@ def main() -> int:
                              ("3j_r4", mesh["r4"]["launches"]),
                              ("3j_r1", mesh["r1"]["launches"]),
                              ("3j_resize", mesh["r2"]["resize_launches"]),
+                             ("3o_r4", pieces["r4"]["launches"]),
+                             ("3o_r2", pieces["r2"]["launches"]),
+                             ("3o_resize", pieces["r2"]["resize_launches"]),
                              ("3k_abi", abi_launches),
                              ("3k_lin", {LIN_PIN_KERNELS[k]: v["launches"]
                                          for k, v in k3["lin_pins"].items()}),

@@ -42,7 +42,9 @@ Static half:
 Dynamic half (:func:`run_witness`):
 
 * **PTD004 the witness** — each path of ``WITNESS_LAUNCHES`` (the
-  reference's 16 plus ``row_rmw`` and ``converge``) runs on a small
+  reference's 16 plus ``row_rmw``, ``converge``, and over several pieces
+  ``mesh_pieces``, the mesh's dispatch with its exchange, and a family
+  call, ``read_rows`` and ``zero_rows`` on rows of every shard) runs on a small
   :class:`DeviceEngine` (or a :class:`MeshEngine`) once warm, then once
   more at the same shapes. The second run must make exactly the launches
   its registry entry declares, reach the declared wrappers as often, keep
@@ -522,7 +524,8 @@ def check_repo(repo_root: str, used_out=None) -> List[Finding]:
 WITNESS_PATHS: Tuple[str, ...] = (
     "take", "take_n", "merge_packed", "merge_folded", "commit_blocks", "merge_rows_dense",
     "merge_scalar", "zero_rows", "lifecycle_probe", "gcra", "conc", "quota", "delta_fold",
-    "raw_ingest", "read_rows", "mesh_step", "row_rmw", "converge",
+    "raw_ingest", "read_rows", "mesh_step", "row_rmw", "converge", "mesh_pieces",
+    "mesh_pieces_quota", "mesh_pieces_read_rows", "mesh_pieces_zero_rows",
 )
 
 
@@ -634,7 +637,7 @@ def wait_findings(path: str, counts: Mapping[str, int], declared=None, want=None
     return out
 
 
-def _witness_drives(eng, mesh1, mesh2, cfg, device) -> Dict[str, Callable[[], None]]:
+def _witness_drives(eng, mesh1, mesh2, mesh3, cfg, device) -> Dict[str, Callable[[], None]]:
     """path name → zero-argument drive: deterministic inputs and fixed
     shapes, every device operand made before the drive so that a drive
     only ships through the engine's staging or launches."""
@@ -672,7 +675,7 @@ def _witness_drives(eng, mesh1, mesh2, cfg, device) -> Dict[str, Callable[[], No
 
     # Bind the names device-resident (rows a replica's delta made are
     # not host lanes), so the takes below ride the feeder's device path.
-    for e in (eng, mesh2):
+    for e in (eng, mesh2, mesh3):
         lanes(e)
 
     def take():
@@ -782,6 +785,30 @@ def _witness_drives(eng, mesh1, mesh2, cfg, device) -> Dict[str, Callable[[], No
             t = mesh2.submit_take(nm, rate, 1, now_ns=NANO + i)[0]
             ok(t)
 
+    def mesh_pieces():
+        ok(mesh3.submit_take(names[0], rate, 1, now_ns=NANO)[0])
+
+    # A row in each shard of mesh3, past the names' rows: each call
+    # gathers from four home pieces and writes back to all eight.
+    rps = mesh3.plan.rows_per_shard
+    spread = np.arange(mesh3.plan.shards, dtype=np.int64) * rps + rps - 3
+
+    def mesh_pieces_quota():
+        mesh3.quota_take(np.full(4, spread[0], np.int32), spread[1:3].repeat(2).astype(np.int32),
+                         (spread[[3, 3, 2, 1]] - [0, 1, 1, 1]).astype(np.int32),
+                         np.full(4, 1 << 20, np.int64),
+                         np.full(4, 1 << 16, np.int64), np.full(4, 1 << 10, np.int64),
+                         np.full(4, 1, np.int64), np.full(4, 1, np.int64))
+
+    def mesh_pieces_read_rows():
+        mesh3.read_rows(spread)
+
+    def mesh_pieces_zero_rows():
+        # The hook release, eviction and GC's reclaim call, under the lock
+        # they hold.
+        with mesh3._state_mu:
+            mesh3._zero_rows(spread)
+
     return {
         "take": take, "take_n": take_n, "merge_packed": lambda: lanes(eng),
         "merge_folded": merge_folded, "commit_blocks": commit_blocks,
@@ -789,8 +816,19 @@ def _witness_drives(eng, mesh1, mesh2, cfg, device) -> Dict[str, Callable[[], No
         "zero_rows": zero_rows, "lifecycle_probe": lifecycle_probe, "gcra": gcra,
         "conc": conc, "quota": quota, "delta_fold": delta_fold, "raw_ingest": raw_ingest,
         "read_rows": read_rows, "mesh_step": mesh_step, "row_rmw": row_rmw_,
-        "converge": converge,
+        "converge": converge, "mesh_pieces": mesh_pieces,
+        "mesh_pieces_quota": mesh_pieces_quota, "mesh_pieces_read_rows": mesh_pieces_read_rows,
+        "mesh_pieces_zero_rows": mesh_pieces_zero_rows,
     }
+
+
+def _planes_meta(eng) -> list:
+    """Dtype, shape and device of an engine's planes: its state, or each
+    piece's over a mesh of several pieces."""
+    placed = getattr(eng, "_placed", None)
+    states = placed.states if placed is not None else [eng.state]
+    return [(st.pn.dtype, tuple(st.pn.shape), st.pn.device, st.elapsed.dtype,
+             tuple(st.elapsed.shape)) for st in states]
 
 
 def run_witness(device="cuda", only: Optional[Sequence[str]] = None,
@@ -846,10 +884,14 @@ def run_witness(device="cuda", only: Optional[Sequence[str]] = None,
         engines.append(mesh1)
         mesh2 = MeshEngine(cfg, replicas=2, node_slot=0, clock=lambda: NANO, devices=[dev] * 8)
         engines.append(mesh2)
+        # The multi-piece dispatch: the same 2 x 4 mesh, a piece a block.
+        mesh3 = MeshEngine(cfg, replicas=2, node_slot=0, clock=lambda: NANO, devices=[dev] * 8,
+                           piece_per_block=True)
+        engines.append(mesh3)
         for e in engines:
             e.configure_lifecycle(window_ms=0)
             e.warmup()
-        drives = _witness_drives(eng, mesh1, mesh2, cfg, dev)
+        drives = _witness_drives(eng, mesh1, mesh2, mesh3, cfg, dev)
         if mutate == "extra_launch":
             inner = drives["take_n"]
 
@@ -874,8 +916,7 @@ def run_witness(device="cuda", only: Optional[Sequence[str]] = None,
         try:
             for path in paths:
                 before = dict(_build.LAUNCHES)
-                states = [(e.state.pn.dtype, tuple(e.state.pn.shape), e.state.pn.device,
-                           e.state.elapsed.dtype, tuple(e.state.elapsed.shape)) for e in engines]
+                states = [_planes_meta(e) for e in engines]
                 n_err = len(errors)
                 t0 = time.perf_counter()
                 raised = None
@@ -919,8 +960,7 @@ def run_witness(device="cuda", only: Optional[Sequence[str]] = None,
                     if s.witness == path and s.name not in _build.LAUNCHES and not reached[path].get(s.name):
                         bad(f"witness path '{path}' never reached {s.module}.{s.attr}, whose "
                             "spec names it")
-                after = [(e.state.pn.dtype, tuple(e.state.pn.shape), e.state.pn.device,
-                          e.state.elapsed.dtype, tuple(e.state.elapsed.shape)) for e in engines]
+                after = [_planes_meta(e) for e in engines]
                 if after != states:
                     bad(f"witness path '{path}' changed a state plane's dtype, shape or device: "
                         f"{states} -> {after}")
@@ -978,7 +1018,7 @@ def _undeclared_wait(sources: Dict[str, str]) -> Dict[str, str]:
     gather, that no registry entry declares."""
     rel = _ENGINE
     src = sources[rel]
-    anchor = "            got = merge_mod.read_rows(self.state, idx)\n"
+    anchor = "            got = merge_mod.read_rows(state, idx)\n"
     if anchor not in src:
         raise ValueError("engine.read_rows lost its gather line")
     return {**sources, rel: src.replace(anchor, anchor + "            torch.cuda.synchronize()\n")}

@@ -145,9 +145,10 @@ SYNC_BOUNDARIES: Dict[str, Dict[str, str]] = {
 
 # PTL002: launch roots that reach their kernels through the wrappers
 # rather than by calling count_launch themselves. The mesh's device half
-# slices, allocates and launches five kernels between host steps.
+# slices, allocates and launches five kernels between host steps; over
+# several pieces it also records events and copies between cards.
 LAUNCH_ROOTS: Dict[str, Set[str]] = {
-    "patrol_tpu_torch/parallel/topology.py": {"run_step"},
+    "patrol_tpu_torch/parallel/topology.py": {"run_pieces"},
 }
 
 # PTL004: scope and declared float-boundary functions (the wire format is

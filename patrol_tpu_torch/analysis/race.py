@@ -766,6 +766,13 @@ GUARDS: Dict[str, Dict[str, Dict[str, Guard]]] = {
             # resize() moves the inherited scrape epoch with the plan
             # swap, under _state_mu as every other bump.
             "_state_gen": Guard("_state_mu", "mutate"),
+            # The planes over the mesh's pieces and what is derived from
+            # them (the one piece's state, the first piece's device, the
+            # cards): swapped together by resize() under _state_mu, read
+            # by launches under it and by the quiesced feeder.
+            "_placed": Guard("_state_mu", "mutate"),
+            "state": Guard("_state_mu", "mutate"),
+            "_cards": Guard("_state_mu", "mutate"),
         },
     },
     "patrol_tpu_torch/net/replication.py": {
@@ -856,6 +863,12 @@ HOLDERS: Dict[str, Dict[str, Tuple[str, ...]]] = {
         # AuditLedger's *_locked helpers run under its leaf lock.
         "AuditLedger._close_locked": ("_mu",),
         "AuditLedger._clock_window": ("_mu",),
+    },
+    "patrol_tpu_torch/runtime/mesh_engine.py": {
+        # Swaps the planes over the pieces: resize() calls it inside
+        # `with self._state_mu`; _init_planes calls it from the
+        # constructor, before the engine's threads (and its lock) exist.
+        "MeshEngine._set_placed": ("_state_mu",),
     },
     "patrol_tpu_torch/net/audit.py": {
         "AuditPlane._join_window_locked": ("_mu",),

@@ -8,9 +8,9 @@ repeatable ``--peer-addr``, ``--clock-offset``, ``--log-env``,
 builds the C++ host library with g++ and exits 1 if it cannot; ``auto``,
 the default, takes it when it loads, else the asyncio path),
 ``--checkpoint-dir`` and ``--mesh-replicas`` (R × shards blocks over the
-local devices of ``--device``, which must divide by R; on one card or
-the CPU that is R = 1). A mesh over several distinct devices is not
-ported yet and exits 2 with a clear error.
+local devices of ``--device``, one block a card, whose count R must
+divide; on one card or the CPU that is R = 1). A mesh that cannot be
+laid out exits 2 with the reason.
 
 Run as ``python -m patrol_tpu_torch [flags]``.
 """
@@ -114,7 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=0,
         help="mesh serving: replicas of each bucket shard over the local devices "
-        "of --device (must divide their count; 0 = the single-device engine)",
+        "of --device, one block a card (must divide their count; 0 = the "
+        "single-device engine)",
     )
     return p
 
@@ -122,7 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    from patrol_tpu_torch.command import Command, NotPortedError
+    from patrol_tpu_torch.command import Command
     from patrol_tpu_torch.models.limiter import LimiterConfig
     from patrol_tpu_torch.native import NativeBuildError
     from patrol_tpu_torch.ops.rate import parse_duration
@@ -166,16 +167,17 @@ def main(argv=None) -> int:
     )
     try:
         cmd.check_ported()
-    except NotPortedError as exc:
-        print(f"not yet ported: {exc}", file=sys.stderr)
+        if args.mesh_replicas > 0:
+            from patrol_tpu_torch.parallel import topology as topo
+
+            topo.make_mesh(args.mesh_replicas, topo.local_devices(args.device))
+    except ValueError as exc:
+        print(f"cannot start: {exc}", file=sys.stderr)
         return 2
     try:
         asyncio.run(cmd.run())
     except KeyboardInterrupt:
         pass
-    except NotPortedError as exc:
-        print(f"not yet ported: {exc}", file=sys.stderr)
-        return 2
     except NativeBuildError as exc:
         print(f"native host library: {exc}", file=sys.stderr)
         return 1

@@ -13,9 +13,11 @@ boot (back on the lane its membership view names), saves one every
 
 With ``mesh_replicas`` > 0 the engine is the mesh engine
 (``runtime/mesh_engine.py``): ``mesh_replicas`` × shards blocks over
-``mesh_devices`` (default: every local device of ``device``'s platform),
-which may repeat one device. A list that names more than one distinct
-device raises :class:`NotPortedError` before anything starts.
+``mesh_devices`` (default: every local device of ``device``'s platform:
+each card, so a host with several cards serves across them), which may
+repeat a device and may name distinct devices of one platform. A list
+that mixes platforms, or whose length ``mesh_replicas`` does not divide,
+raises ``ValueError`` before anything starts.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from patrol_tpu_torch.models.limiter import SMALL, LimiterConfig
 from patrol_tpu_torch.net.api import API, serve
 from patrol_tpu_torch.net.replication import Replicator, SlotTable
 from patrol_tpu_torch.parallel import topology as topo
-from patrol_tpu_torch.parallel.topology import NotPortedError
 from patrol_tpu_torch.runtime.bucket import ClockFn, system_clock
 from patrol_tpu_torch.runtime import engine as engine_mod
 from patrol_tpu_torch.runtime.engine import DeviceEngine
@@ -77,7 +78,8 @@ class Command:
     mesh_replicas: int = 0
     # The mesh's device list (no CLI flag); None: every local device of
     # ``device``'s platform. ``[torch.device("cpu")] * 8`` is a 2 × 4 mesh
-    # at mesh_replicas=2.
+    # at mesh_replicas=2, ``[torch.device("cuda", i) for i in range(8)]``
+    # the same one block a card.
     mesh_devices: Optional[list] = None
     # "cuda" (default) or "cpu" (the kernels' plain versions, for tests).
     device: str = "cuda"
@@ -97,14 +99,15 @@ class Command:
     trace_prepare_s: float = 0.0
 
     def check_ported(self) -> None:
-        """Raise :class:`NotPortedError` for a configuration this package
-        cannot serve yet."""
+        """Raise ``ValueError`` for a configuration that cannot start: an
+        unknown backend or front, or a mesh device list that mixes
+        platforms or that ``mesh_replicas`` does not divide."""
         if self.udp_backend not in ("auto", "asyncio", "native"):
             raise ValueError(f"unknown udp backend {self.udp_backend!r}")
         if self.http_front not in ("auto", "native", "python"):
             raise ValueError(f"unknown http front {self.http_front!r}")
         if self.mesh_replicas > 0 and self.mesh_devices is not None:
-            topo.check_one_device(self.mesh_devices)
+            topo.make_mesh(replicas=self.mesh_replicas, devices=self.mesh_devices)
 
     async def run(self, stop: Optional[asyncio.Event] = None) -> None:
         """Run until ``stop`` is set or SIGINT/SIGTERM arrives; then shut

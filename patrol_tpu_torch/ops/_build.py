@@ -17,6 +17,7 @@ before the main path and reads them after).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -179,6 +180,18 @@ def lib() -> ctypes.CDLL:
 def stream_handle(t: torch.Tensor) -> int:
     """The raw cudaStream_t of the current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(device):
+    """``device``'s card as the calling thread's current device (a no-op
+    for the CPU and for the card that is current already). Every wrapper
+    launches inside it: the C entries launch ``<<<...>>>`` on the current
+    device, which need not be the card that the tensors and the stream
+    from :func:`stream_handle` lie on."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def check_rc(rc: int, name: str) -> None:

@@ -146,11 +146,12 @@ def fused(family: str, pn: torch.Tensor, packed: torch.Tensor, node_slot: int) -
     spill_len = per_col * TILE * (tiles - 1)
     spill = torch.empty(2 * blocks * spill_len, dtype=torch.int64, device=pn.device)
     stream = _build.stream_handle(pn)
-    rc = _build.lib().patrol_cert_fused(
-        _FUSED_IDS[family], pn.data_ptr(), barrier_word(pn.device, stream).data_ptr(), b, n,
-        node_slot, packed.data_ptr(), out.data_ptr(), spill.data_ptr(), spill_len, k, blocks,
-        stream,
-    )
+    with _build.on_device(pn.device):
+        rc = _build.lib().patrol_cert_fused(
+            _FUSED_IDS[family], pn.data_ptr(), barrier_word(pn.device, stream).data_ptr(), b, n,
+            node_slot, packed.data_ptr(), out.data_ptr(), spill.data_ptr(), spill_len, k, blocks,
+            stream,
+        )
     _build.check_rc(rc, f"{family}_admit")
     _build.count_launch(f"{family}_admit")
     return out

@@ -70,10 +70,11 @@ def _launch(gather_mode: int, name: str, pn, elapsed, rows, spn, sel) -> None:
         return
     if pn.data_ptr() % 16 or spn.data_ptr() % 16:
         raise ValueError("pn and spn must be 16-byte aligned (lanes move as 16-byte vectors)")
-    rc = _build.lib().patrol_converge(
-        gather_mode, pn.data_ptr(), elapsed.data_ptr(), b, n, spn.data_ptr(),
-        sel.data_ptr(), r, t, rows.data_ptr(), _build.stream_handle(pn),
-    )
+    with _build.on_device(pn.device):
+        rc = _build.lib().patrol_converge(
+            gather_mode, pn.data_ptr(), elapsed.data_ptr(), b, n, spn.data_ptr(),
+            sel.data_ptr(), r, t, rows.data_ptr(), _build.stream_handle(pn),
+        )
     _build.check_rc(rc, name)
     _build.count_launch(name)
 

@@ -252,13 +252,14 @@ def decode_fold(
     if P == 0:
         return (ok, masks[0], masks[1], *fields.unbind(0))
     b, n, _ = pn.shape
-    rc = _build.lib().patrol_decode_fold(
-        pn.data_ptr(), elapsed.data_ptr(), b, n,
-        planes.data_ptr(), P, row, lengths.data_ptr(), entry_off.data_ptr(),
-        rows.data_ptr(), hosted.data_ptr(), E,
-        ok.data_ptr(), masks.data_ptr(), fields.data_ptr(),
-        _build.stream_handle(pn),
-    )
+    with _build.on_device(pn.device):
+        rc = _build.lib().patrol_decode_fold(
+            pn.data_ptr(), elapsed.data_ptr(), b, n,
+            planes.data_ptr(), P, row, lengths.data_ptr(), entry_off.data_ptr(),
+            rows.data_ptr(), hosted.data_ptr(), E,
+            ok.data_ptr(), masks.data_ptr(), fields.data_ptr(),
+            _build.stream_handle(pn),
+        )
     _build.check_rc(rc, "decode_fold")
     _build.count_launch("decode_fold")
     return (ok, masks[0], masks[1], *fields.unbind(0))

@@ -149,10 +149,11 @@ def _launch(pn, elapsed, dense, pairs, name: str) -> None:
         raise ValueError("dense updates must be 16-byte aligned")
     d = [t.data_ptr() for t in dense] if r else [None] * 3
     p = [t.data_ptr() for t in pairs] if k + ke else [None] * 6
-    rc = _build.lib().patrol_join(
-        pn.data_ptr(), elapsed.data_ptr(), b, n, d[0], d[1], d[2], r,
-        p[0], p[1], p[2], p[3], k, p[4], p[5], ke, _build.stream_handle(pn),
-    )
+    with _build.on_device(pn.device):
+        rc = _build.lib().patrol_join(
+            pn.data_ptr(), elapsed.data_ptr(), b, n, d[0], d[1], d[2], r,
+            p[0], p[1], p[2], p[3], k, p[4], p[5], ke, _build.stream_handle(pn),
+        )
     _build.check_rc(rc, name)
     _build.count_launch(name)
 

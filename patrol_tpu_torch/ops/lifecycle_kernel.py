@@ -78,10 +78,11 @@ def probe(
             raise ValueError(f"out holds {out.numel()} bytes, the launch writes {need}")
     if k == 0:
         return out
-    rc = _build.lib().patrol_lifecycle_probe(
-        pn.data_ptr(), elapsed.data_ptr(), b, n, node_slot,
-        *(c.data_ptr() for c in cols), out.data_ptr(), k, _build.stream_handle(pn),
-    )
+    with _build.on_device(pn.device):
+        rc = _build.lib().patrol_lifecycle_probe(
+            pn.data_ptr(), elapsed.data_ptr(), b, n, node_slot,
+            *(c.data_ptr() for c in cols), out.data_ptr(), k, _build.stream_handle(pn),
+        )
     _build.check_rc(rc, "lifecycle_probe")
     _build.count_launch("lifecycle_probe")
     return out

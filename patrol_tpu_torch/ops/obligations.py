@@ -1273,6 +1273,16 @@ WITNESS_LAUNCHES: Dict[str, Mapping[str, int]] = {
     "mesh_step": {"pair_join": 1},
     "row_rmw": {"row_rmw": 1},
     "converge": {"mesh_gather": 1, "pair_join": 2, "take_n": 1, "converge": 1},
+    # A take on a row of shard 0 over eight pieces (R = 2): the two
+    # pieces that hold shard 0 gather and converge; every piece joins its
+    # share of the padding merges; one take-n on the take's home block.
+    "mesh_pieces": {"mesh_gather": 2, "pair_join": 8, "take_n": 1, "converge": 2},
+    # Over the same eight pieces, on a row of every shard: one launch on
+    # the gathered copy; the gather, the write-back and the zeroing are
+    # copies and index ops, no kernel.
+    "mesh_pieces_quota": {"quota_admit": 1},
+    "mesh_pieces_read_rows": {},
+    "mesh_pieces_zero_rows": {},
 }
 
 # Witness path → the declared waits (DECLARED_WAITS qualnames) its second
@@ -1300,7 +1310,12 @@ WITNESS_WAITS: Dict[str, Tuple[str, ...]] = {
     "read_rows": ("DeviceEngine.read_rows",),
     "mesh_step": (_TIMED,),
     "row_rmw": (),
-    "converge": ("MeshEngine._dispatch_fused.complete",),
+    "converge": ("MeshEngine._read_back.complete",),
+    # One event a card (one card here: the pieces share it).
+    "mesh_pieces": ("MeshEngine._read_back.complete",),
+    "mesh_pieces_quota": ("DeviceEngine._cert_call",),
+    "mesh_pieces_read_rows": ("DeviceEngine.read_rows",),
+    "mesh_pieces_zero_rows": (),
 }
 
 # The engine's own readbacks: (file, function qualname, spelling) of each
@@ -1323,8 +1338,8 @@ DECLARED_WAITS: Tuple[Tuple[str, str, str, str], ...] = (
      ".synchronize()", "the completer's commit timing"),
     ("patrol_tpu_torch/runtime/engine.py", "DeviceEngine._apply_takes.complete",
      ".synchronize()", "the completer's take results"),
-    ("patrol_tpu_torch/runtime/mesh_engine.py", "MeshEngine._dispatch_fused.complete",
-     ".synchronize()", "the mesh completer's take results"),
+    ("patrol_tpu_torch/runtime/mesh_engine.py", "MeshEngine._read_back.complete",
+     ".synchronize()", "the mesh completer's take results, one event a card"),
 )
 
 # The reference's PTD001 (retrace risk) and PTD002 (donation) have no CUDA

@@ -112,10 +112,11 @@ def row_rmw(
         raise ValueError(f"unsupported device {dev}")
     if k == 0:
         return state
-    rc = _build.lib().patrol_row_rmw(
-        state.data_ptr(), state.shape[0], rows.data_ptr(), w0.data_ptr(),
-        lo.data_ptr(), hi.data_ptr(), k, INNERS[inner], _build.stream_handle(state),
-    )
+    with _build.on_device(state.device):
+        rc = _build.lib().patrol_row_rmw(
+            state.data_ptr(), state.shape[0], rows.data_ptr(), w0.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), k, INNERS[inner], _build.stream_handle(state),
+        )
     _build.check_rc(rc, "row_rmw")
     _build.count_launch("row_rmw")
     return state

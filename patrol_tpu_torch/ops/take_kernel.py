@@ -124,10 +124,11 @@ def take_n(
     out = torch.empty((TAKE_RESULT_ROWS, k), dtype=torch.int64, device=dev)
     if k == 0:
         return out
-    rc = _build.lib().patrol_take_n(
-        pn.data_ptr(), elapsed.data_ptr(), b, n, node_slot,
-        packed.data_ptr(), out.data_ptr(), k, _build.stream_handle(pn),
-    )
+    with _build.on_device(pn.device):
+        rc = _build.lib().patrol_take_n(
+            pn.data_ptr(), elapsed.data_ptr(), b, n, node_slot,
+            packed.data_ptr(), out.data_ptr(), k, _build.stream_handle(pn),
+        )
     _build.check_rc(rc, "take_n")
     _build.count_launch("take_n")
     return out

@@ -19,7 +19,6 @@ import os
 import tempfile
 
 import numpy as np
-import torch
 
 FORMAT_VERSION = 1
 
@@ -95,8 +94,8 @@ def restore(directory: str, engine) -> int:
     restored. The planes join the engine's under SIGNED int64 max, as the
     JAX package's ``jnp.maximum`` does (``ops.merge.merge_dense`` is an
     unsigned max, which differs on a wrapped lane), in place on the
-    engine's device, so restoring onto a live engine is a join, never a
-    rollback."""
+    engine's device (on a mesh, into every piece's copy of each shard), so
+    restoring onto a live engine is a join, never a rollback."""
     with open(os.path.join(directory, "directory.json")) as f:
         meta = json.load(f)
     if meta.get("version") != FORMAT_VERSION:
@@ -119,12 +118,9 @@ def restore(directory: str, engine) -> int:
         engine.flush()
 
         with np.load(os.path.join(directory, "state.npz")) as data:
-            pn = torch.from_numpy(data["pn"]).to(engine.device)
-            elapsed = torch.from_numpy(data["elapsed"]).to(engine.device)
-        with engine._state_mu:
-            torch.maximum(engine.state.pn, pn, out=engine.state.pn)
-            torch.maximum(engine.state.elapsed, elapsed, out=engine.state.elapsed)
-            engine._state_gen += 1  # a write outside any tick: the scrape epoch moves
+            pn, elapsed = data["pn"], data["elapsed"]
+        # Into every copy of a mesh's shards, under the state mutex.
+        engine._join_planes(pn, elapsed)
         del pn, elapsed
 
         d = engine.directory

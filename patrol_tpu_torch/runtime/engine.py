@@ -85,6 +85,7 @@ bump ``_state_gen``.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -912,7 +913,7 @@ class DeviceEngine:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._row_dense_min = ROW_DENSE_MIN or max(4, config.nodes // 3)
         self.directory = BucketDirectory(config.buckets)
-        self.state: LimiterState = init_state(config, device=self.device)
+        self.state: LimiterState = self._init_planes()
 
         self._cond = profiling.ProfiledCondition("engine.work")
         # Serializes kernel launches against introspection gathers.
@@ -1053,7 +1054,7 @@ class DeviceEngine:
             return 0
         self._drop_hosted_rows(victims)
         with self._state_mu:
-            merge_mod.zero_rows(self.state, victims)
+            self._zero_rows(victims)
             self._state_gen += 1
         self.directory.recycle(victims)
         self._evictions += int(victims.size)
@@ -1265,15 +1266,16 @@ class DeviceEngine:
         cols[2, :m] = per
         cols[3, :m] = cap
         cols[4, :m] = created
+        rows_view = self._row_view(cols[0])
         dev = self._ship(buf)
         out = None
         if self._cuda:
             out = torch.empty(
                 lifecycle_kernel.output_bytes(k), dtype=torch.uint8, device=self.device
             )
-        with self._state_mu:
+        with self._state_mu, self._viewed(rows_view, write=False) as state:
             view = lifecycle_ops.lifecycle_probe(
-                self.state, lifecycle_ops.LifecycleProbe(*dev.unbind(0)),
+                state, lifecycle_ops.LifecycleProbe(*dev.unbind(0)),
                 self.node_slot, out=out,
             )
         if out is None:
@@ -1371,7 +1373,7 @@ class DeviceEngine:
             if not kept.size:
                 return 0
             with self._state_mu:
-                merge_mod.zero_rows(self.state, kept)
+                self._zero_rows(kept)
                 self._state_gen += 1
             if self.directory.recycle_compact(kept):
                 self._gc_compactions += 1
@@ -1671,9 +1673,10 @@ class DeviceEngine:
             packed[2, :n] = added_l[lo:hi]
             packed[3, :n] = taken_l[lo:hi]
             packed[4, :n] = elapsed_l[lo:hi]
+            rows_view = self._row_view(packed[0])
             dev = self._ship(buf)
-            with self._state_mu:
-                merge_batch(self.state, MergeBatch(*dev.unbind(0)))
+            with self._state_mu, self._viewed(rows_view) as state:
+                merge_batch(state, MergeBatch(*dev.unbind(0)))
             self._ticks += 1
         # Every join is queued on the stream ahead of any later read, so
         # the staged lanes may go (pop: an eviction may have dropped some).
@@ -2908,9 +2911,10 @@ class DeviceEngine:
         packed[:, k:] = 0
         for i, col in enumerate(cols):
             packed[i, :k] = col
+        rows_view = self._row_view(packed[:len(rows)])
         dev = self._ship(buf)
-        with self._state_mu:
-            out = launch(self.state, dev, self.node_slot)
+        with self._state_mu, self._viewed(rows_view) as state:
+            out = launch(state, dev, self.node_slot)
             self._state_gen += 1
         # The one readback, on the stream behind the launch, then one wait
         # on its event.
@@ -3019,9 +3023,10 @@ class DeviceEngine:
         host = buf.numpy()
         host[:k] = rows
         host[k:] = 0
+        rows_view = self._row_view(host)
         idx = self._ship(buf, keep)
-        with self._state_mu:
-            got = merge_mod.read_rows(self.state, idx)
+        with self._state_mu, self._viewed(rows_view, write=False) as state:
+            got = merge_mod.read_rows(state, idx)
         pn_buf = self._staging.lease((kp, self.config.nodes, 2))
         el_buf = self._staging.lease((kp,))
         pn_buf.copy_(got.pn, non_blocking=True)
@@ -3042,7 +3047,7 @@ class DeviceEngine:
         values). Residency is untouched."""
         with self._host_mu:
             with self._state_mu:
-                pn, elapsed = state_to_numpy(self.state)
+                pn, elapsed = self._planes_to_numpy()
             for row, lanes in list(self._hosted.items()) + list(self._promoting.items()):
                 np.maximum(pn[row, :, 0], lanes.added, out=pn[row, :, 0])
                 np.maximum(pn[row, :, 1], lanes.taken, out=pn[row, :, 1])
@@ -3214,7 +3219,7 @@ class DeviceEngine:
                     return False
             self._drop_hosted_rows([row])
             with self._state_mu:
-                merge_mod.zero_rows(self.state, [row])
+                self._zero_rows([row])
                 self._state_gen += 1
             self.directory.recycle([row])
         return True
@@ -3225,27 +3230,33 @@ class DeviceEngine:
         if not self._cuda:
             return
         _build.lib()
+        self._warm_launches(self.state)
+        torch.cuda.synchronize(self.device)
+
+    def _warm_launches(self, state: LimiterState) -> None:
+        """Take-n, the join and decode_fold once each on ``state``, on
+        all-padding operands on its device (they change no row)."""
+        device = state.pn.device
         k = 8
-        take = torch.zeros((TAKE_PACK_ROWS, k), dtype=torch.int64, device=self.device)
+        take = torch.zeros((TAKE_PACK_ROWS, k), dtype=torch.int64, device=device)
         # One merge tick of sentinels only, both halves at full length as
         # their live count: the join launches once and drops every entry.
-        pad = _FOLD_PAD_ROW + torch.arange(k, device=self.device)
-        zeros = torch.zeros(k, dtype=torch.int64, device=self.device)
+        pad = _FOLD_PAD_ROW + torch.arange(k, device=device)
+        zeros = torch.zeros(k, dtype=torch.int64, device=device)
         dense = (pad, torch.zeros((k, self.config.nodes, 2), dtype=torch.int64,
-                                  device=self.device), zeros)
+                                  device=device), zeros)
         pairs = (pad, pad, zeros, zeros, pad, zeros)
         # One all-zero datagram plane: rejected by its length, folds nothing.
         e = ingest_ops.MAX_RAW_ENTRIES
-        plane = torch.zeros((1, ingest_ops.RAW_PLANE_BYTES), dtype=torch.uint8, device=self.device)
-        plan = torch.zeros((1, e), dtype=torch.int32, device=self.device)
+        plane = torch.zeros((1, ingest_ops.RAW_PLANE_BYTES), dtype=torch.uint8, device=device)
+        plan = torch.zeros((1, e), dtype=torch.int32, device=device)
         with self._state_mu:
-            take_n_batch(self.state, take, self.node_slot)
-            join_kernel.tick_join(self.state.pn, self.state.elapsed, dense, pairs)
+            take_n_batch(state, take, self.node_slot)
+            join_kernel.tick_join(state.pn, state.elapsed, dense, pairs)
             ingest_kernel.decode_fold(
-                self.state.pn, self.state.elapsed, plane, plan[:, 0].contiguous(),
-                plan, plan, torch.zeros((1, e), dtype=torch.bool, device=self.device),
+                state.pn, state.elapsed, plane, plan[:, 0].contiguous(),
+                plan, plan, torch.zeros((1, e), dtype=torch.bool, device=device),
             )
-        torch.cuda.synchronize(self.device)
 
     def flush(self, timeout: float = 5.0) -> bool:
         """Block until all currently queued work has been applied to device
@@ -3701,16 +3712,18 @@ class DeviceEngine:
 
     # -- host → device staging ---------------------------------------------
 
-    def _ship(self, buf: torch.Tensor, keep: bool = True) -> torch.Tensor:
-        """A leased staging tensor → the device operand. CUDA: a
-        non-blocking copy from pinned memory; the buffer goes back to the
-        pool (unless ``keep`` is False) with an event recorded behind the
-        copy, so it is re-leased only once the copy has finished. CPU: a
-        copy (the pool recycles at once)."""
+    def _ship(self, buf: torch.Tensor, keep: bool = True, device=None) -> torch.Tensor:
+        """A leased staging tensor → the device operand (on ``device``,
+        default the engine's). CUDA: a non-blocking copy from pinned
+        memory; the buffer goes back to the pool (unless ``keep`` is
+        False) with an event recorded behind the copy, so it is re-leased
+        only once the copy has finished. CPU: a copy (the pool recycles at
+        once)."""
         if self._cuda:
-            dev = buf.to(self.device, non_blocking=True)
+            device = self.device if device is None else device
+            dev = buf.to(device, non_blocking=True)
             ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
+            ev.record(torch.cuda.current_stream(device))
         else:
             dev, ev = buf.clone(), None
         self._staging.release(buf, ev, keep)
@@ -3753,6 +3766,44 @@ class DeviceEngine:
                 dev[o + rp + rp * w:o + rp + rp * w + r],
             )
         return dense_dev, pairs_dev
+
+    # -- the planes a launch addresses (the mesh engine overrides these when
+    # its state lies in several pieces)
+
+    def _init_planes(self) -> LimiterState:
+        """The zero state, allocated once at construction."""
+        return init_state(self.config, device=self.device)
+
+    def _row_view(self, *cols: np.ndarray):
+        """Ready a launch over the bucket rows in ``cols`` (host int64
+        arrays about to ship, each row in ``[0, B)``); → what
+        :meth:`_viewed` takes. Here the launch addresses ``self.state``
+        and the rows as they are: None."""
+        return None
+
+    @contextlib.contextmanager
+    def _viewed(self, view, write: bool = True):
+        """The planes a launch readied by :meth:`_row_view` runs on (the
+        caller holds ``_state_mu``); ``write``: the launch writes rows."""
+        yield self.state
+
+    def _zero_rows(self, rows) -> None:
+        """``zero_rows`` on the planes (the caller holds ``_state_mu``)."""
+        merge_mod.zero_rows(self.state, rows)
+
+    def _planes_to_numpy(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Host copies of both planes (the caller holds ``_state_mu``)."""
+        return state_to_numpy(self.state)
+
+    def _join_planes(self, pn: np.ndarray, elapsed: np.ndarray) -> None:
+        """Join host planes into the state under SIGNED int64 max, in place
+        (checkpoint restore); the scrape epoch moves."""
+        pn_t = torch.from_numpy(pn).to(self.device)
+        elapsed_t = torch.from_numpy(elapsed).to(self.device)
+        with self._state_mu:
+            torch.maximum(self.state.pn, pn_t, out=self.state.pn)
+            torch.maximum(self.state.elapsed, elapsed_t, out=self.state.elapsed)
+            self._state_gen += 1  # a write outside any tick: the scrape epoch moves
 
     def _device_event(self):
         """An event recorded behind the work just launched (None on CPU,
@@ -3893,9 +3944,10 @@ class DeviceEngine:
             packed[2, :n] = chunk.added_nt
             packed[3, :n] = chunk.taken_nt
             packed[4, :n] = chunk.elapsed_ns
+            rows_view = self._row_view(packed[0])
             dev = self._ship(buf)
-            with self._state_mu:
-                merge_scalar_batch(self.state, MergeBatch(*dev.unbind(0)))
+            with self._state_mu, self._viewed(rows_view) as state:
+                merge_scalar_batch(state, MergeBatch(*dev.unbind(0)))
             self._ticks += 1
         self._observe_device_commit("merge_scalar", t0, len(deltas))
 

@@ -27,7 +27,6 @@ from patrol_tpu.command import Command as JCommand
 from patrol_tpu.models.limiter import LimiterConfig as JConfig
 from patrol_tpu.runtime import engine as jengine_mod
 from patrol_tpu_torch.command import Command as TCommand
-from patrol_tpu_torch.command import NotPortedError
 from patrol_tpu_torch.models.limiter import NANO
 from patrol_tpu_torch.models.limiter import LimiterConfig as TConfig
 from patrol_tpu_torch.runtime import engine as tengine_mod
@@ -175,11 +174,11 @@ def test_http_script_matches_reference(monkeypatch):
 def test_unported_options_refuse_to_start(kwargs):
     """The mesh is ported: each option set passes ``check_ported()`` and
     a node started with it on a 2 × 4 mesh of ``cpu`` × 8 answers a take.
-    What is still not ported, a mesh over more than one distinct device,
-    refuses the whole configuration."""
+    A mesh over devices of two platforms refuses the whole configuration
+    (``ValueError``), as a JAX mesh cannot mix them."""
     cpu8 = [torch.device("cpu")] * 8
     TCommand(device="cpu", **kwargs).check_ported()
-    with pytest.raises(NotPortedError):
+    with pytest.raises(ValueError, match="one platform"):
         TCommand(device="cpu", mesh_devices=[torch.device("cpu"), torch.device("cuda", 0)] * 4,
                  **kwargs).check_ported()
     cmd = TCommand(

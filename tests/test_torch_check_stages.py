@@ -190,7 +190,7 @@ class TestLintRepo:
 
 class TestRaceRepo:
     CLEAN = ("patrol-race: clean (seam states explored=157 across 3 scenarios, 3 seeded "
-             "mutations all rejected; 54 guarded attrs, 8 thread-ensemble files)")
+             "mutations all rejected; 57 guarded attrs, 8 thread-ensemble files)")
 
     def test_clean_run_prints_the_reference_s_line(self, capsys):
         assert race_repo.main([]) == 0

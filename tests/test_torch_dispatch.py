@@ -147,7 +147,7 @@ class TestCompleteness:
     def test_every_key_and_caller_has_a_spec(self):
         assert {s.name for s in ob.DISPATCH_SPECS} >= set(_build.LAUNCHES)
         assert {"zero_rows", "read_rows", "merge_dense"} <= {s.name for s in ob.DISPATCH_SPECS}
-        assert set(ob.WITNESS_LAUNCHES) == set(D.WITNESS_PATHS) and len(D.WITNESS_PATHS) == 18
+        assert set(ob.WITNESS_LAUNCHES) == set(D.WITNESS_PATHS) and len(D.WITNESS_PATHS) == 22
 
 
 class TestWitness:
@@ -218,13 +218,13 @@ class TestDriver:
         assert dispatch_repo.main(["--device", "cpu"]) == 0
         out = capsys.readouterr().out.splitlines()
         assert out[0].startswith("witness on cpu (the CPU half")
-        assert out[-1] == ("patrol-dispatch: clean (15 specs, 18 witness paths on cpu, "
+        assert out[-1] == ("patrol-dispatch: clean (15 specs, 22 witness paths on cpu, "
                            "8 declared waits; PTD001, PTD002 absent on record)")
 
     def test_list(self, capsys):
         assert dispatch_repo.main(["--device", "cpu", "--list"]) == 0
         out = capsys.readouterr().out
-        assert out.count("\npath: ") + out.startswith("path: ") == 18
+        assert out.count("\npath: ") + out.startswith("path: ") == 22
         assert "absent: PTD001" in out and "absent: PTD002" in out
 
     @pytest.mark.parametrize("name", ["zero-rows-mask-read", "undeclared-wait",

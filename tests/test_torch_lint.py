@@ -299,7 +299,7 @@ class TestLaunchSync:
         assert [x.line for x in lint.lint_sources({TAKE: other})] == [2]
 
     def test_a_declared_extra_root_is_walked(self):
-        src = "def run_step(state):\n    return state.pn.sum().item()\n"
+        src = "def run_pieces(state):\n    return state.pn.sum().item()\n"
         f = lint.lint_sources({f"{PKG}/parallel/topology.py": src})
         assert [(x.check, x.line) for x in f] == [("PTL002", 2)]
 
@@ -383,7 +383,7 @@ class TestLaunchRootsOnTheTree:
             (f"{PKG}/ops/join_kernel.py", "_launch"),
             (f"{PKG}/ops/row_rmw_kernel.py", "row_rmw"),
             (f"{PKG}/ops/cert_kernel.py", "fused"),
-            (f"{PKG}/parallel/topology.py", "run_step"),
+            (f"{PKG}/parallel/topology.py", "run_pieces"),
         }
         callers = {
             p for p in (REPO / PKG).rglob("*.py")
@@ -393,7 +393,8 @@ class TestLaunchRootsOnTheTree:
 
     def test_the_mesh_root_reaches_the_wrappers_past_their_cpu_branches(self, mods):
         # converge_kernel.gather launches through _launch and is no root
-        # itself: run_step walks into its card path, not its CPU branch.
+        # itself: run_pieces walks (through _step_front) into
+        # its card path, not its CPU branch.
         rel = f"{PKG}/ops/converge_kernel.py"
         card = '    _launch(1, "mesh_gather", pn, elapsed, rows, spn, sel)\n'
         cpu = "        gather_plain(pn, elapsed, rows, spn, sel)\n"
@@ -406,7 +407,7 @@ class TestLaunchRootsOnTheTree:
         assert [(x.path, x.line, x.message) for x in f] == [(
             rel, _line_of(srcs[rel], "    rows.cpu()\n"),
             "host-device sync .cpu() inside gather(), which is on a CUDA kernel's launch "
-            "path (reachable from a launch root via run_step)",
+            "path (reachable from a launch root via _step_front)",
         )]
 
 

@@ -36,7 +36,6 @@ from patrol_tpu.runtime.mesh_engine import MeshEngine as JMesh
 from patrol_tpu_torch.models.limiter import NANO, LimiterConfig
 from patrol_tpu_torch.ops import wire as twire
 from patrol_tpu_torch.ops.rate import Rate
-from patrol_tpu_torch.parallel.topology import NotPortedError
 from patrol_tpu_torch.runtime import checkpoint as tckpt
 from patrol_tpu_torch.runtime import engine as tengine_mod
 from patrol_tpu_torch.runtime.engine import DeltaArrays, TakeTicket
@@ -46,6 +45,10 @@ from patrol_tpu_torch.utils import profiling as tprofiling
 CFG = (64, 4)
 CFG_WIDE = (65536, 4)
 CPU8 = [torch.device("cpu")] * 8
+# Several pieces on the CPU: eight distinct devices, two devices of four
+# blocks each, and one device with a piece a block.
+DISTINCT8 = [torch.device("cpu", i) for i in range(8)]
+MIXED8 = [torch.device("cpu", 0)] * 4 + [torch.device("cpu", 1)] * 4
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs the 8-device virtual CPU mesh"
@@ -68,12 +71,13 @@ class Pair:
     clock; ``both(fn)`` runs ``fn(engine, rate_cls)`` on each."""
 
     def __init__(self, cfg=CFG, replicas=1, node_slot=0, jdevices=None, tdevices=CPU8,
-                 on_broadcast=(None, None)):
+                 on_broadcast=(None, None), piece_per_block=False):
         self.clock = FakeClock()
         self.j = JMesh(JConfig(*cfg), replicas=replicas, node_slot=node_slot, clock=self.clock,
                        on_broadcast=on_broadcast[0], devices=jdevices)
         self.t = MeshEngine(LimiterConfig(*cfg), replicas=replicas, node_slot=node_slot,
-                            clock=self.clock, on_broadcast=on_broadcast[1], devices=tdevices)
+                            clock=self.clock, on_broadcast=on_broadcast[1], devices=tdevices,
+                            piece_per_block=piece_per_block)
 
     def both(self, fn):
         return fn(self.j, JRate), fn(self.t, Rate)
@@ -294,14 +298,17 @@ class TestMeshCommandCluster:
             th.join(timeout=15)
 
     def test_distinct_devices_refuse_to_start(self):
+        """Distinct devices of one platform serve now; a list that mixes
+        platforms is refused before anything starts (a JAX mesh cannot
+        mix them either)."""
         from patrol_tpu_torch.command import Command
 
-        with pytest.raises(NotPortedError):
-            Command(device="cpu", mesh_replicas=1,
-                    mesh_devices=[torch.device("cpu"), torch.device("cuda", 0)]).check_ported()
-        with pytest.raises(NotPortedError):
-            MeshEngine(LimiterConfig(*CFG), replicas=1,
-                       devices=[torch.device("cpu"), torch.device("cuda", 0)])
+        mixed = [torch.device("cpu"), torch.device("cuda", 0)]
+        with pytest.raises(ValueError, match="one platform"):
+            Command(device="cpu", mesh_replicas=1, mesh_devices=mixed).check_ported()
+        with pytest.raises(ValueError, match="one platform"):
+            MeshEngine(LimiterConfig(*CFG), replicas=1, devices=mixed)
+        Command(device="cpu", mesh_replicas=2, mesh_devices=DISTINCT8).check_ported()
 
 
 # -- ticks: the fold, the split, the commit drain -------------------------------
@@ -534,7 +541,7 @@ class TestMeshResize:
         try:
             with pytest.raises(ValueError):
                 t.resize(replicas=1, devices=CPU8[:7])
-            with pytest.raises(NotPortedError):
+            with pytest.raises(ValueError, match="one platform"):
                 t.resize(replicas=1, devices=[torch.device("cpu"), torch.device("cuda", 0)])
             assert t.take("ok", Rate(freq=10, per_ns=NANO), 1)[1]
             assert t.plan.shards == 4
@@ -585,3 +592,343 @@ class TestMeshLifecycle:
             p.assert_planes_equal()
         finally:
             p.stop()
+
+
+# -- the mesh over several pieces ---------------------------------------------------
+
+# name → (the port's devices, piece_per_block, the reference's device count).
+PIECE_LAYOUTS = {
+    "distinct": (DISTINCT8, False, 8),
+    "mixed": (MIXED8, False, 8),
+    "per_block": (CPU8, True, 8),
+    "distinct6": ([torch.device("cpu", i) for i in range(6)], False, 6),
+    "per_block6": (CPU8[:6], True, 6),
+}
+PIECE_CASES = [(r, name) for r in (1, 2, 4) for name in ("distinct", "mixed", "per_block")] + [
+    (3, "distinct6"), (3, "per_block6")]
+
+
+def piece_pair(replicas, name, cfg=CFG, **kw):
+    devices, ppb, n = PIECE_LAYOUTS[name]
+    p = Pair(cfg=cfg, replicas=replicas, jdevices=jax.devices()[:n], tdevices=devices,
+             piece_per_block=ppb, **kw)
+    assert p.t.state is None and len(p.t._placed.states) > 1
+    return p
+
+
+@pytest.fixture(params=PIECE_CASES, ids=[f"{r}-{n}" for r, n in PIECE_CASES])
+def pieces(request, device_path):
+    p = piece_pair(*request.param)
+    yield p
+    p.stop()
+
+
+class TestMeshPieces:
+    """The port's MeshEngine over several pieces (distinct CPU devices, a
+    mixed list, a piece a block) against the reference's MeshEngine on
+    the virtual CPU mesh, call for call; tolerance 0."""
+
+    def test_takes_route_and_converge(self, pieces):
+        def run(eng, R):
+            rate = R(freq=10, per_ns=NANO)
+            out = [eng.take(f"p{i}", rate, 1 + i % 3)[:2] for i in range(40)]
+            out += [eng.take("p0", rate, 1)[:2] for _ in range(10)]
+            return out, [eng.tokens(f"p{i}") for i in range(40)]
+
+        got, tokens = pieces.same(run)
+        assert got[40:] == [(8 - i, True) for i in range(9)] + [(0, False)]
+        pieces.assert_planes_equal()
+
+    def test_concurrent_hot_bucket(self, pieces):
+        def run(eng, R):
+            results = []
+            lock = threading.Lock()
+
+            def worker():
+                _, ok, _ = eng.take("hot", R(freq=10, per_ns=NANO), 1)
+                with lock:
+                    results.append(ok)
+
+            threads = [threading.Thread(target=worker) for _ in range(24)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return sum(results)
+
+        assert pieces.same(run) == 10
+        pieces.assert_planes_equal()
+
+    def test_lane_and_scalar_merges_and_snapshots(self, pieces):
+        """Lane deltas (the fused tick), reference-peer scalar deltas (the
+        inherited scalar merge after the step), snapshots and tokens."""
+        names = [f"m{i}" for i in range(12)]
+
+        def run(eng, R):
+            w = jwire if R is JRate else twire
+            for nm in names[:6]:
+                eng.take(nm, R(freq=10, per_ns=NANO), 2)
+            eng.ingest_delta(w.from_nanotokens("m0", 0, 5 * NANO, 0, origin_slot=2), slot=2)
+            eng.ingest_deltas_batch(names, [1] * 12, [50 + i for i in range(12)],
+                                    [5 + i for i in range(12)], [NANO] * 12,
+                                    caps_nt=[1000] * 12)
+            eng.ingest_deltas_batch(names, [3] * 12, [-1] * 12, [-1] * 12, [NANO] * 12,
+                                    caps_nt=[-1] * 12,
+                                    lane_added_nt=[100 + i for i in range(12)],
+                                    lane_taken_nt=[10 + i for i in range(12)])
+            assert eng.flush(30)
+            snaps = {nm: sorted((s.origin_slot, s.added_nt, s.taken_nt, s.lane_taken_nt)
+                                for s in eng.snapshot(nm)) for nm in names}
+            return [eng.tokens(nm) for nm in names], snaps
+
+        pieces.same(run)
+        pieces.assert_planes_equal()
+
+    def test_straddling_tick_splits_bit_exact(self, device_path):
+        """A drain past MESH_WARM_MAX a block on shard 0 with takes riding
+        the boundary dispatch, over every piece layout at R = 2."""
+        for name in ("distinct", "mixed", "per_block"):
+            n = MESH_WARM_MAX * 2 + 999
+            p = piece_pair(2, name, cfg=CFG_WIDE)
+            try:
+                d_rows = 100 + np.arange(n, dtype=np.int64)
+
+                def run(eng, R):
+                    cls, tcls = (JDeltas, JTicket) if R is JRate else (DeltaArrays, TakeTicket)
+                    rate = R(freq=10, per_ns=NANO)
+                    tickets = []
+                    for i in range(8):
+                        row, _ = eng._assign_pinned(f"tk{i}", 0)
+                        eng.directory.init_cap_base(row, rate.freq * NANO)
+                        for _ in range(3 if i == 0 else 1):
+                            assert eng._assign_pinned(f"tk{i}", 0)[0] == row
+                            tickets.append(tcls(f"tk{i}", row, rate, 1, 0))
+                        eng.directory.unpin_rows([row])
+                    eng._apply(lane_deltas(cls, d_rows, [0] * n, [7] * n, [3] * n, [11] * n),
+                               tickets)
+                    for t in tickets:
+                        assert t.wait(30)
+                    return [(t.name, t.remaining, t.ok) for t in tickets], eng.stats()
+
+                (jout, jst), (tout, tst) = p.both(run)
+                assert tout == jout and tst == jst
+                assert tst["mesh_split_ticks"] == 1 and tst["mesh_sub_dispatches"] == 2
+                p.assert_planes_equal()
+            finally:
+                p.stop()
+
+    @pytest.mark.parametrize("replicas,name", [(1, "distinct"), (2, "mixed"), (2, "per_block"),
+                                               (4, "distinct"), (3, "distinct6")])
+    def test_gc_reclaim_and_release_bucket(self, device_path, replicas, name):
+        p = piece_pair(replicas, name)
+        try:
+            p.same(lambda eng, R: [eng.take(f"g{i}", R(freq=10, per_ns=NANO), 3)[:2]
+                                   for i in range(6)])
+            assert p.same(lambda eng, R: eng.gc_sweep(force=True)) == 0  # spent: kept
+            p.clock.advance(10 * NANO)
+            assert p.same(lambda eng, R: eng.gc_sweep(force=True)) == 6  # refilled
+            got = p.same(lambda eng, R: eng.take("g0", R(freq=10, per_ns=NANO), 1)[:2])
+            assert got == (9, True)
+            p.same(lambda eng, R: eng.take("rel", R(freq=10, per_ns=NANO), 4)[:2])
+            assert p.same(lambda eng, R: eng.release_bucket("rel", timeout=30)) is True
+            assert p.same(lambda eng, R: eng.take("rel", R(freq=10, per_ns=NANO), 1)[:2]) == (9, True)
+            p.assert_planes_equal()
+        finally:
+            p.stop()
+
+    def test_checkpoint_restores_across_layouts(self, tmp_path, pieces):
+        pieces.both(lambda eng, R: [eng.take(f"c{i}", R(freq=10, per_ns=NANO), 1 + i)
+                                    for i in range(5)])
+        jckpt.save(str(tmp_path / "j"), pieces.j)
+        tckpt.save(str(tmp_path / "t"), pieces.t)
+        jpn, jel = np.load(tmp_path / "j" / "state.npz").values()
+        tpn, tel = np.load(tmp_path / "t" / "state.npz").values()
+        assert np.array_equal(jpn, tpn) and np.array_equal(jel, tel)
+        targets = [MeshEngine(LimiterConfig(*CFG), replicas=2, clock=FakeClock(),
+                              devices=DISTINCT8),
+                   MeshEngine(LimiterConfig(*CFG), replicas=1, clock=FakeClock(), devices=CPU8)]
+        j2 = JMesh(JConfig(*CFG), replicas=2, node_slot=0, clock=FakeClock())
+        try:
+            want = jckpt.restore(str(tmp_path / "j"), j2)
+            jp = j2.snapshot_planes()
+            for t2 in targets:
+                assert tckpt.restore(str(tmp_path / "t"), t2) == want
+                assert [t2.tokens(f"c{i}") for i in range(5)] == [j2.tokens(f"c{i}")
+                                                                  for i in range(5)]
+                tp = t2.snapshot_planes()
+                assert np.array_equal(np.asarray(jp[0]), tp[0])
+                assert np.array_equal(np.asarray(jp[1]), tp[1])
+        finally:
+            j2.stop()
+            for t2 in targets:
+                t2.stop()
+
+    def test_scrapes_and_read_rows(self, pieces):
+        def run(eng, R):
+            for i in range(10):
+                eng.take(f"s{i}", R(freq=10, per_ns=NANO), 1 + i % 4)
+            assert eng.flush(30)
+            rows = np.array([eng.directory.lookup(f"s{i}") for i in range(10)] + [0, 63])
+            pn, el = eng.read_rows(rows)
+            many = eng.snapshot_many([f"s{i}" for i in range(10)])
+            return (np.asarray(pn).tolist(), np.asarray(el).tolist(),
+                    {k: sorted((s.origin_slot, s.taken_nt) for s in v) for k, v in many.items()},
+                    [eng.tokens_if_known(f"s{i}") for i in range(10)])
+
+        pieces.same(run)
+
+    def test_family_calls(self, pieces):
+        """GCRA, concurrency and the hierarchical quota, whose three rows
+        a path lie in different shards; duplicate, negative and
+        out-of-range rows; results and planes equal, every copy of a
+        shard written."""
+        rows = np.array([0, 9, 17, 33, 47, 63], np.int32)
+
+        def run(eng, R):
+            out = []
+            for now in (1_000, 1_100):
+                out.append(eng.gcra_take(rows, now, 100, 300, 5))
+            out.append(eng.gcra_take([1, 2, 2, -1, 70, -200], 5_000, 100, 300, 3))
+            out.append(eng.conc_acquire(rows + 1, 5, 1, 8, 0))
+            out.append(eng.conc_acquire(rows + 1, 5, 1, 4, 2))
+            out.append(eng.quota_take([6, 6], [30, 31], [50, 60], 10, 6, 4, 1, 5))
+            out.append(eng.quota_take([6, 6], [30, 31], [50, 60], 10, 6, 4, 1, 5))
+            out.append(eng.quota_take([40] * 3, [41, 42, 41], [42, 43, 41], 9, 5, 4, 1, -2))
+            return [[np.asarray(f).tolist() for f in res] for res in out]
+
+        got = pieces.same(run)
+        assert sum(got[5][0]) == 8  # quota admitted 4 + 4 on its first call
+        pieces.assert_planes_equal()
+        t = pieces.t
+        for s in range(t.plan.shards):
+            copies = [st.pn[sp.shards.index(s) * t.plan.rows_per_shard:
+                            (sp.shards.index(s) + 1) * t.plan.rows_per_shard]
+                      for sp, st in zip(t._placed.specs, t._placed.states) if s in sp.shards]
+            assert all(torch.equal(c, copies[0]) for c in copies[1:]), s
+
+    def test_stats_keep_the_reference_keys(self, pieces):
+        pieces.both(lambda eng, R: [eng.take(f"k{i}", R(freq=10, per_ns=NANO), 1)
+                                    for i in range(8)])
+        pieces.j.flush()
+        pieces.t.flush()
+        assert pieces.t.stats() == pieces.j.stats()
+
+
+class TestMeshPiecesResize:
+    @pytest.mark.parametrize("name", ["distinct", "per_block"])
+    def test_grow_4_to_8_is_bit_exact(self, device_path, name):
+        devices, ppb, _ = PIECE_LAYOUTS[name]
+        p = Pair(replicas=1, jdevices=jax.devices()[:4], tdevices=devices[:4],
+                 piece_per_block=ppb)
+        try:
+            p.same(lambda eng, R: [eng.take(f"rz-{i}", R(freq=10, per_ns=NANO), 3)[:2]
+                                   for i in range(16)])
+            tpn0, tel0 = p.t.snapshot_planes()
+            jr = p.j.resize(replicas=2, devices=jax.devices())
+            tr = p.t.resize(replicas=2, devices=devices, piece_per_block=ppb)
+            assert tr == jr and len(p.t._placed.states) == 8
+            tpn1, tel1 = p.t.snapshot_planes()
+            assert np.array_equal(tpn0, tpn1) and np.array_equal(tel0, tel1)
+            got = p.same(lambda eng, R: [eng.take(f"rz-{i}", R(freq=10, per_ns=NANO), 1)[:2]
+                                         for i in range(16)])
+            assert got == [(6, True)] * 16
+            p.assert_planes_equal()
+        finally:
+            p.stop()
+
+    @pytest.mark.parametrize("name", ["distinct", "mixed", "per_block"])
+    def test_shrink_8_to_4_is_bit_exact(self, device_path, name):
+        devices, ppb, _ = PIECE_LAYOUTS[name]
+        p = piece_pair(2, name)
+        try:
+            p.both(lambda eng, R: eng.take("sh", R(freq=10, per_ns=NANO), 5))
+            tpn0, tel0 = p.t.snapshot_planes()
+            p.j.resize(replicas=1, devices=jax.devices()[:4])
+            p.t.resize(replicas=1, devices=devices[:4], piece_per_block=ppb)
+            tpn1, tel1 = p.t.snapshot_planes()
+            assert np.array_equal(tpn0, tpn1) and np.array_equal(tel0, tel1)
+            assert p.same(lambda eng, R: eng.take("sh", R(freq=10, per_ns=NANO), 5)[:2]) == (0, True)
+            p.assert_planes_equal()
+        finally:
+            p.stop()
+
+    @pytest.mark.parametrize("name", ["distinct", "per_block"])
+    def test_one_piece_to_eight_and_back_under_load(self, device_path, name):
+        """Takes straddle a resize from one piece (``cpu`` × 8) onto eight
+        and back: every take answered, capacity held exactly."""
+        devices, ppb, _ = PIECE_LAYOUTS[name]
+        t = MeshEngine(LimiterConfig(*CFG), replicas=2, clock=FakeClock(), devices=CPU8)
+        try:
+            assert t.state is not None
+            results = []
+            lock = threading.Lock()
+
+            def worker():
+                _, ok, _ = t.take("hot-rz", Rate(freq=10, per_ns=NANO), 1)
+                with lock:
+                    results.append(ok)
+
+            threads = [threading.Thread(target=worker) for _ in range(36)]
+            for th in threads[:12]:
+                th.start()
+            t.resize(replicas=2, devices=devices, piece_per_block=ppb)
+            assert t.state is None and len(t._placed.states) == 8
+            for th in threads[12:24]:
+                th.start()
+            t.resize(replicas=2, devices=CPU8)
+            assert t.state is not None
+            for th in threads[24:]:
+                th.start()
+            for th in threads:
+                th.join()
+            assert len(results) == 36 and sum(results) == 10
+        finally:
+            t.stop()
+
+
+class TestMeshPiecesCommand:
+    def test_command_serves_over_distinct_devices(self):
+        """``Command(mesh_replicas=2, mesh_devices=[cpu:0 .. cpu:7])``
+        serves HTTP takes; its outcomes and planes equal the reference's
+        MeshEngine fed the same takes on the same frozen clock."""
+        import http.client
+
+        from patrol_tpu_torch.command import Command
+
+        clock = FakeClock(1_700_000_000 * NANO)
+        cmd = Command(api_addr=f"127.0.0.1:{_free_port()}",
+                      node_addr=f"127.0.0.1:{_free_port(socket.SOCK_DGRAM)}",
+                      shutdown_timeout_s=5.0, config=LimiterConfig(*CFG), clock=clock,
+                      handle_signals=False, device="cpu", udp_backend="asyncio",
+                      http_front="python", mesh_replicas=2, mesh_devices=DISTINCT8)
+        j = JMesh(JConfig(*CFG), replicas=2, node_slot=0, clock=clock)
+        loop = asyncio.new_event_loop()
+        stop = asyncio.Event()
+        th = threading.Thread(target=lambda: loop.run_until_complete(cmd.run(stop)), daemon=True)
+        th.start()
+        try:
+            deadline = time.time() + 60
+            while not cmd.started.is_set() and time.time() < deadline:
+                time.sleep(0.05)
+            assert cmd.started.is_set()
+            eng = cmd.engine
+            assert isinstance(eng, MeshEngine) and len(eng._placed.states) == 8
+            got, want = [], []
+            for i in range(14):
+                name, count = f"cmd{i % 5}", 1 + i % 3
+                conn = http.client.HTTPConnection("127.0.0.1", cmd.api_port, timeout=30)
+                conn.request("POST", f"/take/{name}?rate=5:1h&count={count}")
+                resp = conn.getresponse()
+                got.append((resp.status, resp.read()))
+                conn.close()
+                rem, ok, _ = j.take(name, JRate(freq=5, per_ns=3600 * NANO), count)
+                want.append((200 if ok else 429, str(rem).encode()))
+            assert got == want
+            assert eng.flush(30) and j.flush(30)
+            tpn, tel = eng.snapshot_planes()
+            jpn, jel = j.snapshot_planes()
+            assert np.array_equal(np.asarray(jpn), tpn) and np.array_equal(np.asarray(jel), tel)
+        finally:
+            loop.call_soon_threadsafe(stop.set)
+            th.join(timeout=15)
+            j.stop()

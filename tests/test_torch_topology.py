@@ -159,8 +159,8 @@ class TestTreeConverge:
 # -- the packed step -------------------------------------------------------------
 
 
-def jax_step(replicas, pn, el, take_mat, merge_mat, node_slot):
-    mesh = jtopo.make_mesh(replicas=replicas)
+def jax_step(replicas, pn, el, take_mat, merge_mat, node_slot, n_devices=8):
+    mesh = jtopo.make_mesh(replicas=replicas, devices=jax.devices()[:n_devices])
     st = jtopo.place_state(JState(pn=jnp.asarray(pn), elapsed=jnp.asarray(el)), mesh)
     step = jtopo.build_cluster_step_packed(mesh, node_slot)
     sh = jtopo.batch_sharding(mesh)
@@ -368,8 +368,10 @@ class TestMakeMesh:
             topo.make_mesh(2, [torch.device("cpu")])
         with pytest.raises(ValueError, match="3 replicas do not divide 8 devices"):
             topo.make_mesh(3, CPU8)
-        with pytest.raises(topo.NotPortedError, match="distinct"):
+        with pytest.raises(ValueError, match="one platform"):
             topo.make_mesh(2, [torch.device("cpu"), torch.device("cuda", 0)])
+        mesh = topo.make_mesh(2, [torch.device("cpu", i) for i in range(8)])
+        assert mesh.shape == {"r": 2, "b": 4} and mesh.cards == 1
         assert topo.local_devices("cpu") == [torch.device("cpu")]
         with pytest.raises(ValueError, match="shards do not divide"):
             topo.plan_for(topo.make_mesh(1, [torch.device("cpu")] * 3), LimiterConfig(B, N))
@@ -402,3 +404,322 @@ def test_converge_kernels_match_plain_on_the_card():
         ps, pl = torch.empty_like(spn), torch.empty_like(sel)
         converge_kernel.gather_plain(pn, el, rows, ps, pl)
         assert torch.equal(ks, ps) and torch.equal(kl, pl), (r, t, n)
+
+
+# -- pieces: the mesh over several devices -------------------------------------------
+
+DISTINCT8 = [torch.device("cpu", i) for i in range(8)]
+MIXED8 = [torch.device("cpu", 0)] * 4 + [torch.device("cpu", 1)] * 4
+# name → (device list, piece_per_block): eight distinct devices, two
+# devices of four blocks each, one device with a piece a block.
+LAYOUTS = {
+    "distinct": (DISTINCT8, False),
+    "mixed": (MIXED8, False),
+    "per_block": (CPU8, True),
+}
+# (replicas, layout): R = 1, 2, 4 over each list, and R = 3 over six.
+PIECE_CASES = [(r, name) for r in (1, 2, 4) for name in LAYOUTS] + [(3, "distinct6"),
+                                                                   (3, "per_block6")]
+
+
+def piece_mesh(replicas, name):
+    if name.endswith("6"):
+        devices, ppb = LAYOUTS[name[:-1]]
+        devices = [torch.device("cpu", i) for i in range(6)] if name == "distinct6" else CPU8[:6]
+    else:
+        devices, ppb = LAYOUTS[name]
+    return topo.make_mesh(replicas, devices, piece_per_block=ppb)
+
+
+def jax_mesh_for(mesh):
+    return jtopo.make_mesh(mesh.shape["r"], devices=jax.devices()[:len(mesh.devices)])
+
+
+def placed_zero(mesh, cfg=LimiterConfig(B, N)):
+    return topo.init_placed(cfg, mesh, topo.plan_for(mesh, cfg))
+
+
+class TestPieces:
+    @pytest.mark.parametrize("replicas,name", PIECE_CASES)
+    def test_layout(self, replicas, name):
+        """Blocks group by the device their entry names (replica-major,
+        ``grid[r][s]``); each piece holds the shards its blocks cover."""
+        mesh = piece_mesh(replicas, name)
+        plan = topo.plan_for(mesh, LimiterConfig(B, N))
+        specs = topo.piece_layout(mesh, plan)
+        keys = range(len(mesh.devices)) if mesh.piece_per_block else mesh.devices
+        assert len(specs) == len(dict.fromkeys(keys))
+        assert sorted(b for sp in specs for b in sp.blocks) == list(range(plan.blocks))
+        for sp in specs:
+            assert sp.shards == tuple(sorted({b % plan.shards for b in sp.blocks}))
+            assert sp.device == torch.device("cpu")
+        assert specs[0].blocks[0] == 0
+        placed = placed_zero(mesh)
+        for s in range(plan.shards):  # every shard held, home first
+            holders = [i for i, sp in enumerate(specs) if s in sp.shards]
+            assert holders and placed.home[s] == holders[0]
+
+    def test_one_device_is_one_piece(self):
+        for devices in (CPU8, [torch.device("cpu", 3)] * 8):
+            mesh = topo.make_mesh(2, devices)
+            assert len(topo.piece_layout(mesh, topo.plan_for(mesh, LimiterConfig(B, N)))) == 1
+        assert topo.make_mesh(2, CPU8).device == torch.device("cpu")
+
+    @pytest.mark.parametrize("replicas,name", PIECE_CASES)
+    def test_place_state_and_planes_round_trip(self, replicas, name):
+        """The reference's placed planes (``np.asarray`` of its sharded
+        state) laid onto the pieces come back whole, bit for bit; so do a
+        torch state's, and a relayout onto every other layout."""
+        rng = np.random.default_rng(replicas)
+        pn = full_range(rng, (B, N, 2))
+        el = full_range(rng, (B,))
+        mesh = piece_mesh(replicas, name)
+        plan = topo.plan_for(mesh, LimiterConfig(B, N))
+        jst = jtopo.place_state(JState(pn=jnp.asarray(pn), elapsed=jnp.asarray(el)),
+                                jax_mesh_for(mesh))
+        for src in ((np.asarray(jst.pn), np.asarray(jst.elapsed)),
+                    LimiterState(torch.from_numpy(pn.copy()), torch.from_numpy(el.copy()))):
+            placed = topo.place_state(src, mesh, plan)
+            got = placed.planes()
+            assert np.array_equal(got[0], pn) and np.array_equal(got[1], el)
+        for r2, other in PIECE_CASES:
+            mesh2 = piece_mesh(r2, other)
+            moved = topo.place_state(placed, mesh2, topo.plan_for(mesh2, LimiterConfig(B, N)))
+            got = moved.planes()
+            assert np.array_equal(got[0], pn) and np.array_equal(got[1], el), (r2, other)
+
+    def test_one_piece_keeps_the_state_tensors(self):
+        st = LimiterState(torch.zeros((B, N, 2), dtype=torch.int64),
+                          torch.zeros(B, dtype=torch.int64))
+        mesh = topo.make_mesh(2, CPU8)
+        placed = topo.place_state(st, mesh, topo.plan_for(mesh, LimiterConfig(B, N)))
+        assert placed.states[0].pn is st.pn and placed.states[0].elapsed is st.elapsed
+        mesh4 = topo.make_mesh(4, CPU8)
+        again = topo.place_state(placed, mesh4, topo.plan_for(mesh4, LimiterConfig(B, N)))
+        assert again.states[0].pn is st.pn
+
+    @pytest.mark.parametrize("replicas,name", PIECE_CASES)
+    @pytest.mark.parametrize("to_home", [True, False])
+    def test_sequence_matches_reference(self, replicas, name, to_home):
+        """Four dispatches through the reference's mesh, ``mesh_step`` on
+        the pieces and ``cluster_step`` (R full copies): results and
+        planes equal after each."""
+        rng = random.Random(17 + replicas)
+        mesh = piece_mesh(replicas, name)
+        jmesh = jax_mesh_for(mesh)
+        jplan = jtopo.plan_for(jmesh, JConfig(B, N))
+        step = jtopo.build_cluster_step_packed(jmesh, 0)
+        jst = jtopo.init_sharded_state(JConfig(B, N), jmesh)
+        plan = topo.plan_for(mesh, LimiterConfig(B, N))
+        placed = placed_zero(mesh)
+        ref = LimiterState(torch.zeros((B, N, 2), dtype=torch.int64),
+                           torch.zeros(B, dtype=torch.int64))
+        for it in range(4):
+            takes, deltas = random_ops(rng, 12, 30, it * NANO)
+            tm, mm, at_cols = jtopo.route_packed(jplan, takes, deltas, 16, 16,
+                                                 deltas_to_home=to_home)
+            sh = jtopo.batch_sharding(jmesh)
+            jst, jout = step(jst, jax.device_put(tm, sh), jax.device_put(mm, sh))
+            out = topo.mesh_step(placed, tm, mm, plan, 0).numpy()
+            _, cout = topo.cluster_step(ref, tm, mm, plan, 0)
+            at = [blk * 16 + slot for blk, slot in at_cols]
+            assert np.array_equal(out[:, at], np.asarray(jout)[:, at]), it
+            assert np.array_equal(cout.numpy()[:, at], out[:, at]), it
+            pn, el = placed.planes()
+            assert np.array_equal(pn, np.asarray(jst.pn)), it
+            assert np.array_equal(el, np.asarray(jst.elapsed)), it
+            assert np.array_equal(ref.pn.numpy(), pn) and np.array_equal(ref.elapsed.numpy(), el)
+            # Every copy of a shard equal after the converge.
+            for s in range(plan.shards):
+                copies = [st.pn[sp.shards.index(s) * plan.rows_per_shard:
+                                (sp.shards.index(s) + 1) * plan.rows_per_shard]
+                          for sp, st in zip(placed.specs, placed.states) if s in sp.shards]
+                assert all(torch.equal(c, copies[0]) for c in copies[1:]), (it, s)
+
+    @pytest.mark.parametrize("replicas,name", PIECE_CASES)
+    def test_raw_random_matrices_with_a_wrap(self, replicas, name):
+        """Matrices not made by the router (takes in any replica's block,
+        merges with negative and out-of-range rows and slots, zero
+        entries, values near 2^63) and a take whose lane wraps past 2^63,
+        over the pieces, against the reference's step."""
+        rng = np.random.default_rng(70 + replicas)
+        mesh = piece_mesh(replicas, name)
+        plan = topo.plan_for(mesh, LimiterConfig(B, N))
+        S, rps, blocks = plan.shards, plan.rows_per_shard, plan.blocks
+        k_t, k_m = 8, 16
+        pn = full_range(rng, (B, N, 2)) >> 2
+        el = full_range(rng, (B,)) >> 2
+        take_mat = np.zeros((8, blocks * k_t), np.int64)
+        fill = np.zeros(blocks, int)
+        for g in rng.permutation(B)[:20]:
+            blk = int(rng.integers(replicas)) * S + int(g // rps)
+            if fill[blk] == k_t:
+                continue
+            c = blk * k_t + fill[blk]
+            fill[blk] += 1
+            take_mat[:, c] = (g % rps, 7 * NANO, 10, NANO, NANO * int(rng.integers(1, 3)),
+                              int(rng.integers(1, 4)), 10 * NANO, int(rng.integers(0, NANO)))
+        live = np.flatnonzero(take_mat[5] > 0)
+        g0 = (live[0] // k_t % S) * rps + take_mat[0, live[0]]
+        wrap_row(pn, el, g0, 0, 3 * NANO)
+        take_mat[1:, live[0]] = (5 * NANO, 10, NANO, 3 * NANO, 1, 10 * NANO, 0)
+        merge_mat = np.zeros((5, blocks * k_m), np.int64)
+        n_live = blocks * k_m * 3 // 4
+        merge_mat[0, :n_live] = rng.integers(-rps, rps + 2, n_live)
+        merge_mat[1, :n_live] = rng.integers(-N, N + 1, n_live)
+        merge_mat[2:, :n_live] = rng.integers(0, 1 << 62, (3, n_live))
+        merge_mat[2:, :n_live][:, rng.random(n_live) < 0.1] = 0
+        merge_mat[:, :n_live] = merge_mat[:, rng.permutation(blocks * k_m)[:n_live]]
+        jpn, jel, jout = jax_step(replicas, pn, el, take_mat, merge_mat, 0, len(mesh.devices))
+        placed = topo.place_state((pn, el), mesh, plan)
+        out = topo.mesh_step(placed, take_mat, merge_mat, plan, 0).numpy()
+        got_pn, got_el = placed.planes()
+        assert np.array_equal(got_pn, jpn) and np.array_equal(got_el, jel)
+        alive = take_mat[5] > 0
+        assert np.array_equal(out[:, alive], jout[:, alive])
+
+    def test_one_piece_prepares_as_one_card(self):
+        """At one piece the split prepare is the one-card prepare, operand
+        for operand, and the exchange is empty: the same launches."""
+        rng = random.Random(5)
+        mesh = topo.make_mesh(2, CPU8)
+        plan = topo.plan_for(mesh, LimiterConfig(B, N))
+        takes, deltas = random_ops(rng, 12, 40, NANO)
+        tm, mm, _ = topo.route_packed(plan, takes, deltas, 16, 16)
+        split = topo.prepare_pieces(tm, mm, plan, N, placed_zero(mesh))
+        assert split.exchange == () and len(split.steps) == 1
+        got = split.steps[0]
+        live = np.flatnonzero(tm[5] > 0)
+        blk = live // (tm.shape[1] // plan.blocks)
+        rows = (blk % plan.shards) * plan.rows_per_shard + tm[0, live]
+        trows = np.unique(rows)
+        # Every live take, its global rows as the one piece's rows.
+        assert np.array_equal(got.cols, live) and got.L == len(live) and got.T == len(trows)
+        assert np.array_equal(got.flat[-got.T:], trows)
+        takes = got.flat[:8 * got.L].reshape(8, got.L)
+        assert np.array_equal(takes[0], (blk // plan.shards) * got.T
+                              + np.searchsorted(trows, rows))
+        assert np.array_equal(takes[1:], tm[1:, live])
+        # Each merge entry lands once: in the state's rows or a scratch copy.
+        assert got.Kc + got.Ks <= mm.shape[1] and got.Ks > 0 and got.Kc > 0
+        assert len(got.flat) == 8 * got.L + 5 * (got.Kc + got.Ks) + got.T
+
+    @pytest.mark.parametrize("replicas", [2, 4])
+    def test_exchange_moves_each_missing_replica(self, replicas):
+        """Eight distinct devices: every piece holds one shard at one
+        replica and receives the other R - 1 replicas' scratch rows of
+        its shard, a pn and an elapsed copy each."""
+        mesh = topo.make_mesh(replicas, DISTINCT8)
+        plan = topo.plan_for(mesh, LimiterConfig(B, N))
+        rng = random.Random(replicas)
+        takes, deltas = random_ops(rng, 16, 10, NANO)
+        tm, mm, _ = topo.route_packed(plan, takes, deltas, 16, 16)
+        step = topo.prepare_pieces(tm, mm, plan, N, placed_zero(mesh))
+        trows = np.unique([t[0] for t in takes])
+        shards_with = set((trows // plan.rows_per_shard).tolist())
+        want = len(shards_with) * replicas * (replicas - 1)
+        assert len(step.exchange) == want
+        for x in step.exchange:
+            assert x.dst != x.src and x.rows > 0
+        topo.reset_exchange()
+        topo.mesh_step(placed_zero(mesh), tm, mm, plan, 0)
+        assert topo.EXCHANGE["copies"] == 2 * want
+        assert topo.EXCHANGE["bytes"] == sum(x.rows for x in step.exchange) * (16 * N + 8)
+
+    @pytest.mark.parametrize("name", list(LAYOUTS))
+    def test_rows_view_gather_scatter_zero(self, name):
+        """A launch's rows over pieces: the view's positions, a gathered
+        copy equal to the rows, a write-back that reaches every copy, and
+        ``zero_rows``'s wrap and drop on every copy."""
+        rng = np.random.default_rng(3)
+        mesh = topo.make_mesh(2, LAYOUTS[name][0], piece_per_block=LAYOUTS[name][1])
+        plan = topo.plan_for(mesh, LimiterConfig(B, N))
+        pn, el = full_range(rng, (B, N, 2)), full_range(rng, (B,))
+        placed = topo.place_state((pn, el), mesh, plan)
+        cols = np.array([[5, 63, 5, 17], [40, 2, 70, -3]], np.int64)
+        rows = placed.view(cols[0], cols[1])
+        assert rows.tolist() == [0, 2, 5, 17, 40, 63]  # 0: the clamp end of -3
+        assert cols.tolist() == [[2, 5, 2, 3], [4, 1, 6, -1]]
+        copy = placed.gather(rows)
+        assert np.array_equal(copy.pn.numpy(), pn[rows]) and np.array_equal(copy.elapsed.numpy(), el[rows])
+        copy.pn.add_(1)
+        copy.elapsed.add_(2)
+        placed.scatter(rows, copy)
+        pn[rows] += 1
+        el[rows] += 2
+        for st_pn, st_el, sp in zip((s.pn for s in placed.states),
+                                    (s.elapsed for s in placed.states), placed.specs):
+            for j, s in enumerate(sp.shards):
+                lo, at = s * plan.rows_per_shard, j * plan.rows_per_shard
+                assert np.array_equal(st_pn[at:at + plan.rows_per_shard].numpy(),
+                                      pn[lo:lo + plan.rows_per_shard])
+                assert np.array_equal(st_el[at:at + plan.rows_per_shard].numpy(),
+                                      el[lo:lo + plan.rows_per_shard])
+        placed.zero([3, -1, 64, 200, 3])
+        pn[[3, 63]] = 0
+        el[[3, 63]] = 0
+        got = placed.planes()
+        assert np.array_equal(got[0], pn) and np.array_equal(got[1], el)
+
+
+# The wrappers on a second card: each must launch on its tensors' card
+# while the calling thread's current device is another.
+WRAPPERS = ("pair_join", "row_join", "tick_join", "take_n", "mesh_gather", "converge",
+            "lifecycle_probe", "decode_fold", "row_rmw", "gcra_admit", "conc_admit",
+            "quota_admit")
+
+
+def second_card_call(wrapper):
+    """→ ``run(device)``: one call that reaches ``wrapper`` on small
+    operands made on ``device`` (the prove stage's operands for the root
+    that launches it), returning every plane and output on the host."""
+    import importlib
+
+    from patrol_tpu_torch.ops import join_kernel
+    from patrol_tpu_torch.ops.obligations import PROVE_ROOTS
+
+    if wrapper == "tick_join":
+        def run(device):
+            pn = torch.arange(4 * N * 2, dtype=torch.int64, device=device).view(4, N, 2) * 5
+            el = torch.arange(4, dtype=torch.int64, device=device) * 7
+            t = lambda v: torch.tensor(v, dtype=torch.int64, device=device)  # noqa: E731
+            dense = (t([1]), torch.full((1, N, 2), 99, dtype=torch.int64, device=device), t([3]))
+            pairs = (t([2, 0]), t([1, 0]), t([40, 3]), t([9, 1]), t([2]), t([50]))
+            join_kernel.tick_join(pn, el, dense, pairs)
+            return [pn.cpu(), el.cpu()]
+        return run
+    root = next(r for r in PROVE_ROOTS if wrapper in r.launches and r.operands is not None)
+    fn = getattr(importlib.import_module(root.module), root.attr)
+
+    def run(device):
+        ops = root.operands(device)
+        res = fn(*ops.args)
+        outs = list(ops.state_in) + list(ops.state_out(res) if ops.state_out else [])
+        if ops.state_out is None and res is not None:
+            outs += list(res)
+        return [x.cpu() for x in outs if isinstance(x, torch.Tensor)]
+    return run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_wrapper_launches_on_its_tensors_card(wrapper):
+    """A wrapper called on ``cuda:1`` tensors from a thread whose current
+    device is ``cuda:0`` launches on ``cuda:1`` (its launch count moves)
+    and gives what its plain version gives on the same inputs on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels do not run on the CPU")
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards to launch off the current device; this host has "
+                    f"{torch.cuda.device_count()}")
+    run = second_card_call(wrapper)
+    torch.cuda.set_device(0)
+    before = _build.LAUNCHES[wrapper]
+    got = run(torch.device("cuda", 1))
+    torch.cuda.synchronize(1)
+    assert torch.cuda.current_device() == 0
+    assert _build.LAUNCHES[wrapper] > before
+    want = run(torch.device("cpu"))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), wrapper
