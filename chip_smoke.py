@@ -81,11 +81,14 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    blocks) print. Last, the mesh converge (``csrc/converge.cu``): the
    scratch gather and the converge, each against its plain version bit
    for bit over the whole int64 range (words near +2^63 and -2^63) at
-   R = 2, 3, 4, 8 replicas, T = 1, 512, 4,096, 32,768 take rows and N = 1,
-   33, 64 lanes on a 1,000,000-row state, each call one launch; both timed
-   at R = 2, T = 4,096, N = 64 warm, cold (8 row sets, past L2) and at
-   T = 1, beside the plain versions, the library calls (``amax`` +
-   ``index_copy_``; ``index_select`` + ``copy_``) and their bound. Then
+   R = 2, 3, 4, 8 replicas, T = 1, 512, 4,096, 4,097, 32,768 take rows
+   and N = 1, 33, 64 lanes on a 1,000,000-row state, and with rows -1 and
+   B beside valid ones (nothing written for them), each call one launch;
+   both timed at R = 2, T = 4,096, N = 64 warm, cold (8 row sets, past
+   L2) and at T = 1, beside the plain versions, the library calls
+   (``amax`` + ``index_copy_``; ``index_select`` + ``copy_``) and their
+   bound, and warm and cold at (4, 4,096, 64) and (2, 32,768, 64); both
+   kernels' registers and shared memory (``-Xptxas -v``) print. Then
    ``zero_rows`` (plain torch: host rows filtered in numpy, one pinned
    copy, ``index_fill_`` a plane) on the 1M x 64 state at a GC reclaim's
    row count (8,192 distinct rows): zero rows and the rest unchanged
@@ -317,6 +320,7 @@ import http.client
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1167,9 +1171,13 @@ def cert_edge_checks(torch, dev, rng):
 # -- phase 2: the mesh converge against its plain versions --------------------
 
 CONVERGE_R = (2, 3, 4, 8)
-CONVERGE_T = (1, 512, 4096, 32768)
+CONVERGE_T = (1, 512, 4096, 4097, 32768)  # 4,097: a last block of one take row
 CONVERGE_N = (1, 33, 64)
 CONVERGE_MAIN = (2, 4096, LANES)  # (R, T, N) timed: a 3j take tick's rows at R = 2
+# (R, T, N) also timed: 3o's R, and a large tick (bandwidth-bound), each
+# with the cold sets that pass the 50 MB L2.
+CONVERGE_MORE = ((4, 4096, LANES), (2, 32768, LANES))
+CONVERGE_BAD = ((2, 4097, 1), (3, 4097, 33), (4, 4097, LANES), (8, 512, LANES))
 
 
 def full_range_t(torch, shape, dev, gen):
@@ -1194,14 +1202,62 @@ def exact_err(torch, name: str, a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def converge_bytes(r: int, t: int, n: int) -> int:
+    """Each pass reads or writes the R copies and the canonical rows once,
+    and reads the T row indices."""
+    return (r + 1) * t * (16 * n + 8) + 8 * t
+
+
+def converge_bad_rows(torch, ck, _build, dev, gen):
+    """Rows that hold -1 and B beside valid ones, at each (R, T, N) of
+    CONVERGE_BAD: both kernels must write nothing for the bad rows (the
+    state and the bad rows' scratch keep their words) and, for the valid
+    ones, what the plain version writes when run on the valid subset;
+    each call one launch."""
+    err, cases = 0.0, 0
+    b = 1 << 16
+    for r, t, n in CONVERGE_BAD:
+        pn = full_range_t(torch, (b, n, 2), dev, gen)
+        el = full_range_t(torch, (b,), dev, gen)
+        rows = torch.randperm(b, device=dev, generator=gen)[:t].contiguous()
+        bad = torch.randperm(t, device=dev, generator=gen)[: max(2, t // 8)]
+        rows[bad[0::2]] = -1
+        rows[bad[1::2]] = b
+        ok = (rows >= 0) & (rows < b)
+        spn = full_range_t(torch, (r, t, n, 2), dev, gen)
+        sel = full_range_t(torch, (r, t), dev, gen)
+        kp, ke, pp, pe = pn.clone(), el.clone(), pn.clone(), el.clone()
+        before = dict(_build.LAUNCHES)
+        ck.converge(kp, ke, rows, spn, sel)
+        ks, kl = full_range_t(torch, spn.shape, dev, gen), full_range_t(torch, sel.shape, dev, gen)
+        ps, pl = ks.clone(), kl.clone()
+        ck.gather(pn, el, rows, ks, kl)
+        torch.cuda.synchronize()
+        made = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        check(made == {**{k: 0 for k in before}, "converge": 1, "mesh_gather": 1},
+              f"converge bad rows R={r} T={t} N={n}: launches {made}")
+        ck.converge_plain(pp, pe, rows[ok], spn[:, ok].contiguous(), sel[:, ok].contiguous())
+        vs, vl = ps[:, ok].contiguous(), pl[:, ok].contiguous()
+        ck.gather_plain(pn, el, rows[ok], vs, vl)
+        ps[:, ok], pl[:, ok] = vs, vl
+        tag = f"bad rows R={r} T={t} N={n}"
+        err = max(err, exact_err(torch, f"converge pn {tag}", kp, pp),
+                  exact_err(torch, f"converge elapsed {tag}", ke, pe),
+                  exact_err(torch, f"gather spn {tag}", ks, ps),
+                  exact_err(torch, f"gather sel {tag}", kl, pl))
+        cases += 1
+    return {"cases": cases, "max_abs_err": err}
+
+
 def converge_checks(torch, ck, _build, dev):
     """The gather and the converge (``csrc/converge.cu``) against their
     plain versions at every (R, T, N) of CONVERGE_R x CONVERGE_T x
-    CONVERGE_N on a 1,000,000-row state, over the whole int64 range; each
-    call must be one launch. Then both are timed at CONVERGE_MAIN, warm (the
-    same rows and scratch), cold (a cycle of 8 row sets and scratches, 100
-    MB, past the 50 MB L2) and at T = 1 (the floor), beside the plain
-    versions and the library calls."""
+    CONVERGE_N on a 1,000,000-row state, over the whole int64 range, and
+    with rows -1 and B beside valid ones (CONVERGE_BAD); each call must be
+    one launch. Then both are timed at CONVERGE_MAIN and CONVERGE_MORE,
+    warm (the same rows and scratch), cold (a cycle of row sets and
+    scratches past the 50 MB L2) and at T = 1 (the floor), beside the
+    plain versions, the library calls and each shape's bound."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261019)
     err = 0.0
@@ -1234,19 +1290,11 @@ def converge_checks(torch, ck, _build, dev):
                 shapes += 1
         del kp, ke, pp, pe, spn, sel, gs, gl, ps, pl
         torch.cuda.empty_cache()
+    bad = converge_bad_rows(torch, ck, _build, dev, gen)
+    torch.cuda.empty_cache()
 
-    r, t, n = CONVERGE_MAIN
-    pn = full_range_t(torch, (BUCKETS, n, 2), dev, gen)
+    pn = full_range_t(torch, (BUCKETS, LANES, 2), dev, gen)
     el = full_range_t(torch, (BUCKETS,), dev, gen)
-
-    def operands(tt):
-        rows = torch.randperm(BUCKETS, device=dev, generator=gen)[:tt].contiguous()
-        return (rows, full_range_t(torch, (r, tt, n, 2), dev, gen),
-                full_range_t(torch, (r, tt), dev, gen))
-
-    warm = operands(t)
-    cold = itertools.cycle([operands(t) for _ in range(8)])
-    floor = operands(1)
 
     def library_converge(rows, spn, sel):
         pn.index_copy_(0, rows, spn.amax(dim=0))
@@ -1256,25 +1304,53 @@ def converge_checks(torch, ck, _build, dev):
         spn.copy_(pn.index_select(0, rows).unsqueeze(0).expand_as(spn))
         sel.copy_(el.index_select(0, rows).unsqueeze(0).expand_as(sel))
 
-    nbytes = (r + 1) * t * (16 * n + 8) + 8 * t
-    res = {}
-    for name, kern, plain, lib in (("converge", ck.converge, ck.converge_plain, library_converge),
-                                   ("mesh_gather", ck.gather, ck.gather_plain, library_gather)):
-        res[name] = {
-            "ms": device_ms(torch, lambda: kern(pn, el, *warm)),
-            "ms_cold": device_ms(torch, lambda: kern(pn, el, *next(cold))),
-            "floor_ms": device_ms(torch, lambda: kern(pn, el, *floor)),
-            "plain_ms": device_ms(torch, lambda: plain(pn, el, *warm)),
-            "library_ms": device_ms(torch, lambda: lib(*warm)),
-            "bytes": nbytes,
-            # One signed max per word and copy for the converge; the gather
-            # only moves words.
-            "ops": (r - 1) * t * (2 * n + 1) if name == "converge" else 0,
-            "max_abs_err": err,
-            "shape": {"R": r, "T": t, "N": n},
+    def timed(r, t, n, full: bool):
+        """Both kernels at (R, T, N): warm, cold over sets of 100 MB or
+        more, and (``full``) the floor, plain and library times."""
+        def operands(tt):
+            rows = torch.randperm(BUCKETS, device=dev, generator=gen)[:tt].contiguous()
+            return (rows, full_range_t(torch, (r, tt, n, 2), dev, gen),
+                    full_range_t(torch, (r, tt), dev, gen))
+
+        nbytes = converge_bytes(r, t, n)
+        warm = operands(t)
+        cold = itertools.cycle([operands(t) for _ in range(max(2, -(-100_000_000 // nbytes)))])
+        floor = operands(1)
+        out = {}
+        for name, kern, plain, lib in (
+                ("converge", ck.converge, ck.converge_plain, library_converge),
+                ("mesh_gather", ck.gather, ck.gather_plain, library_gather)):
+            m = {
+                "ms": device_ms(torch, lambda: kern(pn, el, *warm)),
+                "ms_cold": device_ms(torch, lambda: kern(pn, el, *next(cold))),
+                "bytes": nbytes,
+                # One signed max per word and copy for the converge; the
+                # gather only moves words.
+                "ops": (r - 1) * t * (2 * n + 1) if name == "converge" else 0,
+                "shape": {"R": r, "T": t, "N": n},
+            }
+            if full:
+                m.update({
+                    "floor_ms": device_ms(torch, lambda: kern(pn, el, *floor)),
+                    "plain_ms": device_ms(torch, lambda: plain(pn, el, *warm)),
+                    "library_ms": device_ms(torch, lambda: lib(*warm)),
+                })
+            m["bound_ms"] = bound(m["bytes"], m["ops"])[0]
+            out[name] = m
+        del warm, cold, floor
+        torch.cuda.empty_cache()
+        return out
+
+    res = timed(*CONVERGE_MAIN, full=True)
+    more = [timed(*shape, full=False) for shape in CONVERGE_MORE]
+    for name in res:
+        res[name].update({
+            "max_abs_err": max(err, bad["max_abs_err"]),
             "shapes_checked": shapes,
-        }
-    del pn, el, warm, cold, floor
+            "bad_rows_cases": bad["cases"],
+            "more_shapes": [m[name] for m in more],
+        })
+    del pn, el
     return res
 
 
@@ -1731,6 +1807,23 @@ def ptxas_lines(build_log: str, names) -> dict:
                 out[cur] = []
         elif cur and ("ptxas" in line or "bytes stack frame" in line):
             out[cur].append(line.strip())
+    return out
+
+
+def kernel_ptxas(lines, kernels) -> dict:
+    """Each kernel's ``Used ... registers`` line (registers, static shared
+    memory) out of one source's ``-Xptxas -v`` lines: → {kernel: line}, a
+    template's instances as ``name<args>``."""
+    out, cur = {}, None
+    for line in lines:
+        if "Compiling entry function" in line:
+            cur = next((k for k in kernels if k in line), None)
+            if cur:
+                args = re.findall(r"Li(\d+)E", line.split(cur, 1)[1].split("NS_")[0])
+                cur += f"<{', '.join(args)}>" if args else ""
+        elif cur and "Used" in line:
+            out[cur] = line.split(":", 1)[1].strip()
+            cur = None
     return out
 
 
@@ -4042,8 +4135,6 @@ def kernel_name(signature: str) -> str:
     (``(anonymous namespace)::take_n_kernel(long long*, ...)`` →
     ``take_n_kernel``); a templated library kernel keeps its first 80
     characters."""
-    import re
-
     m = re.match(r"(?:\(anonymous namespace\)::)?(\w+)\(", signature)
     return m.group(1) if m else signature[:80]
 
@@ -5230,15 +5321,21 @@ def main() -> int:
               f"{bound(m['bytes'], m['ops'])[0]:.6f} ms, max_abs_err "
               f"{max(m['max_abs_err'], cert['edges']['max_abs_err'])}")
     print("cert.cu ptxas: " + " | ".join(cert["ptxas"]))
-    conv_ptxas = [ln for ln in report["ptxas"].get("converge.cu", []) if "Used" in ln]
+    conv_ptxas = kernel_ptxas(report["ptxas"].get("converge.cu", []),
+                              ("gather_kernel", "converge_kernel"))
     for name in ("converge", "mesh_gather"):
         m = conv[name]
         print(f"{name} R={m['shape']['R']} T={m['shape']['T']} N={m['shape']['N']}: warm "
               f"{m['ms']:.6f} ms, cold {m['ms_cold']:.6f} ms, T=1 {m['floor_ms']:.6f} ms, plain "
               f"{m['plain_ms']:.6f} ms, library {m['library_ms']:.6f} ms, bound "
-              f"{bound(m['bytes'], m['ops'])[0]:.6f} ms, max_abs_err {m['max_abs_err']} over "
-              f"{m['shapes_checked']} shapes")
-    print("converge.cu ptxas: " + " | ".join(conv_ptxas))
+              f"{m['bound_ms']:.6f} ms, max_abs_err {m['max_abs_err']} over "
+              f"{m['shapes_checked']} shapes and {m['bad_rows_cases']} with bad rows")
+        for mm in m["more_shapes"]:
+            print(f"{name} R={mm['shape']['R']} T={mm['shape']['T']} N={mm['shape']['N']}: warm "
+                  f"{mm['ms']:.6f} ms, cold {mm['ms_cold']:.6f} ms, bound {mm['bound_ms']:.6f} "
+                  f"ms ({mm['bound_ms'] / mm['ms_cold']:.0%} of it cold)")
+    print("converge.cu ptxas (registers; no shared memory): " + " | ".join(
+        f"{k}: {v}" for k, v in conv_ptxas.items()))
     print("cert grid: " + json.dumps(cert["grid"]))
     print(f"zero_rows K={zrows['k']} on {BUCKETS} x {LANES}: {zrows['ms']:.6f} ms a call "
           f"(host {zrows['host_us']:.1f} us), index_fill_ x 2 {zrows['library_ms']:.6f} ms, "
@@ -5755,7 +5852,10 @@ def main() -> int:
             entry["grid"] = cert["grid"][name.split("_")[0]]
         if name in ("converge", "mesh_gather"):
             entry.update({key: m[key] for key in ("floor_ms", "ms_cold", "shape",
-                                                   "shapes_checked")})
+                                                   "shapes_checked", "bad_rows_cases")})
+            entry["more_shapes"] = [{key: mm[key] for key in ("shape", "ms", "ms_cold",
+                                                              "bound_ms")}
+                                    for mm in m["more_shapes"]]
         if name == "lifecycle_probe":
             entry["max_abs_err"] = max(m["max_abs_err"], m["edges"]["max_abs_err"])
             entry.update({key: m[key] for key in ("floor_ms", "ms_cold", "ms_cold_contig",

@@ -12,9 +12,9 @@ and ``sel int64[R, T]``, and writes their join back:
 * :func:`converge` — the signed int64 max over the R copies into the
   canonical rows.
 
-``rows`` are T distinct rows in ``[0, B)``. On a CUDA state each wrapper
-launches its kernel, or raises; the plain version runs only for a state
-that lies on the CPU.
+``rows`` are T distinct rows in ``[0, B)``; the kernels write nothing
+for a row outside it. On a CUDA state each wrapper launches its kernel,
+or raises; the plain version runs only for a state that lies on the CPU.
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ against the JAX package's (``patrol_tpu/analysis/prove.py``), on the CPU.
 * Torch counterparts of the reference's structural fixtures
   (``tests/test_prove.py``) fire: an add on a merged plane, an overwrite
   scatter, a float cast, a sync inside a root; index math does not; and a
-  ``.cu`` join entry with ``atomicAdd`` fires the CUDA half.
+  ``.cu`` join entry with ``atomicAdd`` fires the CUDA half. The CUDA
+  half is clean on ``converge.cu``'s ``converge_kernel`` and draws PTP001
+  from three mutants of it: its max made a sum, an ``atomicAdd`` on pn,
+  and its store made a store of a sum.
 * The registry and the PTP006 sweep; the driver's exit codes.
 
 The reference's run is a module-scoped fixture (about 30 s, most of it
@@ -22,6 +25,7 @@ its interpret-mode raw ingest); the port's whole stage takes about 15 s.
 
 import dataclasses
 import os
+import re
 
 import pytest
 import torch
@@ -267,6 +271,55 @@ class TestCudaHalf:
         bad = cu[rel].replace(line, "if (r >= 0 && r < a.B) a.elapsed[r] = a.elapsed[r] + v;")
         f = prove.cuda_join_findings(ROOTS["ops.merge.merge_batch"], {**cu, rel: bad})
         assert any("store of a sum" in x.message for x in f)
+
+
+# converge.cu's join: the shipped source is clean; each mutant of
+# converge_kernel draws PTP001 with its message.
+CONVERGE_STORE = "lanes_at(a.pn, row * a.N + v) = m;"
+CONVERGE_MUTANTS = {
+    "shipped": None,
+    "max_as_sum": "holds no max",
+    "atomic_add_on_pn": "atomicAdd() on a merged plane",
+    "store_of_a_sum": "a store of a sum",
+}
+
+
+def converge_mutant(src: str, mutant: str) -> str:
+    """converge.cu with ``converge_kernel`` mutated: every signed max a
+    sum, an ``atomicAdd`` on pn in place of the store of the max, or that
+    store made a store of a sum."""
+    if mutant == "shipped":
+        return src
+    lo = src.index("converge_kernel(const ConvergeArgs a) {")
+    body = src[lo:]
+    if mutant == "max_as_sum":
+        return src[:lo] + re.sub(r"smax\(([^,()]+(?:\[[^\]]*\])?), ([^()]+(?:\[[^\]]*\])?)\)",
+                                 r"(\1 + \2)", body)
+    if mutant == "atomic_add_on_pn":
+        return src.replace(CONVERGE_STORE, "atomicAdd(reinterpret_cast<unsigned long long*>"
+                           "(a.pn) + 2 * (row * a.N + v), (unsigned long long)m.x);")
+    return src.replace(CONVERGE_STORE, "lanes_at(a.pn, row * a.N + v) = "
+                       "lanes_at(a.pn, row * a.N + v) + m;")
+
+
+@pytest.mark.parametrize("mutant", list(CONVERGE_MUTANTS))
+def test_converge_cu_join_scan(mutant):
+    """PTP001's CUDA half over the converge kernel: clean as shipped; a
+    mutant whose max is a sum, that adds into pn atomically, or that
+    stores a sum into pn, is caught."""
+    cu = lint.repo_cuda_sources(REPO)
+    rel = "patrol_tpu_torch/csrc/converge.cu"
+    assert cu[rel].count(CONVERGE_STORE) == 1
+    bad = converge_mutant(cu[rel], mutant)
+    if mutant != "shipped":
+        assert bad != cu[rel]
+    f = prove.cuda_join_findings(ROOTS["ops.converge_kernel.converge"], {**cu, rel: bad})
+    want = CONVERGE_MUTANTS[mutant]
+    if want is None:
+        assert f == []
+    else:
+        assert f and {x.check for x in f} == {"PTP001"}
+        assert any(want in x.message and x.path == rel for x in f), [x.message for x in f]
 
 
 class TestRegistration:

@@ -116,6 +116,40 @@ class TestTreeConverge:
         rest[rows] = False
         assert torch.equal(cpn[rest], before_pn[rest]) and torch.equal(cel[rest], before_el[rest])
 
+    @pytest.mark.parametrize("replicas,t,n", [(2, 8, 1), (3, 8, 33), (4, 257, 1),
+                                              (2, 257, 33), (8, 97, 33)])
+    def test_plain_versions_match_reference_at_odd_widths(self, replicas, t, n):
+        """At N = 1 and 33 lanes and at T not a multiple of a block's
+        share (257 = the kernels' 256 rows a block, plus one): the
+        converge's plain version writes the reference's join into the
+        canonical rows and leaves the rest; the gather's fills every
+        replica copy with the rows as each block of the reference's mesh
+        holds them."""
+        rng = np.random.default_rng(1000 + 7 * t + n + replicas)
+        b = 2 * t + 64
+        spn = full_range(rng, (replicas, t, n, 2))
+        sel = full_range(rng, (replicas, t))
+        want_pn, want_el = jax_converge(replicas, spn, sel, replicas & (replicas - 1) == 0)
+        rows_np = rng.permutation(b)[:t]
+        rows = torch.from_numpy(rows_np)
+        pn_np, el_np = full_range(rng, (b, n, 2)), full_range(rng, (b,))
+        cpn, cel = torch.from_numpy(pn_np.copy()), torch.from_numpy(el_np.copy())
+        converge_kernel.converge(cpn, cel, rows, torch.from_numpy(spn), torch.from_numpy(sel))
+        assert np.array_equal(cpn[rows].numpy(), want_pn[0])
+        assert np.array_equal(cel[rows].numpy(), want_el[0])
+        rest = np.ones(b, dtype=bool)
+        rest[rows_np] = False
+        assert np.array_equal(cpn.numpy()[rest], pn_np[rest])
+        assert np.array_equal(cel.numpy()[rest], el_np[rest])
+        gs = torch.empty((replicas, t, n, 2), dtype=torch.int64)
+        gl = torch.empty((replicas, t), dtype=torch.int64)
+        converge_kernel.gather(torch.from_numpy(pn_np), torch.from_numpy(el_np), rows, gs, gl)
+        jrows = jnp.asarray(rows_np)
+        assert np.array_equal(gs.numpy(), np.asarray(jnp.broadcast_to(
+            jnp.take(jnp.asarray(pn_np), jrows, axis=0)[None], (replicas, t, n, 2))))
+        assert np.array_equal(gl.numpy(), np.asarray(jnp.broadcast_to(
+            jnp.take(jnp.asarray(el_np), jrows, axis=0)[None], (replicas, t))))
+
     def test_tree_join_states_is_the_signed_max(self):
         rng = np.random.default_rng(3)
         a = [full_range(rng, (B, N, 2)), full_range(rng, (B,))]
@@ -380,16 +414,24 @@ class TestMakeMesh:
 @pytest.mark.cuda
 def test_converge_kernels_match_plain_on_the_card():
     """The gather and the converge against their plain versions on a CUDA
-    state, bit for bit over the whole int64 range, at several R, T and N;
-    each call one launch (a card run; the full size is chip_smoke.py's)."""
+    state, bit for bit over the whole int64 range, at several R, T and N,
+    a block's uneven share (T = 4,097) among them; then with rows -1 and B
+    beside valid ones, for which neither kernel writes anything; each
+    call one launch (a card run; the full size is chip_smoke.py's)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels do not run on the CPU")
     rng = np.random.default_rng(5)
-    for r, t, n in ((2, 1, 1), (3, 512, 33), (4, 4096, 64), (8, 700, 64)):
+    for r, t, n, bad in ((2, 1, 1, False), (3, 512, 33, False), (4, 4096, 64, False),
+                         (8, 700, 64, False), (2, 4097, 64, False), (3, 4097, 33, True),
+                         (8, 300, 1, True)):
         b = max(2 * t, 64)
         pn = torch.from_numpy(full_range(rng, (b, n, 2))).cuda()
         el = torch.from_numpy(full_range(rng, (b,))).cuda()
-        rows = torch.from_numpy(rng.permutation(b)[:t]).cuda()
+        rows_np = rng.permutation(b)[:t]
+        if bad:
+            rows_np[rng.permutation(t)[: t // 8]] = rng.choice([-1, b], t // 8)
+        ok = torch.from_numpy((rows_np >= 0) & (rows_np < b)).cuda()
+        rows = torch.from_numpy(rows_np).cuda()
         spn = torch.from_numpy(full_range(rng, (r, t, n, 2))).cuda()
         sel = torch.from_numpy(full_range(rng, (r, t))).cuda()
         kp, ke = pn.clone(), el.clone()
@@ -397,13 +439,18 @@ def test_converge_kernels_match_plain_on_the_card():
         before = dict(_build.LAUNCHES)
         converge_kernel.converge(kp, ke, rows, spn, sel)
         assert _build.LAUNCHES["converge"] == before["converge"] + 1
-        converge_kernel.converge_plain(pp, pe, rows, spn, sel)
-        assert torch.equal(kp, pp) and torch.equal(ke, pe), (r, t, n)
-        ks, kl = torch.empty_like(spn), torch.empty_like(sel)
+        converge_kernel.converge_plain(pp, pe, rows[ok], spn[:, ok].contiguous(),
+                                       sel[:, ok].contiguous())
+        assert torch.equal(kp, pp) and torch.equal(ke, pe), (r, t, n, bad)
+        ks = torch.from_numpy(full_range(rng, (r, t, n, 2))).cuda()
+        kl = torch.from_numpy(full_range(rng, (r, t))).cuda()
+        ps, pl = ks.clone(), kl.clone()
         converge_kernel.gather(pn, el, rows, ks, kl)
-        ps, pl = torch.empty_like(spn), torch.empty_like(sel)
-        converge_kernel.gather_plain(pn, el, rows, ps, pl)
-        assert torch.equal(ks, ps) and torch.equal(kl, pl), (r, t, n)
+        assert _build.LAUNCHES["mesh_gather"] == before["mesh_gather"] + 1
+        vs, vl = ps[:, ok].contiguous(), pl[:, ok].contiguous()
+        converge_kernel.gather_plain(pn, el, rows[ok], vs, vl)
+        ps[:, ok], pl[:, ok] = vs, vl
+        assert torch.equal(ks, ps) and torch.equal(kl, pl), (r, t, n, bad)
 
 
 # -- pieces: the mesh over several devices -------------------------------------------
