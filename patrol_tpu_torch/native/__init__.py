@@ -83,7 +83,7 @@ NATIVE_EFFECTS: Dict[str, NativeEffect] = {
     "pt_udp_open": _E(False, False, False, False),
     "pt_udp_port": _E(False, False, False, False),
     "pt_udp_close": _E(False, False, False, False),
-    "pt_recv_batch": _E(True, False, False, False),   # poll(timeout_ms)
+    "pt_recv_batch": _E(True, False, False, False),   # poll(timeout_ms); kernel rx stamps
     "pt_send_fanout": _E(True, False, False, False),  # POLLOUT stall wait
     "pt_decode_batch": _E(False, False, False, True),
     "pt_encode_batch": _E(False, False, False, True),
@@ -245,7 +245,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pt_udp_close.argtypes = [ctypes.c_int]
     lib.pt_recv_batch.argtypes = [
         ctypes.c_int, _u8p, ctypes.c_int, ctypes.c_int, _i32p, _u32p,
-        _u16p, ctypes.c_int,
+        _u16p, _i64p, ctypes.c_int,
     ]
     lib.pt_recv_batch.restype = ctypes.c_int
     lib.pt_send_fanout.argtypes = [
@@ -414,13 +414,17 @@ class NativeSocket:
         self._rx_sizes = np.zeros(max_batch, np.int32)
         self._rx_ips = np.zeros(max_batch, np.uint32)
         self._rx_ports = np.zeros(max_batch, np.uint16)
+        self._rx_stamps = np.zeros(max_batch, np.int64)
 
     @property
     def port(self) -> int:
         return self.lib.pt_udp_port(self.fd)
 
     def recv_batch(self, timeout_ms: int = 100):
-        """→ (packets[n,row] uint8 view, sizes[n], src_ips[n], src_ports[n])."""
+        """→ (packets[n,row] uint8 view, sizes[n], src_ips[n], src_ports[n],
+        stamps_ns[n]): ``stamps_ns`` is each datagram's kernel receive
+        timestamp (SO_TIMESTAMP: CLOCK_REALTIME to the µs, in ns; 0 where none
+        came)."""
         return self.recv_batch_into(self._rx_buf, timeout_ms)
 
     def recv_batch_into(self, buf: np.ndarray, timeout_ms: int = 100):
@@ -429,7 +433,8 @@ class NativeSocket:
         staging buffer). Same return shape as :meth:`recv_batch`."""
         n = self.lib.pt_recv_batch(
             self.fd, buf, min(self.max_batch, len(buf)), buf.shape[1],
-            self._rx_sizes, self._rx_ips, self._rx_ports, timeout_ms,
+            self._rx_sizes, self._rx_ips, self._rx_ports, self._rx_stamps,
+            timeout_ms,
         )
         if n < 0:
             raise OSError(-n, os.strerror(-n))
@@ -438,6 +443,7 @@ class NativeSocket:
             self._rx_sizes[:n],
             self._rx_ips[:n],
             self._rx_ports[:n],
+            self._rx_stamps[:n],
         )
 
     def send_fanout(self, payloads: np.ndarray, sizes: np.ndarray,

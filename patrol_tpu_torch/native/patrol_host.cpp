@@ -7,7 +7,8 @@
 //
 //   * pt_recv_batch  — recvmmsg(): up to N datagrams per syscall, with a
 //                      poll() timeout so the loop stays cancellable (the
-//                      3s read-deadline idea of repo.go:109).
+//                      3s read-deadline idea of repo.go:109), and each
+//                      datagram's kernel receive timestamp.
 //   * pt_send_fanout — sendmmsg(): one syscall flushes a whole broadcast
 //                      matrix (payloads × peers).
 //   * pt_decode_batch / pt_encode_batch — the 25-byte-header wire codec
@@ -28,6 +29,7 @@
 #include <netinet/in.h>
 #include <poll.h>
 #include <sys/socket.h>
+#include <sys/time.h>
 #include <sys/types.h>
 #include <unistd.h>
 
@@ -106,6 +108,10 @@ int pt_udp_open(const char* ip, uint16_t port) {
   int buf = 4 << 20;  // fat socket buffers: bursty broadcast matrices
   setsockopt(fd, SOL_SOCKET, SO_RCVBUF, &buf, sizeof(buf));
   setsockopt(fd, SOL_SOCKET, SO_SNDBUF, &buf, sizeof(buf));
+  // Each datagram carries the kernel's receive time (pt_recv_batch). In
+  // microseconds: a sandboxing kernel such as gVisor delivers
+  // SO_TIMESTAMP but no SO_TIMESTAMPNS.
+  setsockopt(fd, SOL_SOCKET, SO_TIMESTAMP, &one, sizeof(one));
   sockaddr_in addr{};
   addr.sin_family = AF_INET;
   addr.sin_port = htons(port);
@@ -137,11 +143,13 @@ void pt_udp_close(int fd) { close(fd); }
 // packet bound) until ROADMAP 3b: delta-interval datagrams are up to
 // 8 KiB, and a 256-B ring row silently truncated them — the backend had
 // to advertise a v1-sized rx bound. Callers now size the ring rows to
-// the delta bound. Waits up to timeout_ms for the first datagram.
-// Returns n ≥ 0 or -errno.
+// the delta bound. stamps_ns (may be null): each datagram's kernel
+// receive timestamp in ns (SO_TIMESTAMP, set by pt_udp_open: CLOCK_REALTIME
+// to the microsecond), 0 where the kernel gave none. Waits up to timeout_ms for the first
+// datagram. Returns n ≥ 0 or -errno.
 int pt_recv_batch(int fd, uint8_t* buf, int max_packets, int row_stride,
                   int* sizes, uint32_t* src_ips, uint16_t* src_ports,
-                  int timeout_ms) {
+                  int64_t* stamps_ns, int timeout_ms) {
   if (max_packets > kMaxBatch) max_packets = kMaxBatch;
   if (row_stride < kPacketSize) return -EINVAL;
   pollfd pfd{fd, POLLIN, 0};
@@ -152,6 +160,8 @@ int pt_recv_batch(int fd, uint8_t* buf, int max_packets, int row_stride,
   mmsghdr msgs[kMaxBatch];
   iovec iovs[kMaxBatch];
   sockaddr_in addrs[kMaxBatch];
+  constexpr size_t kCtrl = CMSG_SPACE(sizeof(timeval));
+  alignas(cmsghdr) uint8_t ctrl[kMaxBatch][kCtrl];
   std::memset(msgs, 0, sizeof(mmsghdr) * max_packets);
   for (int i = 0; i < max_packets; i++) {
     iovs[i] = {buf + static_cast<size_t>(i) * row_stride,
@@ -160,6 +170,10 @@ int pt_recv_batch(int fd, uint8_t* buf, int max_packets, int row_stride,
     msgs[i].msg_hdr.msg_iovlen = 1;
     msgs[i].msg_hdr.msg_name = &addrs[i];
     msgs[i].msg_hdr.msg_namelen = sizeof(sockaddr_in);
+    if (stamps_ns != nullptr) {
+      msgs[i].msg_hdr.msg_control = ctrl[i];
+      msgs[i].msg_hdr.msg_controllen = kCtrl;
+    }
   }
   int n = recvmmsg(fd, msgs, max_packets, MSG_DONTWAIT, nullptr);
   if (n < 0) return (errno == EAGAIN || errno == EWOULDBLOCK) ? 0 : -errno;
@@ -167,6 +181,17 @@ int pt_recv_batch(int fd, uint8_t* buf, int max_packets, int row_stride,
     sizes[i] = static_cast<int>(msgs[i].msg_len);
     src_ips[i] = ntohl(addrs[i].sin_addr.s_addr);
     src_ports[i] = ntohs(addrs[i].sin_port);
+    if (stamps_ns == nullptr) continue;
+    stamps_ns[i] = 0;
+    msghdr* h = &msgs[i].msg_hdr;
+    for (cmsghdr* c = CMSG_FIRSTHDR(h); c != nullptr; c = CMSG_NXTHDR(h, c)) {
+      if (c->cmsg_level == SOL_SOCKET && c->cmsg_type == SCM_TIMESTAMP) {
+        timeval tv;
+        std::memcpy(&tv, CMSG_DATA(c), sizeof(tv));
+        stamps_ns[i] = static_cast<int64_t>(tv.tv_sec) * 1000000000LL +
+                       static_cast<int64_t>(tv.tv_usec) * 1000LL;
+      }
+    }
   }
   return n;
 }

@@ -24,7 +24,8 @@ int pt_udp_open(const char* ip, uint16_t port);
 int pt_udp_port(int fd);
 void pt_udp_close(int fd);
 int pt_recv_batch(int fd, uint8_t* buf, int max_packets, int row_stride,
-                  int* sizes, uint32_t* ips, uint16_t* ports, int timeout_ms);
+                  int* sizes, uint32_t* ips, uint16_t* ports,
+                  int64_t* stamps_ns, int timeout_ms);
 int pt_send_fanout(int fd, const uint8_t* payloads, const int* sizes, int n,
                    int row_stride, const uint32_t* peer_ips,
                    const uint16_t* peer_ports, int n_peers);
@@ -196,6 +197,7 @@ int main() {
     int sizes[BATCH];
     uint32_t ips[BATCH];
     uint16_t ports[BATCH];
+    int64_t stamps[BATCH];
     double added[BATCH], taken[BATCH];
     uint64_t elapsed[BATCH];
     uint8_t names[BATCH * PACKET];
@@ -204,7 +206,7 @@ int main() {
     uint64_t hashes[BATCH];
     int multi[BATCH];
     while (!stop.load()) {
-      int n = pt_recv_batch(rx, buf, BATCH, PACKET, sizes, ips, ports, 50);
+      int n = pt_recv_batch(rx, buf, BATCH, PACKET, sizes, ips, ports, stamps, 50);
       if (n <= 0) continue;
       pt_decode_batch(buf, sizes, n, PACKET, added, taken, elapsed, names,
                       name_lens, slots, caps, lane_a, lane_t, hashes, multi);

@@ -121,7 +121,9 @@ class _PeerDelta:
         # patrol-audit replication-lag source (net/audit.py): the oldest
         # unacked interval's age IS this peer's outstanding-repair lag.
         self.unacked: "OrderedDict[int, Tuple[int, int, tuple]]" = OrderedDict()
-        # interval seqs received from this peer, to ack back (newest kept)
+        # (seq, pickup perf_counter_ns) of the intervals received from
+        # this peer, to ack back (newest kept); the stamp times the ack's
+        # hold (histogram.DELTA_ACK_HOLD).
         self.pending_acks: deque = deque(maxlen=64)
         self.last_advert_tick = -(1 << 30)
         # perf_counter_ns of the last DATA-bearing delta interval received
@@ -369,9 +371,24 @@ class DeltaPlane:
     def flush(self) -> int:
         """One pacing tick: advertise to silent peers, retransmit expired
         intervals, pack + send the dirty set to every capable peer, drain
-        pending ack vectors. Returns data packets sent."""
-        t0 = time.perf_counter_ns()
-        sends: List[Tuple[bytes, Addr]] = []
+        pending ack vectors. Returns data packets sent. Each acknowledged
+        seq's hold, from its datagram's pickup to the send of the datagram
+        carrying its ack, goes to ``delta_ack_hold_ns``."""
+        with trace_mod.Span(trace_mod.EV_DELTA_FLUSH) as span:
+            sends, data_packets = self._flush_tick()
+            span.arg = len(sends)
+            for data, addr, picked in sends:
+                self.rep.unicast(data, addr)
+                if picked:
+                    hist.DELTA_ACK_HOLD.record_many(
+                        time.perf_counter_ns() - np.array(picked, np.int64)
+                    )
+        return data_packets
+
+    def _flush_tick(self) -> Tuple[List[Tuple[bytes, Addr, list]], int]:
+        """Build one tick's datagrams under ``_mu``: → ([(bytes, peer,
+        pickup stamps of the acks it carries)], data packets)."""
+        sends: List[Tuple[bytes, Addr, list]] = []
         data_packets = 0
         with self._mu:
             self._tick += 1
@@ -389,19 +406,12 @@ class DeltaPlane:
                     ):
                         st.last_advert_tick = tick
                         self.adverts_tx += 1
-                        sends.append((self._advert_bytes(ack=False), addr))
+                        sends.append((self._advert_bytes(ack=False), addr, ()))
                     continue
                 data_packets += self._flush_peer_locked(
                     addr, st, dirty, tick, ae, sends
                 )
-        for data, addr in sends:
-            self.rep.unicast(data, addr)
-        tr = trace_mod.TRACE
-        if tr.enabled and sends:
-            tr.record(
-                trace_mod.EV_DELTA_PACK, time.perf_counter_ns() - t0, len(sends)
-            )
-        return data_packets
+        return sends, data_packets
 
     def _timeout_locked(self, st: _PeerDelta) -> int:
         """Ticks an interval toward this peer waits for its ack. Caller
@@ -434,7 +444,7 @@ class DeltaPlane:
         dirty: Dict[Tuple[str, int], wire.DeltaEntry],
         tick: int,
         ae,
-        sends: List[Tuple[bytes, Addr]],
+        sends: List[Tuple[bytes, Addr, list]],
     ) -> int:
         """Build this peer's datagrams for one tick. Caller holds _mu."""
         send_map: Dict[Tuple[str, int], wire.DeltaEntry] = {}
@@ -479,7 +489,9 @@ class DeltaPlane:
                 tr.record(trace_mod.EV_DELTA_RETRANSMIT, 0, retransmitted)
         send_map.update(dirty)
         entries = list(send_map.values())
-        acks = [st.pending_acks.popleft() for _ in range(len(st.pending_acks))]
+        pending = [st.pending_acks.popleft() for _ in range(len(st.pending_acks))]
+        acks = [seq for seq, _ in pending]
+        picked = [t for _, t in pending]
         packets = 0
         max_size = min(self.tx_mtu, st.max_rx)
         while entries:
@@ -490,11 +502,12 @@ class DeltaPlane:
             )
             if n == 0:  # cannot happen for legal names; guard anyway
                 break
+            sends.append((data, addr, picked[: wire.DELTA_MAX_ACKS]))
             acks = acks[wire.DELTA_MAX_ACKS:]
+            picked = picked[wire.DELTA_MAX_ACKS:]
             st.next_seq += 1
             st.unacked[seq] = (tick, now_ns, tuple(entries[:n]))
             entries = entries[n:]
-            sends.append((data, addr))
             packets += 1
             self.deltas_batched += n
             profiling.COUNTERS.inc("wire_deltas_batched", n)
@@ -502,8 +515,9 @@ class DeltaPlane:
             data, _ = wire.encode_delta_packet(
                 self.node_slot, 0, acks[: wire.DELTA_MAX_ACKS], (), max_size
             )
+            sends.append((data, addr, picked[: wire.DELTA_MAX_ACKS]))
             acks = acks[wire.DELTA_MAX_ACKS:]
-            sends.append((data, addr))
+            picked = picked[wire.DELTA_MAX_ACKS:]
             self.ack_packets_tx += 1
             tr = trace_mod.TRACE
             if tr.enabled:
@@ -548,7 +562,7 @@ class DeltaPlane:
             if len(self._raw_free) < 8:
                 self._raw_free.append(plane)
 
-    def _on_packet_raw(self, eng, data: bytes, addr: Addr) -> bool:
+    def _on_packet_raw(self, eng, data: bytes, addr: Addr, picked_ns: int) -> bool:
         """P=1 raw-plane ingest: the asyncio backend's half of the
         device-resident path. Fills a pooled plane row (stale tail bytes
         are masked by the walk/kernel length bounds — verified across the
@@ -560,15 +574,16 @@ class DeltaPlane:
         n = len(data)
         plane[0, :n] = np.frombuffer(data, np.uint8)
         lengths = np.array([n], np.int32)
-        walk = ingest_ops.host_walk(plane, lengths)
+        with trace_mod.Span(trace_mod.EV_RX_WALK, arg=1):
+            walk = ingest_ops.host_walk(plane, lengths)
         self._ingest_walk(
             eng, plane, lengths, walk, [addr],
-            lambda: self._release_raw_plane(plane), t0,
+            lambda: self._release_raw_plane(plane), t0, picked_ns,
         )
         return bool(walk.ok[0])
 
     def on_raw_planes(
-        self, planes, lengths, addrs, release=None
+        self, planes, lengths, addrs, release=None, picked_ns: Optional[int] = None
     ) -> bool:
         """Batch raw-plane ingest — the native rx ring's entry: ``planes``
         is the leased ring plane (uint8[P, row], shipped to the device
@@ -576,9 +591,10 @@ class DeltaPlane:
         row's datagram size with non-dv2 rows zeroed (they fail the
         in-kernel verdict and cost only a verdict lane), ``addrs`` maps
         rows to senders for the ack bookkeeping, and ``release`` commits
-        the ring plane back once the H2D transfer is ready. Returns False
-        when the engine can't take the raw path (caller falls back);
-        ``release`` is honored either way."""
+        the ring plane back once the H2D transfer is ready; ``picked_ns``
+        is the ``perf_counter_ns`` at which the batch left the socket (now
+        when not given). Returns False when the engine can't take the raw
+        path (caller falls back); ``release`` is honored either way."""
         eng = self.raw_engine()
         if eng is None:
             if release is not None:
@@ -587,28 +603,27 @@ class DeltaPlane:
         from patrol_tpu_torch.ops import ingest as ingest_ops
 
         t0 = time.perf_counter_ns()
-        walk = ingest_ops.host_walk(planes, lengths)
-        self._ingest_walk(eng, planes, lengths, walk, addrs, release, t0)
+        with trace_mod.Span(trace_mod.EV_RX_WALK, arg=len(lengths)):
+            walk = ingest_ops.host_walk(planes, lengths)
+        self._ingest_walk(
+            eng, planes, lengths, walk, addrs, release, t0,
+            t0 if picked_ns is None else picked_ns,
+        )
         return True
 
     def _ingest_walk(
-        self, eng, planes, lengths, walk, addrs, release, t0_ns: int
+        self, eng, planes, lengths, walk, addrs, release, t0_ns: int,
+        picked_ns: int,
     ) -> None:
         """Shared tail of the raw rx paths: per-packet header/ack
         bookkeeping from the walk (the python decoder's exact counter
         semantics), then ONE engine dispatch for the whole plane batch.
         The walk rides into the engine so the directory pass never
         re-walks the bytes."""
-        dur = time.perf_counter_ns() - t0_ns
-        hist.STAGE_RX_DECODE.record(dur)
         tr = trace_mod.TRACE
-        if tr.enabled:
-            tr.record(
-                trace_mod.EV_RX_DECODE, dur, max(int(walk.count.sum()), 1)
-            )
         max_slots = self.rep.slots.max_slots
         data_live = False
-        with self._mu:
+        with trace_mod.Span(trace_mod.EV_RX_ACKS, arg=len(lengths)), self._mu:
             for i in range(len(lengths)):
                 if lengths[i] <= 0:
                     continue  # non-dv2 ring row: not delta traffic
@@ -624,7 +639,7 @@ class DeltaPlane:
                 if n_acks and tr.enabled:
                     tr.record(trace_mod.EV_DELTA_ACK, 0, n_acks)
                 if walk.seq[i]:
-                    st.pending_acks.append(int(walk.seq[i]))
+                    st.pending_acks.append((int(walk.seq[i]), picked_ns))
                 cnt = int(walk.count[i])
                 if cnt:
                     st.last_rx_data_ns = time.perf_counter_ns()
@@ -653,25 +668,24 @@ class DeltaPlane:
         elif release is not None:
             release()
 
-    def on_packet(self, data: bytes, addr: Addr) -> bool:
+    def on_packet(self, data: bytes, addr: Addr, picked_ns: Optional[int] = None) -> bool:
         """Decode + ingest one delta datagram. False ⇒ malformed (counted;
         the caller's generic rx error accounting need not double-count).
         When the engine supports device-resident ingest the datagram
         ships as a raw byte plane (ops/ingest.py) instead of through the
-        python decoder — same verdicts, same counters, one dispatch."""
+        python decoder — same verdicts, same counters, one dispatch.
+        ``picked_ns``: the ``perf_counter_ns`` of its receive (now when
+        not given)."""
+        t0 = time.perf_counter_ns()
+        picked = t0 if picked_ns is None else picked_ns
         eng = self.raw_engine()
         if eng is not None and len(data) <= wire.DELTA_PACKET_SIZE:
-            return self._on_packet_raw(eng, data, addr)
-        t0 = time.perf_counter_ns()
-        pkt = wire.decode_delta_packet(data)
+            return self._on_packet_raw(eng, data, addr, picked)
+        with trace_mod.Span(trace_mod.EV_RX_WALK, arg=1):
+            pkt = wire.decode_delta_packet(data)
         if pkt is None:
             self.rx_errors += 1
             return False
-        dur = time.perf_counter_ns() - t0
-        hist.STAGE_RX_DECODE.record(dur)
-        tr = trace_mod.TRACE
-        if tr.enabled:
-            tr.record(trace_mod.EV_RX_DECODE, dur, max(len(pkt.entries), 1))
         with self._mu:
             st = self._peer(addr)
             # A peer shipping deltas is v2-capable by demonstration; until
@@ -684,7 +698,7 @@ class DeltaPlane:
                 if tr.enabled:
                     tr.record(trace_mod.EV_DELTA_ACK, 0, len(pkt.acks))
             if pkt.seq:
-                st.pending_acks.append(pkt.seq)
+                st.pending_acks.append((pkt.seq, picked))
             if pkt.entries:
                 st.last_rx_data_ns = time.perf_counter_ns()
             self.rx_packets += 1

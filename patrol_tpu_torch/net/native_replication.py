@@ -21,6 +21,7 @@ network path rather than an asyncio event loop:
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import socket as pysocket
 import struct
@@ -218,15 +219,18 @@ class NativeReplicator:
             lease = None
             if ring is not None and self.faultnet is None:
                 lease = ring.lease()
+            t_wait0 = time.perf_counter_ns()
             try:
                 if lease is not None:
-                    packets, sizes, ips, ports = self.sock.recv_batch_into(
+                    packets, sizes, ips, ports, stamps = self.sock.recv_batch_into(
                         ring.plane(lease), timeout_ms=100
                     )
                 else:
-                    packets, sizes, ips, ports = self.sock.recv_batch(
+                    packets, sizes, ips, ports, stamps = self.sock.recv_batch(
                         timeout_ms=100
                     )
+                picked_ns = time.perf_counter_ns()
+                picked_wall_ns = time.time_ns()  # patrol-lint: clock-seam (kernel rx stamps' clock)
             except OSError as exc:
                 if lease is not None:
                     ring.commit(lease)
@@ -235,16 +239,29 @@ class NativeReplicator:
                 self.log.warning("recv failed: %s", exc)
                 continue
             committed = lease is None
+            n = len(packets)
             try:
-                committed = self._rx_batch(
-                    packets, sizes, ips, ports, ring, lease
-                )
+                if n:
+                    hist.RX_WAIT.record(picked_ns - t_wait0)
+                # The socket queue: each datagram's kernel receive stamp
+                # (0 where the kernel gave none) to its pickup.
+                got = stamps[stamps > 0]
+                if got.size:
+                    hist.DELTA_RX_QUEUE.record_many(picked_wall_ns - got)
+                # An empty poll is no batch: no span.
+                with trace_mod.Span(
+                    trace_mod.EV_RX_BATCH, hist.RX_BATCH, n, t0_ns=picked_ns
+                ) if n else contextlib.nullcontext():
+                    committed = self._rx_batch(
+                        packets, sizes, ips, ports, ring, lease, picked_ns
+                    )
             finally:
                 if not committed and lease is not None:
                     ring.commit(lease)
 
-    def _rx_batch(self, packets, sizes, ips, ports, ring, lease) -> bool:
-        """One recv batch. Returns True when the leased ring plane's
+    def _rx_batch(self, packets, sizes, ips, ports, ring, lease, picked_ns) -> bool:
+        """One recv batch, picked up from the socket at ``picked_ns``
+        (``perf_counter_ns``). Returns True when the leased ring plane's
         commit is already owned elsewhere (handed to the engine's
         completion pipeline, or no lease was taken)."""
         committed = lease is None
@@ -270,16 +287,14 @@ class NativeReplicator:
         # buffers, resolve buckets through the directory's hash table —
         # a Python string is materialized only for incast requests and
         # first-seen bucket names (engine.ingest_deltas_batch_raw).
-        t_batch0 = time.perf_counter_ns()
-        self._dbuf, _ = native.decode_batch_raw(packets, sizes, self._dbuf)
-        dbuf = self._dbuf
-        dur = time.perf_counter_ns() - t_batch0
         # One observation per rx BATCH (the C++ decode is the unit of
         # work here, not the packet); arg carries the batch size.
-        hist.STAGE_RX_DECODE.record(dur)
-        tr = trace_mod.TRACE
-        if tr.enabled:
-            tr.record(trace_mod.EV_RX_DECODE, dur, n)
+        with trace_mod.Span(
+            trace_mod.EV_RX_DECODE, hist.STAGE_RX_DECODE, n
+        ) as decode:
+            self._dbuf, _ = native.decode_batch_raw(packets, sizes, self._dbuf)
+        t_batch0 = decode.t0_ns
+        dbuf = self._dbuf
         valid = dbuf.name_lens[:n] >= 0
         self.rx_errors += int(n - valid.sum())
         live = valid.copy()
@@ -387,7 +402,7 @@ class NativeReplicator:
                         # v2 delta interval: payload rides after the
                         # reserved name in the raw datagram bytes.
                         self.delta.on_packet(
-                            bytes(packets[i][: sizes[i]]), addr_i
+                            bytes(packets[i][: sizes[i]]), addr_i, picked_ns
                         )
                     elif name == wire.METRICS_CHANNEL_NAME:
                         # patrol-fleet metrics gossip: same envelope.
@@ -436,6 +451,7 @@ class NativeReplicator:
                 handed = self.delta.on_raw_planes(
                     ring.plane(lease)[:n], lengths, addrs_l,
                     release=(lambda idx=lease: ring.commit(idx)),
+                    picked_ns=picked_ns,
                 )
                 # The release contract is honored either way (inline on
                 # refusal) — never double-commit from the loop.
@@ -446,7 +462,7 @@ class NativeReplicator:
                     # may recycle freely.
                     for i in np.flatnonzero(sel):
                         self.delta.on_packet(
-                            bytes(packets[i][: sizes[i]]), addrs_l[i]
+                            bytes(packets[i][: sizes[i]]), addrs_l[i], picked_ns
                         )
         self._health_tick()
         return committed

@@ -906,7 +906,7 @@ class Replicator(asyncio.DatagramProtocol):
             if state.name == wire.DELTA_CHANNEL_NAME and self.delta is not None:
                 # v2 delta-interval datagram: the payload rides AFTER the
                 # reserved name, invisible to the v1 decode above.
-                self.delta.on_packet(data, addr)
+                self.delta.on_packet(data, addr, t0)
                 return
             if state.name == wire.METRICS_CHANNEL_NAME and self.fleet is not None:
                 # patrol-fleet metrics gossip: same envelope trick.

@@ -662,13 +662,8 @@ def _pad_size(n: int, lo: int = 8, hi: int = MAX_MERGE_ROWS) -> int:
 
 def _obs_stage(h, t0_ns: int, ev: int, arg: int = 0) -> int:
     """Close a stage opened at ``t0_ns`` into its latency histogram and
-    (when enabled) the flight recorder."""
-    dur = time.perf_counter_ns() - t0_ns
-    h.record(dur)
-    tr = trace_mod.TRACE
-    if tr.enabled:
-        tr.record(ev, dur, arg)
-    return dur
+    (when enabled) the flight recorder (``trace.end_stage``)."""
+    return trace_mod.end_stage(ev, t0_ns, h, arg)
 
 
 def fold_core(deltas: DeltaArrays):
@@ -2583,6 +2578,46 @@ class DeviceEngine:
             accepted += n
         return accepted
 
+    def _raw_directory_pass(
+        self, planes, walk, pi, ei, off_f, len_f, now, rows_pe, hosted_pe
+    ) -> Optional[np.ndarray]:
+        """The directory pass of :meth:`ingest_raw_planes`, raw form:
+        vectorized hashed lookup (pins hits), misses bound once per bucket
+        lifetime. Writes each bound entry's row into ``rows_pe`` and its
+        residency into ``hosted_pe``. → the pinned rows, or None."""
+        hashes_f = walk.name_hash[pi, ei]
+        name_buf = ingest_ops.gather_name_rows(planes, pi, off_f, len_f)
+        rows_f = self.directory.lookup_hashed_pinned(
+            hashes_f, name_buf, len_f, now
+        )
+        miss = np.flatnonzero(rows_f < 0)
+        for lo in range(0, miss.size, MAX_MERGE_ROWS):
+            mi = miss[lo : lo + MAX_MERGE_ROWS]
+            got = self._bind_wire_misses_pinned(
+                name_buf, len_f, hashes_f, mi, now
+            )
+            if got is not None:
+                rows_f[mi] = got
+        bound = rows_f >= 0
+        if not bound.any():
+            return None
+        b_rows = rows_f[bound].astype(np.int64)
+        # patrol-audit staleness stamp (remote absorb; racy by design,
+        # sampler-only reader).
+        self.directory.last_remote_ns[b_rows] = now
+        caps_b = np.maximum(walk.cap[pi, ei][bound], 0)
+        pos = caps_b > 0
+        if pos.any():
+            self.directory.init_cap_base_many(b_rows[pos], caps_b[pos])
+        rows_pe[pi[bound], ei[bound]] = b_rows
+        if HOST_FASTPATH and self._hosted:
+            # Residency is read under the lock, after the pins: an idle
+            # demotion either flipped these rows first (they read hosted)
+            # or sees the pins and skips them.
+            with self._host_mu:
+                hosted_pe[pi[bound], ei[bound]] = self._hosted_flag[b_rows]
+        return b_rows
+
     def ingest_raw_planes(
         self,
         planes: np.ndarray,
@@ -2655,107 +2690,80 @@ class DeviceEngine:
                 pi, ei = pi[keep], ei[keep]
                 off_f, len_f = off_f[keep], len_f[keep]
             if pi.size:
-                # The directory pass, raw form: vectorized hashed lookup
-                # (pins hits), misses bound once per bucket lifetime.
-                hashes_f = walk.name_hash[pi, ei]
-                name_buf = ingest_ops.gather_name_rows(planes, pi, off_f, len_f)
-                rows_f = self.directory.lookup_hashed_pinned(
-                    hashes_f, name_buf, len_f, now
-                )
-                miss = np.flatnonzero(rows_f < 0)
-                for lo in range(0, miss.size, MAX_MERGE_ROWS):
-                    mi = miss[lo : lo + MAX_MERGE_ROWS]
-                    got = self._bind_wire_misses_pinned(
-                        name_buf, len_f, hashes_f, mi, now
+                with trace_mod.Span(trace_mod.EV_INGEST_DIRECTORY, arg=int(pi.size)):
+                    pinned = self._raw_directory_pass(
+                        planes, walk, pi, ei, off_f, len_f, now, rows_pe, hosted_pe
                     )
-                    if got is not None:
-                        rows_f[mi] = got
-                bound = rows_f >= 0
-                if bound.any():
-                    b_rows = rows_f[bound].astype(np.int64)
-                    pinned = b_rows
-                    # patrol-audit staleness stamp (remote absorb; racy by
-                    # design, sampler-only reader).
-                    self.directory.last_remote_ns[b_rows] = now
-                    caps_b = np.maximum(walk.cap[pi, ei][bound], 0)
-                    pos = caps_b > 0
-                    if pos.any():
-                        self.directory.init_cap_base_many(b_rows[pos], caps_b[pos])
-                    rows_pe[pi[bound], ei[bound]] = b_rows
-                    if HOST_FASTPATH and self._hosted:
-                        # Residency is read under the lock, after the pins:
-                        # an idle demotion either flipped these rows first
-                        # (they read hosted) or sees the pins and skips them.
-                        with self._host_mu:
-                            hosted_pe[pi[bound], ei[bound]] = self._hosted_flag[b_rows]
             any_hosted = bool(hosted_pe.any())
 
             # ONE launch for the whole batch. entry_off is the walk's
             # framing proposal the kernel RE-VALIDATES; rows and hosted are
             # the host plan.
             entry_off = np.maximum(walk.name_off - 1, 0)
-            t0 = time.perf_counter_ns()
-            out_dev = None
-            if self._cuda:
-                src = None
-                if planes.flags.c_contiguous and planes.flags.writeable:
-                    src = torch.from_numpy(planes)
-                if src is not None and src.is_pinned():
-                    # Straight from the caller's page-locked plane.
-                    planes_dev = src.to(self.device, non_blocking=True)
-                    copied = self._device_event()
-                    profiling.COUNTERS.inc("ingest_raw_pinned_ships")
+            with trace_mod.Span(
+                trace_mod.EV_INGEST_SHIP, hist.STAGE_H2D, int(pi.size)
+            ):
+                out_dev = None
+                if self._cuda:
+                    src = None
+                    if planes.flags.c_contiguous and planes.flags.writeable:
+                        src = torch.from_numpy(planes)
+                    if src is not None and src.is_pinned():
+                        # Straight from the caller's page-locked plane.
+                        planes_dev = src.to(self.device, non_blocking=True)
+                        copied = self._device_event()
+                        profiling.COUNTERS.inc("ingest_raw_pinned_ships")
+                    else:
+                        buf = self._staging.lease((P, row_w), torch.uint8)
+                        buf.numpy()[...] = planes
+                        planes_dev = buf.to(self.device, non_blocking=True)
+                        copied = self._device_event()
+                        self._staging.release(buf, copied)
+                    plan = self._staging.lease((2 * P * E + P,), torch.int32)
+                    flat = plan.numpy()
+                    flat[: P * E] = entry_off.reshape(-1)
+                    flat[P * E : 2 * P * E] = rows_pe.reshape(-1)
+                    flat[2 * P * E :] = lengths
+                    plan_dev = self._ship(plan)
+                    eoff_dev = plan_dev[: P * E].view(P, E)
+                    rows_dev = plan_dev[P * E : 2 * P * E].view(P, E)
+                    lengths_dev = plan_dev[2 * P * E :]
+                    hosted_dev = None
+                    if any_hosted:
+                        hb = self._staging.lease((P, E), torch.uint8)
+                        hb.numpy()[...] = hosted_pe
+                        hosted_dev = self._ship(hb).view(torch.bool)
+                        out_dev = torch.empty(
+                            ingest_kernel.output_bytes(P, E), dtype=torch.uint8,
+                            device=self.device,
+                        )
                 else:
-                    buf = self._staging.lease((P, row_w), torch.uint8)
-                    buf.numpy()[...] = planes
-                    planes_dev = buf.to(self.device, non_blocking=True)
-                    copied = self._device_event()
-                    self._staging.release(buf, copied)
-                plan = self._staging.lease((2 * P * E + P,), torch.int32)
-                flat = plan.numpy()
-                flat[: P * E] = entry_off.reshape(-1)
-                flat[P * E : 2 * P * E] = rows_pe.reshape(-1)
-                flat[2 * P * E :] = lengths
-                plan_dev = self._ship(plan)
-                eoff_dev = plan_dev[: P * E].view(P, E)
-                rows_dev = plan_dev[P * E : 2 * P * E].view(P, E)
-                lengths_dev = plan_dev[2 * P * E :]
-                hosted_dev = None
-                if any_hosted:
-                    hb = self._staging.lease((P, E), torch.uint8)
-                    hb.numpy()[...] = hosted_pe
-                    hosted_dev = self._ship(hb).view(torch.bool)
-                    out_dev = torch.empty(
-                        ingest_kernel.output_bytes(P, E), dtype=torch.uint8,
-                        device=self.device,
+                    copied = None
+                    planes_dev = torch.from_numpy(np.ascontiguousarray(planes))
+                    eoff_dev = torch.from_numpy(entry_off.astype(np.int32))
+                    rows_dev = torch.from_numpy(rows_pe)
+                    lengths_dev = torch.from_numpy(lengths)
+                    hosted_dev = torch.from_numpy(hosted_pe) if any_hosted else None
+            with trace_mod.Span(
+                trace_mod.EV_INGEST_LAUNCH, hist.STAGE_DISPATCH, int(pi.size)
+            ) as launch:
+                with self._state_mu:
+                    if hosted_dev is None:
+                        hosted_dev = self._no_hosted.get(E)
+                        if hosted_dev is None or hosted_dev.shape[0] < P:
+                            hosted_dev = torch.zeros((P, E), dtype=torch.bool, device=self.device)
+                            self._no_hosted[E] = hosted_dev
+                        hosted_dev = hosted_dev[:P]
+                    # The kernel's wrapper as is: the host plan holds
+                    # directory rows and FOLD_PAD_ROW, never a negative row
+                    # for decode_fold_raw to wrap.
+                    outs = ingest_kernel.decode_fold(
+                        self.state.pn, self.state.elapsed, planes_dev, lengths_dev,
+                        eoff_dev, rows_dev, hosted_dev, out=out_dev,
                     )
-            else:
-                copied = None
-                planes_dev = torch.from_numpy(np.ascontiguousarray(planes))
-                eoff_dev = torch.from_numpy(entry_off.astype(np.int32))
-                rows_dev = torch.from_numpy(rows_pe)
-                lengths_dev = torch.from_numpy(lengths)
-                hosted_dev = torch.from_numpy(hosted_pe) if any_hosted else None
-            _obs_stage(hist.STAGE_H2D, t0, trace_mod.EV_H2D_PUT, int(pi.size))
-            t0 = time.perf_counter_ns()
-            with self._state_mu:
-                if hosted_dev is None:
-                    hosted_dev = self._no_hosted.get(E)
-                    if hosted_dev is None or hosted_dev.shape[0] < P:
-                        hosted_dev = torch.zeros((P, E), dtype=torch.bool, device=self.device)
-                        self._no_hosted[E] = hosted_dev
-                    hosted_dev = hosted_dev[:P]
-                # The kernel's wrapper as is: the host plan holds
-                # directory rows and FOLD_PAD_ROW, never a negative row
-                # for decode_fold_raw to wrap.
-                outs = ingest_kernel.decode_fold(
-                    self.state.pn, self.state.elapsed, planes_dev, lengths_dev,
-                    eoff_dev, rows_dev, hosted_dev, out=out_dev,
-                )
-            _obs_stage(
-                hist.STAGE_DISPATCH, t0, trace_mod.EV_COMMIT_DISPATCH, int(pi.size)
+            self._observe_device_commit(
+                "decode_fold_raw", launch.t0_ns, max(int(pi.size), 1)
             )
-            self._observe_device_commit("decode_fold_raw", t0, max(int(pi.size), 1))
             self._ticks += 1
             hist.RAW_PLANES.record(P)
             profiling.COUNTERS.inc("ingest_raw_device_dispatches")
@@ -3332,12 +3340,11 @@ class DeviceEngine:
                 self._completing = True
                 self._pcond.notify_all()
             try:
-                t0 = time.perf_counter_ns()
-                thunk()
-                _obs_stage(
-                    hist.STAGE_COMPLETION, t0, trace_mod.EV_COMMIT_COMPLETE,
+                with trace_mod.Span(
+                    trace_mod.EV_COMMIT_COMPLETE, hist.STAGE_COMPLETION,
                     len(tickets),
-                )
+                ):
+                    thunk()
             except Exception:  # pragma: no cover - completer must not die
                 log.exception("tick completion failed")
                 try:

@@ -4,9 +4,13 @@ and the Prometheus text exposition behind ``/metrics``.
 Aggregate counters (utils/profiling.py ``COUNTERS``) say *how much*; the
 ingest-wall question (ROADMAP item 1) is *where time goes* — so the
 pipeline's stages each feed a latency histogram: staging wait, H2D put,
-kernel dispatch, completion, replication rx decode, and the tick fold,
-plus take service time end-to-end. ``bench.py --smoke`` publishes their
-per-stage breakdown as ``ingest_stage_breakdown``.
+kernel dispatch, completion, replication rx decode, the rx batch, and the
+tick fold, plus take service time end-to-end, and the two queue times
+only the program sees: a datagram's wait in the socket before the rx
+thread picks it up, and an interval's ack held for the flush tick. Each
+histogram's exact ``_sum`` and ``_count`` are on ``/metrics`` and
+``/debug/vars``; the benchmark's per-layer readers take their means from
+them (the log2 buckets are too coarse for quantiles).
 
 **The lattice.** Buckets are powers of two (bucket *b* holds values with
 ``bit_length == b``, i.e. ``[2^(b-1), 2^b)``; bucket 0 holds 0), and each
@@ -15,23 +19,24 @@ value = lane sum, join = per-lane max. That is exactly the limiter
 state's merge discipline (PN lanes under max/sum), so per-node histograms
 combine associatively/commutatively/idempotently — node histograms can be
 shipped and joined by an aggregator with the same convergence guarantees
-as the bucket state itself (pinned by ``tests/test_trace.py``'s lattice
-law tests). A process records into its own lane only; the in-process
-fast path is one lock + two integer adds (the CounterRegistry's own
-cost argument: call sites are per-take/per-tick, kHz-class).
+as the bucket state itself. A process records into its own lane only;
+the in-process fast path is one lock + two integer adds (the
+CounterRegistry's own cost argument: call sites are per-take/per-tick,
+kHz-class).
 
 **Exposition.** :func:`render_exposition` produces real Prometheus text
 format (``# TYPE`` lines, cumulative ``_bucket{le=...}`` /``_sum``/
 ``_count`` series) for ``/metrics`` on both HTTP fronts, replacing the
-gauge-only dump; :func:`parse_exposition` is the minimal strict parser
-the roundtrip test and the CI smoke gate validate against.
+gauge-only dump.
 """
 
 from __future__ import annotations
 
 import re
 import threading
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 # 64 log2 buckets cover the full non-negative int64 ns range.
 NBUCKETS = 64
@@ -74,6 +79,22 @@ class LatticeHistogram:
         with self._mu:
             self._counts[self.node_slot][b] += 1
             self._sums[self.node_slot] += v
+
+    def record_many(self, values: np.ndarray) -> None:
+        """Record every value of an integer array under one lock (negative
+        values count as 0)."""
+        v = np.maximum(np.asarray(values, np.int64), 0)
+        if not v.size:
+            return
+        # bit_length via the float exponent: exact below 2**53 ns (104 days).
+        b = np.minimum(np.frexp(v.astype(np.float64))[1], NBUCKETS - 1)
+        per = np.bincount(b, minlength=NBUCKETS)
+        total = int(v.sum())
+        with self._mu:
+            lane = self._counts[self.node_slot]
+            for i in np.flatnonzero(per).tolist():
+                lane[i] += int(per[i])
+            self._sums[self.node_slot] += total
 
     # -- lattice -------------------------------------------------------------
 
@@ -226,6 +247,21 @@ STAGE_RX_DECODE = HISTOGRAMS.get("ingest_rx_decode_ns")
 STAGE_FOLD = HISTOGRAMS.get("ingest_fold_ns")
 TAKE_SERVICE = HISTOGRAMS.get("take_service_ns")
 RX_APPLY = HISTOGRAMS.get("replication_rx_apply_ns")
+# One rx batch of the native backend, from the recv's return to the end of
+# its handling (net/native_replication.py); its sum over a window is the
+# rx thread's busy time.
+RX_BATCH = HISTOGRAMS.get("rx_batch_ns")
+# Per such batch, the rx thread's wait in recv for its first datagram (a
+# poll that times out empty is no batch): with rx_batch_ns, the rx
+# thread's time while traffic arrives, split into work and wait.
+RX_WAIT = HISTOGRAMS.get("rx_wait_ns")
+# Per datagram, the native rx thread's pickup less the kernel's receive
+# timestamp (SO_TIMESTAMP; both CLOCK_REALTIME): the socket queue.
+DELTA_RX_QUEUE = HISTOGRAMS.get("delta_rx_queue_ns")
+# Per acknowledged interval seq, from the pickup of the datagram that
+# carried it to the flush handing the ack's datagram to the socket
+# (net/delta.py): the node's own share of an ack's latency.
+DELTA_ACK_HOLD = HISTOGRAMS.get("delta_ack_hold_ns")
 # Datagram planes per raw decode+fold launch (runtime/engine.py
 # ingest_raw_planes): 1 on the asyncio backend, up to the rx ring's
 # batch (512) on the native one.
@@ -251,7 +287,7 @@ GC_SWEEP = HISTOGRAMS.get("gc_sweep_ns")
 AUDIT_PEER_LAG = HISTOGRAMS.get("audit_peer_lag_ns")
 AUDIT_STALENESS = HISTOGRAMS.get("audit_bucket_staleness_ns")
 
-# The bench's per-stage attribution set (benchmarks/PROBES.md).
+# The per-stage attribution set the SLO sentinel (utils/slo.py) watches.
 INGEST_STAGES = (
     "ingest_staging_wait_ns",
     "ingest_h2d_ns",
@@ -284,31 +320,6 @@ def kernel_histogram(kernel: str) -> LatticeHistogram:
                 h = HISTOGRAMS.get(f"device_kernel_{kernel}_ns")
                 _kernel_hists[kernel] = h
     return h
-
-
-def stage_breakdown(registry: HistogramRegistry = HISTOGRAMS) -> Dict[str, dict]:
-    """The ``ingest_stage_breakdown`` bench section: every ingest stage's
-    count/p50/p99 from the live histograms, plus the device-side commit/
-    take columns (``device_*``, runtime/engine.py's completion-pipeline
-    block_until_ready deltas)."""
-    out = {}
-    for name in INGEST_STAGES + DEVICE_STAGES:
-        h = registry.get(name)
-        out[name] = {
-            "count": h.count,
-            "p50_ns": h.quantile(0.50),
-            "p99_ns": h.quantile(0.99),
-        }
-    return out
-
-
-def kernel_breakdown(registry: HistogramRegistry = HISTOGRAMS) -> Dict[str, dict]:
-    """Per-kernel device-duration summaries (``device_kernel_*_ns``)."""
-    return {
-        name: h.summary()
-        for name, h in registry.items()
-        if name.startswith("device_kernel_")
-    }
 
 
 # -- node identity (patrol-fleet lane attribution) ---------------------------
@@ -380,110 +391,23 @@ def render_exposition(
     return "\n".join(lines) + "\n"
 
 
-_SAMPLE_RE = re.compile(
-    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"  # metric name
-    r"(?:\{([^}]*)\})?"  # optional labels
-    r" ([0-9eE.+-]+|\+Inf|-Inf|NaN)$"  # value
-)
-_LABEL_RE = re.compile(r'^([a-zA-Z_][a-zA-Z0-9_]*)="([^"]*)"$')
-_TYPE_RE = re.compile(r"^# TYPE ([a-zA-Z_:][a-zA-Z0-9_:]*) (\w+)$")
-
-
-def parse_exposition(text: str) -> dict:
-    """Minimal strict exposition-format parser — the roundtrip fixture
-    for the /metrics exporter (tests + the CI smoke gate). Returns
-    ``{"types": {name: type}, "samples": {(name, label_items): value}}``
-    and raises ``ValueError`` on any malformed line, non-cumulative
-    histogram buckets, or a histogram whose ``_count`` disagrees with its
-    ``+Inf`` bucket."""
-    types: Dict[str, str] = {}
-    samples: Dict[tuple, float] = {}
-    for lineno, line in enumerate(text.splitlines(), start=1):
-        if not line.strip():
-            continue
-        if line.startswith("#"):
-            m = _TYPE_RE.match(line)
-            if m:
-                types[m.group(1)] = m.group(2)
-            elif not line.startswith("# HELP"):
-                raise ValueError(f"line {lineno}: unrecognized comment {line!r}")
-            continue
-        m = _SAMPLE_RE.match(line)
-        if not m:
-            raise ValueError(f"line {lineno}: malformed sample {line!r}")
-        name, raw_labels, raw_val = m.groups()
-        labels: List[Tuple[str, str]] = []
-        if raw_labels:
-            for part in raw_labels.rstrip(",").split(","):
-                lm = _LABEL_RE.match(part.strip())
-                if not lm:
-                    raise ValueError(f"line {lineno}: malformed label {part!r}")
-                labels.append((lm.group(1), lm.group(2)))
-        val = float("inf") if raw_val == "+Inf" else float(raw_val)
-        samples[(name, tuple(labels))] = val
-    _validate_histograms(types, samples)
-    return {"types": types, "samples": samples}
-
-
-def _validate_histograms(types: Dict[str, str], samples: Dict[tuple, float]) -> None:
-    """Validate every histogram series-group. Buckets are grouped by
-    their non-``le`` label set (the fleet exposition labels each node's
-    lane with ``node="<slot>"``); each group must be cumulative with a
-    matching ``_count``/``_sum`` carrying the SAME label set — the
-    unlabeled single-group case is exactly the old behavior."""
-    for name, typ in types.items():
-        if typ != "histogram":
-            continue
-        groups: Dict[tuple, dict] = {}
-        for (sname, labels), val in samples.items():
-            if sname == f"{name}_bucket":
-                rest = tuple(l for l in labels if l[0] != "le")
-                le = dict(labels).get("le")
-                if le is None:
-                    raise ValueError(f"{name}: bucket without le label")
-                g = groups.setdefault(rest, {"buckets": [], "inf": None})
-                if le == "+Inf":
-                    g["inf"] = val
-                else:
-                    g["buckets"].append((float(le), val))
-        if not groups:
-            raise ValueError(f"{name}: histogram without +Inf bucket")
-        for rest, g in groups.items():
-            tag = f"{name}{dict(rest) if rest else ''}"
-            if g["inf"] is None:
-                raise ValueError(f"{tag}: histogram without +Inf bucket")
-            g["buckets"].sort()
-            prev = 0.0
-            for le, val in g["buckets"]:
-                if val < prev:
-                    raise ValueError(f"{tag}: non-cumulative bucket at le={le}")
-                prev = val
-            if g["buckets"] and g["inf"] < g["buckets"][-1][1]:
-                raise ValueError(f"{tag}: +Inf below last bucket")
-            count = samples.get((f"{name}_count", rest))
-            if count is None or count != g["inf"]:
-                raise ValueError(f"{tag}: _count missing or != +Inf bucket")
-            if (f"{name}_sum", rest) not in samples:
-                raise ValueError(f"{tag}: _sum missing")
-
-
 # -- fleet exposition (GET /cluster/metrics) ---------------------------------
 
 _LABEL_SAFE = re.compile(r"[^0-9A-Za-z_.:\-]")
 
 
 def _label_value(raw: str) -> str:
-    """Sanitized label value: the strict parser's label grammar has no
-    escape sequences, so identity labels are reduced to a safe subset."""
+    """Sanitized label value: the exposition's label grammar is read
+    without escape sequences, so identity labels are reduced to a safe
+    subset."""
     return _LABEL_SAFE.sub("_", raw)[:64]
 
 
 def render_fleet_exposition(store) -> str:
     """Prometheus text exposition of a :class:`patrol_tpu_torch.net.fleet.
     FleetStore`: every gossiped counter lane as a ``node``-labeled gauge
-    and every histogram lane as a ``node``-labeled cumulative histogram —
-    strictly parseable by :func:`parse_exposition` (per-label-set
-    validation). Only non-empty lanes are emitted."""
+    and every histogram lane as a ``node``-labeled cumulative histogram.
+    Only non-empty lanes are emitted."""
     lines: List[str] = []
     snap = store.lattice_snapshot()
     node_names = snap["node_names"]

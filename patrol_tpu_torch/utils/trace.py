@@ -1,30 +1,44 @@
 """patrol-scope flight recorder: per-thread ring buffers of ns-stamped
-typed events, plus the cross-node take-span collector.
+typed events, the span that feeds them, and the cross-node take-span
+collector.
 
 The reference's whole debug story is the pprof route set (api.go:29-39):
-aggregate profiles, no *timeline*. The ingest wall (ROADMAP item 1) is
-exactly the question aggregates cannot answer — where a delta spends its
-time between the wire and the donated dispatch — so this module records
-the pipeline's typed events (tick, staging lease/recycle, H2D put,
-dispatch, completion, rx decode, fold, broadcast tx, anti-entropy
-phases) into fixed-size per-thread rings:
+aggregate profiles, no *timeline*. Where a delta spends its time between
+the wire and the device is exactly the question aggregates cannot
+answer, so this module records the pipeline's typed events (tick,
+staging lease/recycle, H2D put, dispatch, completion, the rx batch and
+its stages, fold, broadcast tx, the delta flush, anti-entropy phases)
+into fixed-size per-thread rings:
 
+* **One span primitive.** :class:`Span` times a stage with
+  ``perf_counter_ns``, records the stage's histogram where it has one,
+  and writes the ring event with its *start* stamp when
+  ``TRACE.enabled``. While a ``torch.profiler`` capture runs (its own
+  flag, ``torch.autograd.profiler._is_profiler_enabled``), it also opens
+  ``torch._C._profiler._RecordFunctionFast(<event name>)``, so the
+  capture (``/debug/cuda/trace``) holds the stage as a ``cpu_op`` on the
+  thread that ran it, on the profiler's own clock, around the torch ops
+  and launches it contains. :func:`end_stage` is the closing half alone,
+  for a stage whose start was stamped before it was known to be one
+  (no profiler span).
 * **Lock-free on the hot path.** Each ring has exactly one writer (its
   owning thread); recording is a handful of list stores behind a single
-  ``if TRACE.enabled:`` branch at the call site — the disabled cost is
-  one attribute load + branch, pinned by ``bench.py --smoke``'s
-  ``trace_off_branch_ns`` micro-test and ``tests/test_trace.py``.
+  ``if TRACE.enabled:`` branch. Off, a span costs its clock reads, its
+  histogram and one attribute load + branch.
 * **Bounded by construction.** ``PATROL_TRACE_RING`` events per thread
   (default 4096), oldest overwritten; a wedged consumer can never make
   the recorder grow.
 * **Dumpable on demand** as Chrome-trace/Perfetto JSON via
-  ``/debug/trace/ring`` (open in ``chrome://tracing`` or ui.perfetto.dev)
-  and **auto-snapshotted on anomalies** — take stalls
-  (``TakeTicket.wait`` timeout) and anti-entropy convergence-budget
-  breaches call :func:`anomaly`, which freezes the rings into a bounded
-  snapshot list served by ``/debug/trace/ring?snapshot=N``. Snapshots are
-  damped to one per reason per second so a stall storm cannot turn the
-  recorder into the bottleneck it is observing.
+  ``/debug/trace/ring`` (open in ``chrome://tracing`` or ui.perfetto.dev):
+  each event starts where its stage began, and the dump's ``ts`` is on
+  the wall clock (CLOCK_REALTIME, µs), the clock of the profiler's
+  capture (its ``ts`` plus ``baseTimeNanoseconds``). Rings are
+  **auto-snapshotted on anomalies**: take stalls (``TakeTicket.wait``
+  timeout) and anti-entropy convergence-budget breaches call
+  :func:`anomaly`, which freezes the rings into a bounded snapshot list
+  served by ``/debug/trace/ring?snapshot=N``. Snapshots are damped to one
+  per reason per second so a stall storm cannot turn the recorder into
+  the bottleneck it is observing.
 
 Cross-node take tracing (the span collector): a sampled take (1 in
 ``PATROL_TRACE_SAMPLE``; 0 disables) gets a process-unique trace id that
@@ -45,6 +59,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -65,13 +80,21 @@ EV_BROADCAST_TX = 9  # replication broadcast fan-out (arg = datagrams)
 EV_AE_PHASE = 10  # anti-entropy job (arg = phase code, see AE_PHASES)
 EV_TAKE = 11  # one served take (sampled)
 EV_ANOMALY = 12  # anomaly marker (snapshot trigger)
-EV_DELTA_PACK = 13  # delta-plane flush: intervals packed (arg = datagrams)
 EV_DELTA_ACK = 14  # delta ack vector sent/processed (arg = acks)
 EV_DELTA_RETRANSMIT = 15  # expired intervals re-shipped (arg = intervals)
 EV_DEVICE_READY = 16  # device dispatch→ready observed (arg = work rows)
 EV_AUDIT_TICK = 17  # patrol-audit flush tick (arg = datagrams shipped)
 EV_AUDIT_COMPARE = 18  # read-only divergence compare (arg = divergent buckets)
 EV_TAKE_COALESCE = 19  # hot-key take-n rows in a tick (arg = tickets folded)
+# The delta receive and ack path (13, the flush's old after-the-fact
+# record, is retired: delta.flush spans the whole tick).
+EV_RX_BATCH = 20  # one recv batch, pickup to the end of its handling (arg = datagrams)
+EV_RX_WALK = 21  # the dv2 payloads' framing walk (arg = datagrams)
+EV_RX_ACKS = 22  # the per-row ack bookkeeping under DeltaPlane._mu (arg = rows)
+EV_INGEST_DIRECTORY = 23  # raw ingest's hashed lookup + miss binding (arg = entries)
+EV_INGEST_SHIP = 24  # raw ingest's planes + plan copied to the device (arg = entries)
+EV_INGEST_LAUNCH = 25  # raw ingest's decode_fold launch call (arg = entries)
+EV_DELTA_FLUSH = 26  # one delta flush tick (arg = datagrams sent)
 
 EVENT_NAMES = {
     EV_TICK: "engine.tick",
@@ -86,13 +109,19 @@ EVENT_NAMES = {
     EV_AE_PHASE: "ae.phase",
     EV_TAKE: "take",
     EV_ANOMALY: "anomaly",
-    EV_DELTA_PACK: "delta.pack",
     EV_DELTA_ACK: "delta.ack",
     EV_DELTA_RETRANSMIT: "delta.retransmit",
     EV_DEVICE_READY: "device.ready",
     EV_AUDIT_TICK: "audit.tick",
     EV_AUDIT_COMPARE: "audit.compare",
     EV_TAKE_COALESCE: "take.coalesce",
+    EV_RX_BATCH: "rx.batch",
+    EV_RX_WALK: "rx.walk",
+    EV_RX_ACKS: "rx.acks",
+    EV_INGEST_DIRECTORY: "ingest.directory",
+    EV_INGEST_SHIP: "ingest.ship",
+    EV_INGEST_LAUNCH: "ingest.launch",
+    EV_DELTA_FLUSH: "delta.flush",
 }
 
 AE_PHASES = {"trigger": 1, "digest": 2, "fetch": 3}
@@ -159,15 +188,19 @@ class FlightRecorder:
                 self._rings.append(ring)
         return ring
 
-    def record(self, etype: int, dur_ns: int = 0, arg: int = 0) -> None:
-        """Record one completed event on the calling thread's ring.
-        Lock-free: this thread is the ring's only writer."""
+    def record(
+        self, etype: int, dur_ns: int = 0, arg: int = 0, t0_ns: Optional[int] = None
+    ) -> None:
+        """Record one completed event on the calling thread's ring, stamped
+        with its start: ``t0_ns`` (``perf_counter_ns``), or ``dur_ns``
+        before now when the caller gives none. Lock-free: this thread is
+        the ring's only writer."""
         if not self.enabled:
             return
         ring = self._ring()
         i = ring.pos
         ring.etype[i] = etype
-        ring.t_ns[i] = time.perf_counter_ns()
+        ring.t_ns[i] = time.perf_counter_ns() - dur_ns if t0_ns is None else t0_ns
         ring.dur_ns[i] = dur_ns
         ring.arg[i] = arg
         ring.pos = (i + 1) % ring.size
@@ -176,7 +209,8 @@ class FlightRecorder:
     # -- dump / snapshot -----------------------------------------------------
 
     def dump(self) -> List[dict]:
-        """All rings' live events as plain dicts (oldest-first per ring)."""
+        """All rings' live events as plain dicts (oldest-first per ring);
+        ``t_ns`` is each event's start (``perf_counter_ns``)."""
         with self._reg_mu:
             rings = list(self._rings)
         out = []
@@ -195,13 +229,17 @@ class FlightRecorder:
         return out
 
     def chrome_trace(self, events: Optional[List[dict]] = None) -> bytes:
-        """Chrome-trace/Perfetto JSON ('X' complete events, µs scale)."""
+        """Chrome-trace/Perfetto JSON ('X' complete events, µs scale), each
+        event from its start, on the wall clock (CLOCK_REALTIME): the
+        profiler capture's clock, so the two dumps lay over each other."""
         evs = self.dump() if events is None else events
+        wall = time.time_ns()  # patrol-lint: clock-seam (the profiler's clock)
+        wall_minus_perf = wall - time.perf_counter_ns()
         trace_events = [
             {
                 "name": e["type"],
                 "ph": "X",
-                "ts": e["t_ns"] / 1000.0,
+                "ts": (e["t_ns"] + wall_minus_perf) / 1000.0,
                 "dur": e["dur_ns"] / 1000.0,
                 "pid": os.getpid(),
                 "tid": e["tid"],
@@ -238,6 +276,77 @@ class FlightRecorder:
 
 
 TRACE = FlightRecorder()
+
+
+# -- spans ---------------------------------------------------------------------
+
+# torch.autograd.profiler and the fast record-function type, resolved once
+# torch has been imported (no capture can run before that).
+_tprof = None
+_RecordFunctionFast = None
+
+
+def _profiler_on() -> bool:
+    """Whether a ``torch.profiler`` capture is running: its own flag, one
+    attribute read once torch is loaded."""
+    global _tprof, _RecordFunctionFast
+    p = _tprof
+    if p is None:
+        p = sys.modules.get("torch.autograd.profiler")
+        if p is None:
+            return False
+        from torch._C._profiler import _RecordFunctionFast as rff
+
+        _RecordFunctionFast = rff
+        _tprof = p
+    return p._is_profiler_enabled
+
+
+def end_stage(etype: int, t0_ns: int, hist=None, arg: int = 0) -> int:
+    """Close a stage begun at ``t0_ns`` (``perf_counter_ns``): its
+    histogram (when given) and, when enabled, its ring event at its start.
+    → the stage's ns."""
+    dur = time.perf_counter_ns() - t0_ns
+    if hist is not None:
+        hist.record(dur)
+    tr = TRACE
+    if tr.enabled:
+        tr.record(etype, dur, arg, t0_ns)
+    return dur
+
+
+class Span:
+    """One stage of work, as a context manager: ``with Span(EV_X, h) as
+    sp: ...; sp.arg = n``. Closes through :func:`end_stage`; while a
+    profiler capture runs, the stage is also a ``cpu_op`` named after its
+    event (``EVENT_NAMES``) on this thread. ``t0_ns`` starts the stage at
+    a stamp taken earlier (the profiler's span still opens at entry).
+    Waits are not spans: a gap the capture leaves unlabelled is time in
+    which no program work ran."""
+
+    __slots__ = ("etype", "hist", "arg", "t0_ns", "_rf")
+
+    def __init__(self, etype: int, hist=None, arg: int = 0, t0_ns: Optional[int] = None):
+        self.etype = etype
+        self.hist = hist
+        self.arg = arg
+        self.t0_ns = t0_ns
+        self._rf = None
+
+    def __enter__(self) -> "Span":
+        if _profiler_on():
+            self._rf = _RecordFunctionFast(EVENT_NAMES[self.etype])
+            self._rf.__enter__()
+        if self.t0_ns is None:
+            self.t0_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end_stage(self.etype, self.t0_ns, self.hist, self.arg)
+        rf = self._rf
+        if rf is not None:
+            self._rf = None
+            rf.__exit__(None, None, None)
 
 
 def anomaly(reason: str) -> None:
@@ -289,10 +398,6 @@ class SpanCollector:
             spans = [s for s in spans if s["trace_id"] == trace_id]
         return spans
 
-    def clear(self) -> None:
-        with self._mu:
-            self._spans.clear()
-
 
 SPANS = SpanCollector()
 
@@ -303,17 +408,6 @@ _take_counter = itertools.count(1)
 # the monotone counter keeps them unique within one process (shared by
 # every in-process node).
 _ID_TAG = (os.getpid() & 0x7FFF) << 48
-
-
-def set_take_sampling(n: int) -> None:
-    """1-in-``n`` take sampling; 0 disables. Runtime-settable (tests,
-    operator resync debugging)."""
-    global _take_sample
-    _take_sample = max(0, int(n))
-
-
-def take_sampling() -> int:
-    return _take_sample
 
 
 def sample_take() -> Optional[int]:

@@ -297,7 +297,7 @@ def test_loopback_fanout_and_recv(lib):
         got = {}
         deadline = time.monotonic() + 5
         while len(got) < 20 and time.monotonic() < deadline:
-            packets, szs, _, _ = rx.recv_batch(timeout_ms=200)
+            packets, szs, _, _, _ = rx.recv_batch(timeout_ms=200)
             a, _, _, names, slots, valid, *_ = native.decode_batch(packets, szs)
             for i in range(len(names)):
                 if valid[i]:
@@ -318,7 +318,7 @@ def test_fanout_to_multiple_peers(lib):
         ports = np.array([rx1.port, rx2.port], np.uint16)
         assert tx.send_fanout(pkts, sizes, ips, ports) == 2
         for rx in (rx1, rx2):
-            packets, szs, _, _ = rx.recv_batch(timeout_ms=2000)
+            packets, szs, _, _, _ = rx.recv_batch(timeout_ms=2000)
             assert len(packets) == 1
             _, _, _, names, _, valid, *_ = native.decode_batch(packets, szs)
             assert valid[0] and names[0] == "m"
@@ -348,7 +348,7 @@ def test_recv_into_a_ring_plane_takes_full_delta_datagrams(lib):
                 np.frombuffer(data, np.uint8).reshape(1, -1), np.array([len(data)], np.int32),
                 np.array([0x7F000001], np.uint32), np.array([rx.port], np.uint16),
             ) == 1
-            packets, sizes, _, _ = rx.recv_batch_into(plane, timeout_ms=500)
+            packets, sizes, _, _, _ = rx.recv_batch_into(plane, timeout_ms=500)
             for i in range(len(packets)):
                 if int(sizes[i]) == len(data) and bytes(plane[i, : len(data)]) == data:
                     got = i
