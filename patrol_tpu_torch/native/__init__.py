@@ -87,6 +87,7 @@ NATIVE_EFFECTS: Dict[str, NativeEffect] = {
     "pt_send_fanout": _E(True, False, False, False),  # POLLOUT stall wait
     "pt_decode_batch": _E(False, False, False, True),
     "pt_encode_batch": _E(False, False, False, True),
+    "pt_walk_batch": _E(False, False, False, True),
     # -- zero-copy rx ring (device-resident ingest) --
     # pt_rx_ring_create allocates C++-OWNED page-aligned planes that
     # Python views zero-copy via pt_rx_ring_plane until destroy: the
@@ -177,6 +178,7 @@ _u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_boolp = np.ctypeslib.ndpointer(np.bool_, flags="C_CONTIGUOUS")
 
 
 def lib_path() -> Path:
@@ -277,6 +279,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int, _u8p, _i32p,
     ]
     lib.pt_encode_batch.restype = ctypes.c_int
+    lib.pt_walk_batch.argtypes = [
+        _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _i64p, ctypes.c_int,
+        _boolp, _i32p, _i64p, _i32p, _i64p, _i32p, _i32p, _i32p, _u64p,
+        _i64p, _i64p, _i64p, _i64p, _i64p,
+    ]
+    lib.pt_walk_batch.restype = ctypes.c_int
     # -- HTTP front (patrol_http.cpp) --
     lib.pt_http_start.argtypes = [ctypes.c_char_p, ctypes.c_uint16]
     lib.pt_http_start.restype = ctypes.c_int

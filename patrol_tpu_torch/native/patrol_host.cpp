@@ -593,6 +593,111 @@ int pt_encode_batch(const double* added, const double* taken,
   return ok;
 }
 
+// ------------------------------------------------------- dv2 structure walk
+
+// The host structure walk of raw dv2 delta datagrams (ops/ingest.py
+// host_walk_plain, bit for bit): one pass a packet. planes holds P rows at
+// `stride` bytes, each `row` bytes wide with lengths[i] bytes of datagram;
+// bytes past a row's length are stale ring contents and are never read for
+// a verdict (sender_slot and seq are read from the row as it lies, as the
+// plain walk reads them). E is the entry bound (max_entries(row)). Every
+// output is caller-owned and ZERO-FILLED on entry; scalars are [P], acks
+// [P, 32], the entry fields [P, E] row-major. Semantics the plain walk
+// encodes, kept here:
+//   * the structure walk (name_off/name_len) is gated only on walkability,
+//     not on the envelope/checksum/version verdicts: it is the device
+//     kernel's framing proposal, and the kernel stays the verdict authority;
+//   * acks are filled from the verdict before the entry walk;
+//   * a count past E, a payload not ending at the checksum byte, and any
+//     value with bit 63 set refuse the whole packet;
+//   * a refused packet keeps its structure fields, its value fields are
+//     zeroed, its count and n_acks are 0; name_hash only for live entries.
+// Returns the count of packets accepted, or -EINVAL on a bad shape.
+int pt_walk_batch(const uint8_t* planes, int P, int row, int64_t stride,
+                  const int64_t* lengths, int E, uint8_t* ok,
+                  int32_t* sender_slot, int64_t* seq, int32_t* n_acks,
+                  int64_t* acks, int32_t* count, int32_t* name_off,
+                  int32_t* name_len, uint64_t* name_hash, int64_t* slot,
+                  int64_t* cap, int64_t* added, int64_t* taken,
+                  int64_t* elapsed) {
+  constexpr int kBase = 32;       // 25-byte v1 header + 7-byte reserved name
+  constexpr int kHead = 8;        // version u8 | sender u16 | seq u32 | n_acks u8
+  constexpr int kAck = 4;
+  constexpr int kCount = 2;
+  constexpr int kTail = 34;       // slot u16 | cap | added | taken | elapsed
+  constexpr int kMinLen = kBase + kHead + kCount + 1;
+  constexpr int kMaxAcks = 32;    // ops/wire.py DELTA_MAX_ACKS
+  constexpr uint8_t kVersion = 2;  // ops/wire.py DELTA_VERSION
+  static const uint8_t kName[7] = {0, 'p', 't', '!', 'd', 'v', '2'};
+  if (P < 0 || E < 1 || row < kMinLen || stride < row) return -EINVAL;
+  int accepted = 0;
+  for (int i = 0; i < P; i++) {
+    const uint8_t* p = planes + static_cast<size_t>(i) * stride;
+    const int64_t len = lengths[i];
+    const int64_t end = len - 1;  // the checksum byte
+    const bool in_range = len >= kMinLen && len <= row;
+    sender_slot[i] = (p[kBase + 1] << 8) | p[kBase + 2];
+    seq[i] = (static_cast<int64_t>(p[kBase + 3]) << 24) | (p[kBase + 4] << 16) |
+             (p[kBase + 5] << 8) | p[kBase + 6];
+    const int na = p[kBase + 7];
+    const int64_t off0 = kBase + kHead + kAck * na;
+    const bool walkable = in_range && na <= kMaxAcks && off0 + kCount <= end;
+    bool good = walkable && p[24] == sizeof(kName) &&
+                std::memcmp(p + 25, kName, sizeof(kName)) == 0 &&
+                p[kBase] == kVersion;
+    for (int k = 0; good && k < 24; k++) good = p[k] == 0;
+    if (good) {
+      uint8_t sum = 0;
+      for (int64_t k = kBase; k < end; k++) sum += p[k];
+      good = sum == p[end];
+    }
+    if (good) {
+      int64_t* a = acks + static_cast<size_t>(i) * kMaxAcks;
+      for (int k = 0; k < na; k++) {
+        const uint8_t* q = p + kBase + kHead + kAck * k;
+        a[k] = (static_cast<int64_t>(q[0]) << 24) | (q[1] << 16) | (q[2] << 8) | q[3];
+      }
+    }
+    const int64_t cnt = walkable ? (p[off0] << 8) | p[off0 + 1] : 0;
+    const size_t base = static_cast<size_t>(i) * E;
+    int64_t off = walkable ? off0 + kCount : 0;
+    int64_t walked = 0;
+    uint64_t hi = 0;
+    for (const int64_t lim = std::min<int64_t>(cnt, E); walked < lim; walked++) {
+      if (off >= end) break;
+      const int nl = p[off];
+      if (off + 1 + nl + kTail > end) break;
+      const uint8_t* t = p + off + 1 + nl;
+      const uint64_t c = load_be64(t + 2), ad = load_be64(t + 10),
+                     tk = load_be64(t + 18), el = load_be64(t + 26);
+      hi |= c | ad | tk | el;
+      name_off[base + walked] = static_cast<int32_t>(off + 1);
+      name_len[base + walked] = nl;
+      slot[base + walked] = (t[0] << 8) | t[1];
+      cap[base + walked] = static_cast<int64_t>(c);
+      added[base + walked] = static_cast<int64_t>(ad);
+      taken[base + walked] = static_cast<int64_t>(tk);
+      elapsed[base + walked] = static_cast<int64_t>(el);
+      off += 1 + nl + kTail;
+    }
+    good = good && walked == cnt && off == end && (hi >> 63) == 0;
+    if (!good) {
+      for (int64_t e = 0; e < walked; e++) {
+        slot[base + e] = cap[base + e] = added[base + e] = 0;
+        taken[base + e] = elapsed[base + e] = 0;
+      }
+      continue;
+    }
+    ok[i] = 1;
+    n_acks[i] = na;
+    count[i] = static_cast<int32_t>(cnt);
+    for (int64_t e = 0; e < cnt; e++)
+      name_hash[base + e] = fnv1a64(p + name_off[base + e], name_len[base + e]);
+    accepted++;
+  }
+  return accepted;
+}
+
 // ---- pt_dir: native bucket-name resolve table ------------------------------
 //
 // The C++ half of BucketDirectory's hash-routing fast path. Python owns

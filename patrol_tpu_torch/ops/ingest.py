@@ -10,9 +10,9 @@ hand-written kernel of :mod:`patrol_tpu_torch.ops.ingest_kernel`).
 Division of labor with the host (the part a device kernel cannot do):
 
 * **row resolution** — bucket names live in the host directory's hash
-  table, so the host runs a *vectorized structure walk*
-  (:func:`host_walk`, numpy: one python-level iteration per entry
-  ordinal, vectorized across all packets) that extracts per-entry name
+  table, so the host runs a *structure walk* (:func:`host_walk`: one
+  C++ pass a packet, ``pt_walk_batch``; its numpy twin
+  :func:`host_walk_plain`) that extracts per-entry name
   offsets/hashes and the header/ack fields, resolves rows through the
   existing directory pass, and hands the kernel a ``rows[P, E]`` plan
   (``FOLD_PAD_ROW`` marks entries the fold must skip: directory-miss
@@ -26,17 +26,18 @@ Validation is **bit-identical to ops/wire.py::decode_delta_packet** —
 all-or-nothing per packet: envelope (24 zero bytes, reserved name),
 checksum, version, ack-vector bounds, per-entry framing bounds, bit-63
 value guards, exact end-of-payload. The host half below (``dv2_mask``,
-``host_walk``, ``gather_name_rows``) is the reference's numpy code as it
-is.
+``host_walk_plain``, ``gather_name_rows``) is the reference's numpy code
+as it is.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from patrol_tpu_torch import native
 from patrol_tpu_torch.models.limiter import LimiterState
 from patrol_tpu_torch.ops import ingest_kernel
 from patrol_tpu_torch.ops import wire
@@ -48,6 +49,7 @@ from patrol_tpu_torch.ops.ingest_kernel import (
     HEAD as _HEAD,
     MIN_LEN as _MIN_LEN,
 )
+from patrol_tpu_torch.utils import profiling
 
 RAW_PLANE_BYTES = wire.DELTA_PACKET_SIZE  # 8192: the rx ring row width
 _NAME = np.frombuffer(ingest_kernel.NAME, np.uint8)
@@ -112,12 +114,69 @@ def _np_be(planes: np.ndarray, pi: np.ndarray, off: np.ndarray, nbytes: int):
 
 
 def host_walk(planes: np.ndarray, lengths: np.ndarray) -> "RawWalk":
-    """The vectorized host structure walk: verdicts bit-identical to
+    """The host structure walk: verdicts bit-identical to
     ``wire.decode_delta_packet`` plus the name structure (offset, length,
     FNV hash) the directory pass needs and the numeric fields the
-    host-lane absorb and cap-adoption tails use. One python-level loop
-    iteration per entry ORDINAL (≤ :data:`MAX_RAW_ENTRIES`), each
-    vectorized across every packet still walking — not per entry."""
+    host-lane absorb and cap-adoption tails use. One C++ pass a packet
+    (``pt_walk_batch``, the GIL released), counted in ``rx_walk_native``;
+    where the native library does not load, :func:`host_walk_plain`,
+    counted in ``rx_walk_plain``. Both give the same walk on every
+    input."""
+    walk = _host_walk_native(planes, lengths)
+    if walk is None:
+        profiling.COUNTERS.inc("rx_walk_plain")
+        return host_walk_plain(planes, lengths)
+    profiling.COUNTERS.inc("rx_walk_native")
+    return walk
+
+
+def _host_walk_native(planes, lengths) -> Optional["RawWalk"]:
+    """:func:`host_walk` in C++, into fresh zero-filled arrays (a
+    ``RawWalk`` rides on into the engine's tails), or None: the library
+    is unavailable, or the operands are outside the shapes it takes
+    (not uint8[P, row ≥ 43] with P lengths), where the plain walk
+    decides."""
+    planes = np.asarray(planes)
+    lengths = np.asarray(lengths)
+    if planes.ndim != 2 or planes.dtype != np.uint8 or lengths.shape != planes.shape[:1]:
+        return None
+    P, row = planes.shape
+    if row < _MIN_LEN:
+        return None
+    lib = native.load()
+    if lib is None:
+        return None
+    E = max_entries(row)
+    pe = (P, E)
+    walk = RawWalk(
+        ok=np.zeros(P, bool),
+        sender_slot=np.zeros(P, np.int32),
+        seq=np.zeros(P, np.int64),
+        n_acks=np.zeros(P, np.int32),
+        acks=np.zeros((P, wire.DELTA_MAX_ACKS), np.int64),
+        count=np.zeros(P, np.int32),
+        name_off=np.zeros(pe, np.int32),
+        name_len=np.zeros(pe, np.int32),
+        name_hash=np.zeros(pe, np.uint64),
+        slot=np.zeros(pe, np.int64),
+        cap=np.zeros(pe, np.int64),
+        added=np.zeros(pe, np.int64),
+        taken=np.zeros(pe, np.int64),
+        elapsed=np.zeros(pe, np.int64),
+    )
+    lib.pt_walk_batch(
+        np.ascontiguousarray(planes), P, row, row,
+        np.ascontiguousarray(lengths, np.int64), E, *walk,
+    )
+    return walk
+
+
+def host_walk_plain(planes: np.ndarray, lengths: np.ndarray) -> "RawWalk":
+    """:func:`host_walk` in numpy (the reference's code as it is): the
+    test oracle of the native walk, and the walk where the native library
+    does not load. One python-level loop iteration per entry ORDINAL
+    (≤ :data:`MAX_RAW_ENTRIES`), each vectorized across every packet
+    still walking — not per entry."""
     planes = np.asarray(planes)
     P, row = planes.shape
     E = max_entries(row)

@@ -341,6 +341,11 @@ class CounterRegistry:
         # batches shipped straight from page-locked rx ring planes.
         "fold_native_ticks",
         "ingest_raw_pinned_ships",
+        # Raw-plane structure walks (ops/ingest.py host_walk) a batch:
+        # in C++ (pt_walk_batch), or in numpy where the native library
+        # does not load.
+        "rx_walk_native",
+        "rx_walk_plain",
         # Device-trace captures (cuda_trace, /debug/cuda/trace and
         # /debug/pprof/trace): captures written, and requests refused
         # because another capture was running (the routes' 409).

@@ -5,8 +5,12 @@ kinds of ``tests/test_ingest.py``: flips, truncations, trailing garbage,
 random blobs, bit-63 values with a fixed-up checksum, all over stale
 ``0xAB`` ring bytes) goes through both packages:
 
-* the host half (``host_walk``, ``dv2_mask``, ``gather_name_rows``) must
-  equal the JAX package's field for field;
+* the host half (``host_walk`` in C++ and in numpy, ``dv2_mask``,
+  ``gather_name_rows``) must equal the JAX package's field for field,
+  and a seeded fuzz holds the C++ walk to the numpy one over every
+  corpus here and the walk's refusal edges (``edge_corpus``), on stale
+  ring bytes, at P = 1, 4 and 512; ``host_walk`` takes the C++ walk
+  when the library loads (``rx_walk_native``);
 * ``decode_fold_raw_plain`` (the plain version of the ``decode_fold``
   kernel) must equal ``decode_fold_raw_jit`` and the Pallas twin in
   interpret mode bit for bit — state, ``ok``, ``entry_ok`` and
@@ -127,14 +131,32 @@ def lying_proposal(planes, lengths, seed):
     return eoff, liars
 
 
-def test_host_half_matches_reference():
+def native_walk(planes, lengths):
+    """The C++ walk alone (``pt_walk_batch``): the library must load."""
+    walk = tingest._host_walk_native(planes, lengths)
+    assert walk is not None, "the native library did not load"
+    return walk
+
+
+WALKS = {"native": native_walk, "plain": tingest.host_walk_plain}
+
+
+def assert_walks_equal(got, want):
+    """Field for field, with dtypes and shapes."""
+    assert got._fields == want._fields
+    for field in got._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), field
+        np.testing.assert_array_equal(g, w, err_msg=field)
+
+
+@pytest.mark.parametrize("impl", ["native", "plain"])
+def test_host_half_matches_reference(impl):
     raw = hostile_corpus(20260805, 80) + [b"", b"\x00" * 31, b"\x00" * 40]
     planes, lengths = planes_of(raw)
-    tw = tingest.host_walk(planes, lengths)
+    tw = WALKS[impl](planes, lengths)
     jw = jingest.host_walk(planes, lengths)
-    assert tw._fields == jw._fields
-    for field in tw._fields:
-        np.testing.assert_array_equal(getattr(tw, field), getattr(jw, field), err_msg=field)
+    assert_walks_equal(tw, jw)
     np.testing.assert_array_equal(
         tingest.dv2_mask(planes, lengths), jingest.dv2_mask(planes, lengths)
     )
@@ -308,6 +330,120 @@ def test_decode_fold_alignment_edges_match_reference(part, impl):
         assert set((tails % 4).tolist()) == {0, 1, 2, 3}
     else:
         assert set(walk.count[ok].tolist()) == {0, E}
+
+
+def _fix_checksum(b: bytearray) -> bytes:
+    b[-1] = sum(b[32:-1]) & 0xFF
+    return bytes(b)
+
+
+def edge_corpus(seed):
+    """Datagrams at the walk's refusal edges, each checksum fixed up
+    unless the checksum is the edge: counts past ``E`` over a row of
+    ``E`` empty-named entries, 32 acks and ``n_acks`` past 32, a bit-63
+    value in each of the four value fields, a checksum that fails while
+    the structure still walks, a wrong version, a non-zero envelope
+    byte, a wrong reserved name, and a payload that runs past its last
+    entry."""
+    rng = np.random.default_rng(seed)
+    out = []
+    full, n = twire.encode_delta_packet(
+        1, 5, [1, 2], [_entry(rng, 0) for _ in range(E)], max_size=ROW
+    )
+    assert n == E
+    count_off = 32 + 8 + 4 * 2
+    for c in (E + 1, E + 9, 0xFFFF):
+        b = bytearray(full)
+        b[count_off : count_off + 2] = c.to_bytes(2, "big")
+        out.append(_fix_checksum(b))
+    acks32, _ = twire.encode_delta_packet(
+        1, 6, list(range(32)), [_entry(rng, 3)], max_size=ROW
+    )
+    out.append(acks32)
+    for na in (33, 64, 255):
+        b = bytearray(acks32)
+        b[39] = na
+        out.append(_fix_checksum(b))
+    for _ in range(6):
+        good = mk_packet(rng, int(rng.integers(1, 12)))
+        out.append(good)
+        planes, lengths = planes_of([good])
+        walk = tingest.host_walk_plain(planes, lengths)
+        k = int(rng.integers(0, walk.count[0]))
+        tail = int(walk.name_off[0, k] + walk.name_len[0, k])
+        for field in range(4):  # cap, added, taken, elapsed
+            b = bytearray(good)
+            b[tail + 2 + 8 * field] |= 0x80
+            out.append(_fix_checksum(b))
+        b = bytearray(good)
+        b[-1] ^= 0x01  # the checksum fails, the structure walks
+        out.append(bytes(b))
+        for at, val in ((32, 3), (int(rng.integers(0, 24)), 1), (26, ord("q"))):
+            b = bytearray(good)
+            b[at] = val
+            out.append(_fix_checksum(b))
+        b = bytearray(good[:-1]) + bytes(int(rng.integers(1, 40))) + b"\x00"
+        out.append(_fix_checksum(b))
+    return out
+
+
+def _fuzz_pool(corpus, seed):
+    if corpus == "hostile":
+        return hostile_corpus(seed, 96)
+    if corpus == "residue":
+        return [b for part in ("lengths", "names", "counts") for b in residue_corpus(part, seed)]
+    return edge_corpus(seed)
+
+
+@pytest.mark.parametrize("P", [1, 4, 512])
+@pytest.mark.parametrize("corpus", ["hostile", "residue", "edges"])
+def test_native_walk_matches_plain(corpus, P):
+    """Seeded fuzz: batches of P rows drawn from the corpus over stale
+    ring bytes (random, or an older datagram of the pool), a tenth of
+    the rows with a length that lies (negative, zero, short of a header,
+    the row, past the row). The C++ walk equals the numpy walk field for
+    field, dtypes and shapes; over the batches both verdicts occur."""
+    seed = 20261019 + P
+    pool = _fuzz_pool(corpus, seed)
+    rng = np.random.default_rng(seed)
+    verdicts = set()
+    for _ in range(max(1, 64 // P)):
+        planes = rng.integers(0, 256, (P, ROW)).astype(np.uint8)
+        lengths = np.zeros(P, np.int32)
+        for i, k in enumerate(rng.integers(0, len(pool), P)):
+            if rng.random() < 0.5:
+                old = pool[int(rng.integers(0, len(pool)))][:ROW]
+                planes[i, : len(old)] = np.frombuffer(old, np.uint8)
+            b = pool[k][:ROW]
+            planes[i, : len(b)] = np.frombuffer(b, np.uint8)
+            lengths[i] = len(b)
+        lie = rng.random(P) < 0.1
+        lengths[lie] = rng.choice([-1, 0, 42, 43, ROW, ROW + 1], int(lie.sum()))
+        want = tingest.host_walk_plain(planes, lengths)
+        assert_walks_equal(native_walk(planes, lengths), want)
+        verdicts |= set(want.ok.tolist())
+    assert verdicts == {False, True}
+
+
+def _counts():
+    return profiling.COUNTERS.get("rx_walk_native"), profiling.COUNTERS.get("rx_walk_plain")
+
+
+def test_host_walk_takes_the_native_path():
+    planes, lengths = planes_of(hostile_corpus(11, 16))
+    native_n, plain_n = _counts()
+    walk = tingest.host_walk(planes, lengths)
+    assert _counts() == (native_n + 1, plain_n)
+    assert_walks_equal(walk, tingest.host_walk_plain(planes, lengths))
+
+
+def test_host_walk_falls_back_to_plain_without_the_library(monkeypatch):
+    planes, lengths = planes_of(hostile_corpus(12, 16))
+    monkeypatch.setattr(tingest.native, "load", lambda required=False: None)
+    native_n, plain_n = _counts()
+    walk = tingest.host_walk(planes, lengths)
+    assert _counts() == (native_n, plain_n + 1)
+    assert_walks_equal(walk, jingest.host_walk(planes, lengths))
 
 
 @pytest.mark.parametrize(
