@@ -85,6 +85,7 @@ NATIVE_EFFECTS: Dict[str, NativeEffect] = {
     "pt_udp_close": _E(False, False, False, False),
     "pt_recv_batch": _E(True, False, False, False),   # poll(timeout_ms); kernel rx stamps
     "pt_send_fanout": _E(True, False, False, False),  # POLLOUT stall wait
+    "pt_send_pairs": _E(True, False, False, False),  # POLLOUT stall wait
     "pt_decode_batch": _E(False, False, False, True),
     "pt_encode_batch": _E(False, False, False, True),
     "pt_walk_batch": _E(False, False, False, True),
@@ -255,6 +256,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _u16p, ctypes.c_int,
     ]
     lib.pt_send_fanout.restype = ctypes.c_int
+    lib.pt_send_pairs.argtypes = [
+        ctypes.c_int, _u8p, _i32p, ctypes.c_int, ctypes.c_int, _u32p, _u16p,
+        _u8p,
+    ]
+    lib.pt_send_pairs.restype = ctypes.c_int
     lib.pt_rx_ring_create.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ]
@@ -472,6 +478,31 @@ class NativeSocket:
         if n < 0:
             raise OSError(-n, os.strerror(-n))
         return n
+
+    def send_pairs(self, payloads: np.ndarray, sizes: np.ndarray,
+                   ips: np.ndarray, ports: np.ndarray) -> np.ndarray:
+        """Row ``i`` of ``payloads`` (``sizes[i]`` bytes) to peer ``i``,
+        every row in one call: sendmmsg in chunks, in order. Returns
+        bool[n], True where the kernel took the datagram: a row refused
+        (a bad destination) is skipped alone, and the rows after it still
+        go."""
+        ok = np.zeros(len(payloads), np.uint8)
+        if len(payloads) == 0:
+            return ok.astype(bool)
+        payloads = np.ascontiguousarray(payloads, np.uint8)
+        n = self.lib.pt_send_pairs(
+            self.fd,
+            payloads,
+            np.ascontiguousarray(sizes, np.int32),
+            len(payloads),
+            payloads.shape[1],
+            np.ascontiguousarray(ips, np.uint32),
+            np.ascontiguousarray(ports, np.uint16),
+            ok,
+        )
+        if n < 0:
+            raise OSError(-n, os.strerror(-n))
+        return ok.astype(bool)
 
     def close(self) -> None:
         self.lib.pt_udp_close(self.fd)

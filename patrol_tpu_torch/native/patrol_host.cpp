@@ -10,7 +10,8 @@
 //                      3s read-deadline idea of repo.go:109), and each
 //                      datagram's kernel receive timestamp.
 //   * pt_send_fanout — sendmmsg(): one syscall flushes a whole broadcast
-//                      matrix (payloads × peers).
+//                      matrix (payloads × peers); pt_send_pairs the same
+//                      for distinct datagrams each to its own peer.
 //   * pt_decode_batch / pt_encode_batch — the 25-byte-header wire codec
 //                      (bucket.go:34-91) + the v2 origin-slot trailer,
 //                      vectorized over packet batches into flat arrays that
@@ -196,63 +197,105 @@ int pt_recv_batch(int fd, uint8_t* buf, int max_packets, int row_stride,
   return n;
 }
 
-// Send every payload to every peer: n_payloads × n_peers datagrams, flushed
-// through sendmmsg in chunks. payloads: n_payloads rows of row_stride bytes
-// (sizes per payload; a delta-interval unicast is one 8-KiB row, the v1
-// broadcast matrix stays 256-B rows). Returns datagrams handed to the
-// kernel, or -errno on hard failure.
-int pt_send_fanout(int fd, const uint8_t* payloads, const int* sizes,
-                   int n_payloads, int row_stride, const uint32_t* peer_ips,
-                   const uint16_t* peer_ports, int n_peers) {
-  if (row_stride <= 0) return -EINVAL;
+namespace {
+
+// Datagrams queued for sendmmsg, flushed in chunks of kMaxBatch. A datagram
+// the kernel refuses with a hard error (EINVAL for port 0, ENETUNREACH,
+// EHOSTUNREACH, EPERM from a filter) is skipped and counted, so one bad
+// destination costs only its own datagram; a send buffer still full after a
+// 50 ms wait drops the rest of the queue.
+struct SendQueue {
+  int fd;
+  uint8_t* ok;  // per caller row: 1 once handed to the kernel (or null)
   mmsghdr msgs[kMaxBatch];
   iovec iovs[kMaxBatch];
   sockaddr_in addrs[kMaxBatch];
-  int queued = 0, sent_total = 0;
+  int rows[kMaxBatch];
+  int queued = 0, sent_total = 0, failed = 0, last_errno = 0;
 
-  auto flush = [&]() -> int {
+  SendQueue(int fd_, uint8_t* ok_) : fd(fd_), ok(ok_) {}
+
+  void flush() {
     int off = 0;
     while (off < queued) {
       int n = sendmmsg(fd, msgs + off, queued - off, 0);
       if (n < 0) {
+        if (errno == EINTR) continue;
         if (errno == EAGAIN || errno == EWOULDBLOCK) {
           pollfd pfd{fd, POLLOUT, 0};
           if (poll(&pfd, 1, 50) <= 0) break;  // give up after 50ms stall
           continue;
         }
-        return -errno;
+        last_errno = errno;  // msgs[off] refused: skip it alone
+        failed++;
+        off++;
+        continue;
+      }
+      if (ok != nullptr) {
+        for (int k = off; k < off + n; k++) ok[rows[k]] = 1;
       }
       off += n;
       sent_total += n;
     }
     queued = 0;
-    return 0;
-  };
+  }
 
+  void push(int row, const uint8_t* data, int size, uint32_t ip,
+            uint16_t port) {
+    if (queued == kMaxBatch) flush();
+    int i = queued++;
+    rows[i] = row;
+    std::memset(&msgs[i], 0, sizeof(mmsghdr));
+    iovs[i] = {const_cast<uint8_t*>(data), static_cast<size_t>(size)};
+    addrs[i] = sockaddr_in{};
+    addrs[i].sin_family = AF_INET;
+    addrs[i].sin_port = htons(port);
+    addrs[i].sin_addr.s_addr = htonl(ip);
+    msgs[i].msg_hdr.msg_iov = &iovs[i];
+    msgs[i].msg_hdr.msg_iovlen = 1;
+    msgs[i].msg_hdr.msg_name = &addrs[i];
+    msgs[i].msg_hdr.msg_namelen = sizeof(sockaddr_in);
+  }
+};
+
+}  // namespace
+
+// Send every payload to every peer: n_payloads × n_peers datagrams, flushed
+// through sendmmsg in chunks. payloads: n_payloads rows of row_stride bytes
+// (sizes per payload; a delta-interval unicast is one 8-KiB row, the v1
+// broadcast matrix stays 256-B rows). Returns datagrams handed to the
+// kernel, or -errno where any was refused (the others are still sent).
+int pt_send_fanout(int fd, const uint8_t* payloads, const int* sizes,
+                   int n_payloads, int row_stride, const uint32_t* peer_ips,
+                   const uint16_t* peer_ports, int n_peers) {
+  if (row_stride <= 0) return -EINVAL;
+  auto q = std::make_unique<SendQueue>(fd, nullptr);
   for (int p = 0; p < n_payloads; p++) {
     for (int j = 0; j < n_peers; j++) {
-      if (queued == kMaxBatch) {
-        int rc = flush();
-        if (rc < 0) return rc;
-      }
-      int i = queued++;
-      std::memset(&msgs[i], 0, sizeof(mmsghdr));
-      iovs[i] = {const_cast<uint8_t*>(payloads) +
-                     static_cast<size_t>(p) * row_stride,
-                 static_cast<size_t>(sizes[p])};
-      addrs[i] = sockaddr_in{};
-      addrs[i].sin_family = AF_INET;
-      addrs[i].sin_port = htons(peer_ports[j]);
-      addrs[i].sin_addr.s_addr = htonl(peer_ips[j]);
-      msgs[i].msg_hdr.msg_iov = &iovs[i];
-      msgs[i].msg_hdr.msg_iovlen = 1;
-      msgs[i].msg_hdr.msg_name = &addrs[i];
-      msgs[i].msg_hdr.msg_namelen = sizeof(sockaddr_in);
+      q->push(0, payloads + static_cast<size_t>(p) * row_stride, sizes[p],
+              peer_ips[j], peer_ports[j]);
     }
   }
-  int rc = flush();
-  if (rc < 0) return rc;
-  return sent_total;
+  q->flush();
+  if (q->failed) return -q->last_errno;
+  return q->sent_total;
+}
+
+// Send payload i to peer i, for i < n: a tick's distinct datagrams to
+// their peers through sendmmsg in chunks, in order. ok (n bytes, zeroed by
+// the caller) gets 1 for each datagram handed to the kernel; one refused
+// leaves only its own 0. Returns datagrams handed to the kernel, or -EINVAL.
+int pt_send_pairs(int fd, const uint8_t* payloads, const int* sizes, int n,
+                  int row_stride, const uint32_t* ips, const uint16_t* ports,
+                  uint8_t* ok) {
+  if (row_stride <= 0) return -EINVAL;
+  auto q = std::make_unique<SendQueue>(fd, ok);
+  for (int i = 0; i < n; i++) {
+    q->push(i, payloads + static_cast<size_t>(i) * row_stride, sizes[i],
+            ips[i], ports[i]);
+  }
+  q->flush();
+  return q->sent_total;
 }
 
 // ---------------------------------------------------------------- rx ring

@@ -45,6 +45,8 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from patrol_tpu_torch.ops import wire
 from patrol_tpu_torch.runtime.directory import _fnv1a64
 from patrol_tpu_torch.utils import histogram as hist
@@ -90,6 +92,41 @@ def state_digest(states: Sequence[wire.WireState]) -> int:
         if a or t:
             h.update(struct.pack(">Hqq", slot, a, t))
     return int.from_bytes(h.digest(), "big")
+
+
+# One lane as state_digest packs it: ``>Hqq`` (slot, added, taken), 18 bytes.
+_LANE = np.dtype([("slot", ">u2"), ("added", ">i8"), ("taken", ">i8")])
+
+
+def state_digests(cap: np.ndarray, elapsed: np.ndarray, pn: np.ndarray) -> List[int]:
+    """:func:`state_digest` of many buckets at once, from their rows
+    (capacity bases int64[K], ``elapsed`` int64[K], lanes int64[K, N, 2]):
+    the same bytes hashed (the header, then every non-zero lane in slot
+    order), packed by numpy rather than a wire state a lane."""
+    K, N = pn.shape[:2]
+    head = np.empty((K, 2), ">i8")
+    head[:, 0], head[:, 1] = cap, elapsed
+    lanes = np.empty((K, N), _LANE)
+    lanes["slot"] = np.arange(N)
+    lanes["added"], lanes["taken"] = pn[:, :, 0], pn[:, :, 1]
+    live = pn.any(axis=2)
+    heads = head.tobytes()
+    packed = lanes[live].tobytes()  # every bucket's live lanes, bucket by bucket
+    ends = np.cumsum(live.sum(axis=1)) * _LANE.itemsize
+    out, lo = [], 0
+    for k, hi in enumerate(ends.tolist()):
+        h = hashlib.blake2b(heads[16 * k : 16 * k + 16], digest_size=8)
+        h.update(packed[lo:hi])
+        out.append(int.from_bytes(h.digest(), "big"))
+        lo = hi
+    return out
+
+
+def digests_of(eng, names: Sequence[str]) -> List[Tuple[str, int]]:
+    """(name, :func:`state_digest`) of each of ``names`` that holds state,
+    in order, from one batched read of their rows (``state_rows``)."""
+    kept, cap, elapsed, pn = eng.state_rows(names)
+    return list(zip(kept, state_digests(cap, elapsed, pn)))
 
 
 def _encode_ctrl(name_payload: bytes) -> bytes:
@@ -280,33 +317,25 @@ class AntiEntropy:
             return []
         return eng.directory.bound_names(self.max_buckets)
 
-    def _snapshot_digests(
-        self, names: Sequence[str]
-    ) -> Tuple[List[Tuple[int, int]], Dict[int, str], Dict[str, list]]:
-        """(digest entries, hash→name, name→states) over ``names``."""
+    def _snapshots(self, names: Sequence[str]) -> Dict[str, list]:
+        """name → wire states of each of ``names`` that holds state."""
         eng = self._engine()
-        entries: List[Tuple[int, int]] = []
-        hmap: Dict[int, str] = {}
         snaps: Dict[str, list] = {}
         if eng is None:
-            return entries, hmap, snaps
+            return snaps
         for lo in range(0, len(names), self.snapshot_chunk):
-            chunk = names[lo : lo + self.snapshot_chunk]
-            for name, states in eng.snapshot_many(chunk).items():
-                h = name_hash64(name)
-                entries.append((h, state_digest(states)))
-                hmap[h] = name
-                snaps[name] = states
-        return entries, hmap, snaps
+            snaps.update(eng.snapshot_many(names[lo : lo + self.snapshot_chunk]))
+        return snaps
 
     def _send_paced(self, packets: Sequence[bytes], addr: Addr) -> int:
+        # Hard cap: a resync can never storm the wire. A burst goes in one
+        # send call, then the pace.
         sent = 0
-        for i, data in enumerate(packets):
-            if sent >= self.max_packets_per_job:
-                break  # hard cap: a resync can never storm the wire
-            self.rep.unicast(data, addr)
-            sent += 1
-            if (i + 1) % self.burst == 0:
+        for lo in range(0, min(len(packets), self.max_packets_per_job), self.burst):
+            burst = packets[lo : min(lo + self.burst, self.max_packets_per_job)]
+            self.rep.unicast_many([(data, addr) for data in burst])
+            sent += len(burst)
+            if len(burst) == self.burst:
                 time.sleep(self.pace_s)
         with self._mu:
             self.packets_tx += sent
@@ -321,9 +350,10 @@ class AntiEntropy:
 
     def _job_trigger(self, addr: Addr) -> None:
         names = self._bound_names()
-        if not names:
+        eng = self._engine()
+        if not names or eng is None:
             return
-        entries, _, _ = self._snapshot_digests(names)
+        entries = [(name_hash64(n), d) for n, d in digests_of(eng, names)]
         if not entries:
             return
         with self._mu:
@@ -339,7 +369,7 @@ class AntiEntropy:
             (h, d, own_hashes[h]) for h, d in entries if h in own_hashes
         ]
         missing = [h for h, _ in entries if h not in own_hashes]
-        _, _, snaps = self._snapshot_digests([n for _, _, n in known])
+        snaps = self._snapshots([n for _, _, n in known])
         fetch: List[int] = list(missing)
         push: List[Tuple[str, list]] = []
         for h, d, name in known:
@@ -386,7 +416,7 @@ class AntiEntropy:
         names = [own_hashes[h] for h in hashes if h in own_hashes]
         if not names:
             return
-        _, _, snaps = self._snapshot_digests(names)
+        snaps = self._snapshots(names)
         self._push_states(list(snaps.items()), addr, self.max_packets_per_job)
 
     def inflight_buckets(self, addr: Addr) -> frozenset:
@@ -427,8 +457,13 @@ class AntiEntropy:
     # -- lifecycle / observability -------------------------------------------
 
     def close(self) -> None:
+        """Stop the worker before the engine goes: the jobs still queued
+        are dropped, and the one in hand (one digest, at most
+        ``max_packets_per_job`` paced sends) is waited for, however long it
+        takes, since it reads engine state that the node frees next."""
         with self._cond:
             self._stopped = True
+            self._jobs.clear()
             self._cond.notify_all()
             worker = self._worker
             timers = list(self._refresh_timers.values())
@@ -436,7 +471,7 @@ class AntiEntropy:
         for t in timers:
             t.cancel()
         if worker is not None:
-            worker.join(timeout=2)
+            worker.join()
 
     def stats(self) -> dict:
         with self._mu:

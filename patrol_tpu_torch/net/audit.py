@@ -57,7 +57,7 @@ from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 from patrol_tpu_torch.ops import wire
-from patrol_tpu_torch.net.antientropy import name_hash64, state_digest
+from patrol_tpu_torch.net.antientropy import digests_of, name_hash64
 from patrol_tpu_torch.utils import histogram as hist
 from patrol_tpu_torch.utils import profiling
 from patrol_tpu_torch.utils import slo as slo_mod
@@ -174,17 +174,20 @@ class AuditPlane:
                     self.rep.log.exception("audit flush failed")
 
     def close(self) -> None:
+        # The compares still queued are dropped and the one in hand is
+        # waited for: it reads engine state that the node frees next.
         self._stop_evt.set()
         with self._cond:
             self._stopped = True
+            self._jobs.clear()
             self._cond.notify_all()
             worker = self._worker
         slo_mod.SENTINEL.unwatch_audit(self._slo_snapshot)
         if worker is not None:
-            worker.join(timeout=2)
+            worker.join()
         t = self._flusher
         if t is not None:
-            t.join(timeout=2)
+            t.join()
 
     def _engine(self):
         repo = getattr(self.rep, "repo", None)
@@ -369,11 +372,7 @@ class AuditPlane:
         digests: List[Tuple[int, int]] = []
         if eng is not None:
             names = eng.directory.bound_names(self.max_buckets)
-            for lo in range(0, len(names), 64):
-                for name, states in eng.snapshot_many(
-                    names[lo : lo + 64]
-                ).items():
-                    digests.append((name_hash64(name), state_digest(states)))
+            digests = [(name_hash64(n), d) for n, d in digests_of(eng, names)]
         with self._mu:
             self._tick += 1
             self._absorb_ledger_locked(sides_now)
@@ -404,10 +403,9 @@ class AuditPlane:
             packets = wire.encode_audit_packets(
                 self.node_slot, digests, windows, self.tx_mtu
             )
-            for addr in peers:
-                for data in packets:
-                    self.rep.unicast(data, addr)
-                    sent += 1
+            sent = self.rep.unicast_many(
+                [(data, addr) for addr in peers for data in packets]
+            )
         if sent:
             self.packets_tx += sent
             profiling.COUNTERS.inc("audit_packets_tx", sent)
@@ -485,11 +483,7 @@ class AuditPlane:
         own: Dict[int, int] = {}
         if eng is not None:
             names = eng.directory.bound_names(self.max_buckets)
-            for lo in range(0, len(names), 64):
-                for name, states in eng.snapshot_many(
-                    names[lo : lo + 64]
-                ).items():
-                    own[name_hash64(name)] = state_digest(states)
+            own = {name_hash64(n): d for n, d in digests_of(eng, names)}
         divergent = sum(1 for h, d in entries if own.get(h) != d)
         now = time.monotonic()
         with self._mu:

@@ -373,16 +373,17 @@ class DeltaPlane:
         intervals, pack + send the dirty set to every capable peer, drain
         pending ack vectors. Returns data packets sent. Each acknowledged
         seq's hold, from its datagram's pickup to the send of the datagram
-        carrying its ack, goes to ``delta_ack_hold_ns``."""
-        with trace_mod.Span(trace_mod.EV_DELTA_FLUSH) as span:
+        carrying its ack, goes to ``delta_ack_hold_ns``; the tick's whole
+        time, the build under ``_mu`` and the sends, to ``delta_flush_ns``."""
+        with trace_mod.Span(trace_mod.EV_DELTA_FLUSH, hist.DELTA_FLUSH) as span:
             sends, data_packets = self._flush_tick()
             span.arg = len(sends)
-            for data, addr, picked in sends:
-                self.rep.unicast(data, addr)
-                if picked:
-                    hist.DELTA_ACK_HOLD.record_many(
-                        time.perf_counter_ns() - np.array(picked, np.int64)
-                    )
+            self.rep.unicast_many([(data, addr) for data, addr, _ in sends])
+            picked = [t for _, _, stamps in sends for t in stamps]
+            if picked:
+                hist.DELTA_ACK_HOLD.record_many(
+                    time.perf_counter_ns() - np.array(picked, np.int64)
+                )
         return data_packets
 
     def _flush_tick(self) -> Tuple[List[Tuple[bytes, Addr, list]], int]:
@@ -621,45 +622,55 @@ class DeltaPlane:
         The walk rides into the engine so the directory pass never
         re-walks the bytes."""
         tr = trace_mod.TRACE
-        max_slots = self.rep.slots.max_slots
         data_live = False
-        with trace_mod.Span(trace_mod.EV_RX_ACKS, arg=len(lengths)), self._mu:
-            for i in range(len(lengths)):
-                if lengths[i] <= 0:
-                    continue  # non-dv2 ring row: not delta traffic
-                if not walk.ok[i]:
-                    self.rx_errors += 1
-                    continue
-                st = self._peer(addrs[i])
-                # A peer shipping deltas is v2-capable by demonstration.
-                st.capable = True
-                n_acks = int(walk.n_acks[i])
-                for k in range(n_acks):
-                    self._on_ack_locked(st, int(walk.acks[i, k]))
-                if n_acks and tr.enabled:
-                    tr.record(trace_mod.EV_DELTA_ACK, 0, n_acks)
-                if walk.seq[i]:
-                    st.pending_acks.append((int(walk.seq[i]), picked_ns))
-                cnt = int(walk.count[i])
-                if cnt:
-                    st.last_rx_data_ns = time.perf_counter_ns()
-                    data_live = True
-                self.rx_packets += 1
-                self.rx_deltas += cnt
-                # Python-path parity for the per-entry error counter:
-                # out-of-range slots and control-channel names are
-                # counted (and never folded — the engine's entry filter
-                # sentinels them out of the dispatch).
-                if cnt:
-                    offs = walk.name_off[i, :cnt].astype(np.int64)
-                    first = np.asarray(planes)[
-                        i, np.clip(offs, 0, np.asarray(planes).shape[1] - 1)
-                    ]
-                    ctrl = (walk.name_len[i, :cnt] > 0) & (first == 0)
-                    bad = int(
-                        ((walk.slot[i, :cnt] >= max_slots) | ctrl).sum()
-                    )
-                    self.rx_errors += bad
+        # Python-path parity for the per-entry error counter, over the
+        # whole batch at once: out-of-range slots and control-channel
+        # names are counted (and never folded — the engine's entry filter
+        # sentinels them out of the dispatch).
+        bad_entries = 0
+        rows_ok = (np.asarray(lengths) > 0) & walk.ok
+        if rows_ok.any():
+            planes_np = np.asarray(planes)
+            E = walk.name_len.shape[1]
+            pi, ei = np.nonzero(
+                rows_ok[:, None] & (np.arange(E)[None, :] < walk.count[:, None])
+            )
+            if pi.size:
+                offs = walk.name_off[pi, ei].astype(np.int64)
+                first = planes_np[pi, np.clip(offs, 0, planes_np.shape[1] - 1)]
+                ctrl = (walk.name_len[pi, ei] > 0) & (first == 0)
+                bad_entries = int(
+                    ((walk.slot[pi, ei] >= self.rep.slots.max_slots) | ctrl).sum()
+                )
+        # The wait to take _mu (the flusher holds it while it builds every
+        # peer's datagrams) is a stage of its own: delta_mu_wait_ns.
+        waited = trace_mod.Span(trace_mod.EV_RX_MU_WAIT, hist.DELTA_MU_WAIT).open()
+        with self._mu:
+            waited.close()
+            with trace_mod.Span(trace_mod.EV_RX_ACKS, arg=len(lengths)):
+                for i in range(len(lengths)):
+                    if lengths[i] <= 0:
+                        continue  # non-dv2 ring row: not delta traffic
+                    if not walk.ok[i]:
+                        self.rx_errors += 1
+                        continue
+                    st = self._peer(addrs[i])
+                    # A peer shipping deltas is v2-capable by demonstration.
+                    st.capable = True
+                    n_acks = int(walk.n_acks[i])
+                    for k in range(n_acks):
+                        self._on_ack_locked(st, int(walk.acks[i, k]))
+                    if n_acks and tr.enabled:
+                        tr.record(trace_mod.EV_DELTA_ACK, 0, n_acks)
+                    if walk.seq[i]:
+                        st.pending_acks.append((int(walk.seq[i]), picked_ns))
+                    cnt = int(walk.count[i])
+                    if cnt:
+                        st.last_rx_data_ns = time.perf_counter_ns()
+                        data_live = True
+                    self.rx_packets += 1
+                    self.rx_deltas += cnt
+                self.rx_errors += bad_entries
         # Acking needs a pacing tick even on nodes that ship no deltas.
         self.start()
         if data_live:

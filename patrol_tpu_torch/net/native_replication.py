@@ -677,6 +677,30 @@ class NativeReplicator:
         except OSError:
             self.send_errors += 1
 
+    def unicast_many(self, sends: Sequence[Tuple[bytes, Tuple[str, int]]]) -> int:
+        """Thread-safe send of several datagrams, each to its own peer, in
+        one native call (``pt_send_pairs``: sendmmsg in chunks, in order):
+        a delta flush tick's datagrams to every peer. Counted a datagram
+        at a time as :meth:`unicast` counts them; returns those sent."""
+        n = len(sends)
+        if not n:
+            return 0
+        pkts = np.zeros((n, max(len(data) for data, _ in sends)), np.uint8)
+        sizes = np.empty(n, np.int32)
+        ips = np.empty(n, np.uint32)
+        ports = np.empty(n, np.uint16)
+        for i, (data, addr) in enumerate(sends):
+            pkts[i, : len(data)] = np.frombuffer(data, np.uint8)
+            sizes[i] = len(data)
+            ips[i] = _ip_to_u32(addr[0])
+            ports[i] = int(addr[1])
+        ok = self.sock.send_pairs(pkts, sizes, ips, ports)
+        sent = int(ok.sum())
+        self.tx_packets += sent
+        self.tx_bytes += int(sizes[ok].sum())
+        self.send_errors += n - sent
+        return sent
+
     def _live_peers(self):
         ips, ports = self._endpoints
         if self.drop_addr is None:

@@ -1017,6 +1017,14 @@ class Replicator(asyncio.DatagramProtocol):
         if self.loop is not None:
             self.loop.call_soon_threadsafe(self._send, data, addr)
 
+    def unicast_many(self, sends: Sequence[Tuple[bytes, Addr]]) -> int:
+        """Thread-safe send of several datagrams, each to its own peer
+        (a flush tick's, an audit tick's, an anti-entropy burst's): one
+        :meth:`unicast` each. Returns the datagrams handed on."""
+        for data, addr in sends:
+            self.unicast(data, addr)
+        return len(sends)
+
     def _broadcast_now(self, payloads: List[bytes], addrs: Optional[List[Addr]] = None) -> None:
         targets = self.peers if addrs is None else addrs
         for data in payloads:

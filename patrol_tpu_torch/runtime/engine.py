@@ -2690,7 +2690,9 @@ class DeviceEngine:
                 pi, ei = pi[keep], ei[keep]
                 off_f, len_f = off_f[keep], len_f[keep]
             if pi.size:
-                with trace_mod.Span(trace_mod.EV_INGEST_DIRECTORY, arg=int(pi.size)):
+                with trace_mod.Span(
+                    trace_mod.EV_INGEST_DIRECTORY, hist.INGEST_DIRECTORY, int(pi.size)
+                ):
                     pinned = self._raw_directory_pass(
                         planes, walk, pi, ei, off_f, len_f, now, rows_pe, hosted_pe
                     )
@@ -3189,6 +3191,28 @@ class DeviceEngine:
             if states:
                 out[name] = states
         return out
+
+    def state_rows(
+        self, names: Sequence[str]
+    ) -> Tuple[List[str], np.ndarray, np.ndarray, np.ndarray]:
+        """Batched state read for digests, with one gather as
+        :meth:`snapshot_many` makes: (the names that hold state, their
+        capacity bases int64[K], ``elapsed`` int64[K] and lanes
+        int64[K, N, 2]), in the order given. A name unbound, evicted
+        mid-read, or whose bucket holds no lane, capacity or elapsed is
+        left out, as :meth:`snapshot_many` leaves it out."""
+        known = [(n, self.directory.lookup(n)) for n in names]
+        known = [(n, r) for n, r in known if r is not None]
+        N = self.config.nodes
+        if not known:
+            return [], np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros((0, N, 2), np.int64)
+        rows = np.array([r for _, r in known], np.int64)
+        pn, el = self._row_states(rows)
+        cap = np.asarray(self.directory.cap_base_nt, np.int64)[rows]
+        keep = np.array([self.directory.lookup(n) == r for n, r in known], bool)
+        keep &= pn.any(axis=(1, 2)) | (el != 0) | (cap != 0)
+        kept = [n for (n, _), k in zip(known, keep) if k]
+        return kept, cap[keep], el[keep], pn[keep]
 
     def tokens(self, name: str) -> int:
         """Whole tokens currently in a bucket (introspection)."""

@@ -262,10 +262,20 @@ DELTA_RX_QUEUE = HISTOGRAMS.get("delta_rx_queue_ns")
 # carried it to the flush handing the ack's datagram to the socket
 # (net/delta.py): the node's own share of an ack's latency.
 DELTA_ACK_HOLD = HISTOGRAMS.get("delta_ack_hold_ns")
+# One delta flush tick (net/delta.py DeltaPlane.flush), whole: every
+# peer's datagrams built under DeltaPlane._mu, then their sends.
+DELTA_FLUSH = HISTOGRAMS.get("delta_flush_ns")
+# Per rx batch, the rx thread's wait to take DeltaPlane._mu for the
+# batch's ack bookkeeping (net/delta.py _ingest_walk): what the flush and
+# the other takers of the lock cost the receive path.
+DELTA_MU_WAIT = HISTOGRAMS.get("delta_mu_wait_ns")
 # Datagram planes per raw decode+fold launch (runtime/engine.py
 # ingest_raw_planes): 1 on the asyncio backend, up to the rx ring's
 # batch (512) on the native one.
 RAW_PLANES = HISTOGRAMS.get("ingest_raw_planes", unit="planes")
+# Per raw decode+fold launch, its directory pass: the hashed lookup of
+# every entry's name and the binding of the names it misses.
+INGEST_DIRECTORY = HISTOGRAMS.get("ingest_directory_ns")
 AE_JOB = HISTOGRAMS.get("ae_job_ns")
 FRONT_WAIT = HISTOGRAMS.get("http_front_wait_ns")
 # Device-side stage histograms (patrol-fleet, ROADMAP item 1's r06

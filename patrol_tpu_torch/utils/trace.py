@@ -90,11 +90,12 @@ EV_TAKE_COALESCE = 19  # hot-key take-n rows in a tick (arg = tickets folded)
 # record, is retired: delta.flush spans the whole tick).
 EV_RX_BATCH = 20  # one recv batch, pickup to the end of its handling (arg = datagrams)
 EV_RX_WALK = 21  # the dv2 payloads' framing walk (arg = datagrams)
-EV_RX_ACKS = 22  # the per-row ack bookkeeping under DeltaPlane._mu (arg = rows)
+EV_RX_ACKS = 22  # the per-row ack bookkeeping under DeltaPlane._mu, once taken (arg = rows)
 EV_INGEST_DIRECTORY = 23  # raw ingest's hashed lookup + miss binding (arg = entries)
 EV_INGEST_SHIP = 24  # raw ingest's planes + plan copied to the device (arg = entries)
 EV_INGEST_LAUNCH = 25  # raw ingest's decode_fold launch call (arg = entries)
 EV_DELTA_FLUSH = 26  # one delta flush tick (arg = datagrams sent)
+EV_RX_MU_WAIT = 27  # the rx thread's wait to take DeltaPlane._mu for a batch's acks
 
 EVENT_NAMES = {
     EV_TICK: "engine.tick",
@@ -122,6 +123,7 @@ EVENT_NAMES = {
     EV_INGEST_SHIP: "ingest.ship",
     EV_INGEST_LAUNCH: "ingest.launch",
     EV_DELTA_FLUSH: "delta.flush",
+    EV_RX_MU_WAIT: "rx.mu_wait",
 }
 
 AE_PHASES = {"trigger": 1, "digest": 2, "fetch": 3}
@@ -321,8 +323,10 @@ class Span:
     profiler capture runs, the stage is also a ``cpu_op`` named after its
     event (``EVENT_NAMES``) on this thread. ``t0_ns`` starts the stage at
     a stamp taken earlier (the profiler's span still opens at entry).
-    Waits are not spans: a gap the capture leaves unlabelled is time in
-    which no program work ran."""
+    :meth:`open` and :meth:`close` bound a stage that ends inside a block
+    it did not start, such as the wait to take a lock. Waits are not
+    spans, but for ``rx.mu_wait``: a gap the capture leaves unlabelled is
+    time in which no program work ran."""
 
     __slots__ = ("etype", "hist", "arg", "t0_ns", "_rf")
 
@@ -347,6 +351,11 @@ class Span:
         if rf is not None:
             self._rf = None
             rf.__exit__(None, None, None)
+
+    open = __enter__
+
+    def close(self) -> None:
+        self.__exit__()
 
 
 def anomaly(reason: str) -> None:

@@ -60,6 +60,11 @@ class FakeRep:
     def unicast(self, data, addr):
         self.sent.append((data, addr))
 
+    def unicast_many(self, sends):
+        for data, addr in sends:
+            self.unicast(data, addr)
+        return len(sends)
+
 
 PACKAGES = {
     "jax": (jdelta, jwire, JReplyGate),

@@ -647,6 +647,11 @@ class FakeRep:
     def unicast(self, data, addr):
         self.sent.append((data, addr))
 
+    def unicast_many(self, sends):
+        for data, addr in sends:
+            self.unicast(data, addr)
+        return len(sends)
+
 
 def test_delta_plane_counters_match_python_path(monkeypatch):
     from patrol_tpu_torch.net import delta as delta_mod

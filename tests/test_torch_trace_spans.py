@@ -129,16 +129,23 @@ def test_the_ring_and_its_chrome_trace_place_each_event_at_its_start():
     assert span_ev["t_ns"] == sp.t0_ns
     assert sp.t0_ns + span_ev["dur_ns"] <= end
     assert t_call <= late_ev["t_ns"] + late_ev["dur_ns"] <= t_back
-    wall_before = time.time_ns() - time.perf_counter_ns()
+    # The offset between the clocks (wall - perf) is at least w0 - p1 and
+    # at most w1 - p2. The export reads the wall clock and then
+    # perf_counter_ns, both between p1 and p2, which can only lower its
+    # offset, by at most p2 - p1. So its offset lies between w0 - p2 and
+    # w1 - p2: a preemption between any two reads widens the bracket and
+    # never breaks it.
+    w0, p1 = time.time_ns(), time.perf_counter_ns()
     chrome = json.loads(trace_mod.TRACE.chrome_trace(events=[span_ev, late_ev]))
-    wall_after = time.time_ns() - time.perf_counter_ns()
+    p2, w1 = time.perf_counter_ns(), time.time_ns()
+    lo, hi = w0 - p2, w1 - p2
     for ev, ce in zip((span_ev, late_ev), chrome["traceEvents"]):
         assert ce["dur"] * 1000 == pytest.approx(ev["dur_ns"], abs=1)
         # Start and end on the wall clock: the ring's stamps moved by
         # the offset between the two clocks at the export.
         ends = ((ce["ts"], ev["t_ns"]), (ce["ts"] + ce["dur"], ev["t_ns"] + ev["dur_ns"]))
         for ce_us, t_ns in ends:
-            assert t_ns + wall_before - 1000 <= ce_us * 1000 <= t_ns + wall_after + 1000
+            assert t_ns + lo - 1000 <= ce_us * 1000 <= t_ns + hi + 1000
 
 
 def _free_udp_port():
